@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of exact covariance thresholding into connected
+components for large-scale graphical lasso (arXiv:1108.3829).
+
+``glasso(S, lam)`` screens |S_ij| > lam into connected components
+(Theorem 1), plans size/structure buckets, solves each bucket on its rung
+of the route ladder — the ``tree_glasso`` CUDA kernel for pairs and trees,
+a host clique-tree solve for chordal blocks, the ``bucket_glasso`` CUDA
+kernel (whole BCD solve per lane) for the rest — and assembles a dense
+Theta.  It runs on the card by default; ``EngineOptions(device="cpu")``
+runs the plain-PyTorch versions of the kernels instead.
+
+The package imports ``torch``, ``numpy`` and ``scipy`` only.
+"""
+
+from repro_torch.core.glasso import glasso, glasso_path
+from repro_torch.engine.api import Engine, GlassoResult
+from repro_torch.engine.options import EngineOptions
+
+__all__ = ["glasso", "glasso_path", "Engine", "GlassoResult", "EngineOptions"]

@@ -1,0 +1,209 @@
+"""The Plan->Execute engine: one object owning the whole pipeline
+
+    screen -> partition -> bucket -> solve -> assemble
+
+``Engine.run`` is one (S, lam) solve through a registry screening backend,
+the bucket planner and the executor, on the device ``EngineOptions.device``
+names (``"cuda"`` by default).  ``repro_torch.glasso`` is a thin wrapper
+over it.  Inputs and results are numpy arrays, as in the reference package.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import nullcontext
+
+import numpy as np
+
+from repro_torch.core import schedule as schedule_mod
+from repro_torch.core.instrument import bump
+from repro_torch.core.screening import ScreenStats, thresholded_components
+from repro_torch.core.sparse import resolve_output
+from repro_torch.engine.executor import BucketExecutor
+from repro_torch.engine.options import EngineOptions, normalize_options
+from repro_torch.engine.planner import build_plan_incremental
+from repro_torch.obs.trace import Trace, current_trace, span, trace_request
+
+class GlassoResult:
+    """One solve's answer + attribution.
+
+    ``Theta`` is the dense (p, p) numpy precision matrix; ``labels`` the
+    canonical screening partition; ``route_mix`` the number of blocks per
+    structure class.  Timing lives in the ``stages()`` view (seconds per
+    canonical stage); ``trace`` carries the request's span tree when the
+    solve ran traced."""
+
+    def __init__(
+        self,
+        lam: float,
+        Theta: np.ndarray,
+        labels: np.ndarray,
+        screen: ScreenStats | None,
+        solve_seconds: float,
+        solver: str,
+        route_mix: dict | None = None,
+        routed: bool = True,
+        assemble_seconds: float = 0.0,
+        dispatch_seconds: float = 0.0,
+        device: str = "cpu",
+        trace: Trace | None = None,
+    ):
+        self.lam = lam
+        self.Theta = Theta
+        self.labels = labels
+        self.screen = screen
+        self.solver = solver
+        self.route_mix = dict(route_mix) if route_mix is not None else {}
+        self.routed = routed
+        self.device = device
+        self.trace = trace
+        self._stage_seconds = {
+            "screen": float(screen.seconds) if screen is not None else 0.0,
+            "solve": float(solve_seconds),
+            "dispatch": float(dispatch_seconds),
+            "assemble": float(assemble_seconds),
+        }
+
+    def __repr__(self) -> str:
+        return (
+            f"GlassoResult(lam={self.lam!r}, p={len(self.labels)}, "
+            f"solver={self.solver!r}, device={self.device!r})"
+        )
+
+    def stages(self) -> dict[str, float]:
+        """Seconds per canonical stage: ``screen`` / ``solve`` (device solve
+        and verification, dispatch and assembly excluded) / ``dispatch``
+        (host time issuing launches) / ``assemble``."""
+        return dict(self._stage_seconds)
+
+    @property
+    def noniterative_fraction(self) -> float:
+        """Share of this solve's blocks ROUTED to a non-iterative solver
+        (singletons included); 0.0 when the solve ran with route=False.
+        KKT-rejected blocks repaired by the iterative tail are not
+        subtracted — the ``router.fallback.*`` counters track those."""
+        from repro_torch.engine.registry import route_for
+
+        if not self.routed:
+            return 0.0
+        total = sum(self.route_mix.values())
+        if not total:
+            return 1.0
+        iterative = sum(
+            n for cls, n in self.route_mix.items() if route_for(cls) == "iterative"
+        )
+        return 1.0 - iterative / total
+
+
+def _result(
+    plan, labels, screen_stats, Theta, seconds, solver, lam, *,
+    routed: bool, assemble_seconds: float, dispatch_seconds: float, device: str,
+) -> GlassoResult:
+    route_mix = {"singleton": len(plan.isolated)} if len(plan.isolated) else {}
+    for b in plan.buckets:
+        route_mix[b.structure] = route_mix.get(b.structure, 0) + len(b.comps)
+    solve_seconds = max(0.0, seconds - assemble_seconds - dispatch_seconds)
+    bump("engine.solve_us", int(solve_seconds * 1e6))
+    if screen_stats is not None:
+        bump("engine.screen_us", int(float(screen_stats.seconds) * 1e6))
+    return GlassoResult(
+        trace=current_trace(),
+        lam=float(lam),
+        Theta=Theta,
+        labels=labels,
+        screen=screen_stats,
+        solve_seconds=solve_seconds,
+        solver=solver,
+        route_mix=route_mix,
+        routed=routed,
+        assemble_seconds=assemble_seconds,
+        dispatch_seconds=dispatch_seconds,
+        device=device,
+    )
+
+
+class Engine:
+    """Reusable pipeline instance: fixed (solver, dtype, device, cc_backend,
+    options)."""
+
+    def __init__(self, *, options: EngineOptions | None = None, **legacy_engine_kwargs):
+        opts = normalize_options(options, legacy_engine_kwargs, context="Engine")
+        if opts.oversize_threshold is not None or opts.oversize_budget_mb is not None:
+            raise NotImplementedError(
+                "the oversize (sharded) route is not ported yet (slice 9)"
+            )
+        if opts.fused is True:
+            raise NotImplementedError("the fused wave packer is not ported yet (slice 4)")
+        if opts.trace == "jax":
+            raise NotImplementedError("trace='jax' annotates JAX profiles; use trace=True")
+        self.options = opts
+        self.output = opts.output
+        self.solver = opts.resolved_solver("bcd")
+        self.dtype = opts.resolved_dtype()
+        self.np_dtype = opts.np_dtype()
+        self.device = opts.resolved_device()
+        self.cc_backend = opts.cc_backend
+        self.executor = BucketExecutor(
+            solver=self.solver,
+            dtype=self.dtype,
+            device=self.device,
+            solver_opts=dict(opts.solver_opts),
+            route=opts.route,
+            route_check_tol=opts.route_check_tol,
+        )
+
+    def _trace_ctx(self, name: str, **attrs):
+        """Root a request trace for this run (or join the ambient one);
+        ``EngineOptions(trace=False)`` makes the engine span-free."""
+        if not self.options.trace:
+            return nullcontext()
+        return trace_request(name, **attrs)
+
+    def screen(self, S: np.ndarray, lam: float) -> tuple[np.ndarray, ScreenStats]:
+        with span("engine.screen", backend=self.cc_backend):
+            return thresholded_components(S, lam, backend=self.cc_backend)
+
+    def run(
+        self,
+        S: np.ndarray,
+        lam: float,
+        *,
+        screen: bool = True,
+        p_max: int | None = None,
+        warm_W: np.ndarray | None = None,
+    ) -> GlassoResult:
+        """One solve.  ``screen=False`` is the paper's unscreened baseline
+        (one global block); ``warm_W`` is a (p, p) covariance iterate whose
+        restrictions warm-start the iterative buckets."""
+        S = np.asarray(S)
+        p = S.shape[0]
+        if resolve_output(self.output, p) == "sparse":
+            raise NotImplementedError(
+                "output='sparse' (and output='auto' above AUTO_SPARSE_P) is "
+                "not ported yet (slice 3)"
+            )
+        with self._trace_ctx("engine.run", lam=float(lam), p=int(p)):
+            if screen:
+                labels, screen_stats = self.screen(S, lam)
+            else:
+                labels = np.zeros(p, dtype=np.int64)  # one global component
+                screen_stats = None
+            with span("engine.plan"):
+                plan = build_plan_incremental(
+                    S, lam, labels, dtype=self.np_dtype,
+                    classify_structures=self.executor.route and screen,
+                )
+            schedule_mod.check_capacity(
+                [len(c) for b in plan.buckets for c in b.comps] or [1], p_max
+            )
+            t0 = time.perf_counter()
+            with span("engine.solve", lam=float(lam)):
+                Theta = self.executor.solve_plan(plan, float(lam), S, warm_W=warm_W)
+            seconds = time.perf_counter() - t0
+            return _result(
+                plan, labels, screen_stats, Theta, seconds, self.solver, lam,
+                routed=self.executor.route,
+                assemble_seconds=self.executor.last_assemble_seconds,
+                dispatch_seconds=self.executor.last_dispatch_seconds,
+                device=str(self.device),
+            )

@@ -1,0 +1,289 @@
+"""Bucket executor: dispatch every bucket -> (only then) wait -> verify ->
+assemble.
+
+* **Routes.**  Each bucket carries the structure class the planner assigned;
+  ``registry.route_for`` maps it to "closed_form" (pair/tree: the
+  ``tree_glasso`` kernel plus a batched KKT check), "chordal" (host
+  clique-tree solve) or "iterative" (the configured solver; for ``bcd`` one
+  ``bucket_glasso`` launch per bucket).  Singletons are assembled in closed
+  form.
+* **Asynchronous dispatch.**  On the card every launch is queued on the
+  current stream; the executor waits once, after the last bucket, before it
+  reads the KKT verdicts and assembles.
+* **Verified routing.**  Closed-form candidates whose KKT residual exceeds
+  ``route_check_tol`` (scaled by max(1, max|S|)) are re-solved by the
+  iterative solver warm-started from the rejected candidate
+  (``dispatch_repair``; ``router.fallback.*`` counters).  Routing changes
+  cost, never the answer.
+"""
+
+from __future__ import annotations
+
+import inspect
+import time
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import blocks as blocks_mod
+from repro_torch.core.instrument import bump, timed_dispatch
+from repro_torch.core.solvers import solver_spec
+from repro_torch.core.solvers.closed_form import (
+    glasso_chordal_host,
+    glasso_forest_stack,
+    kkt_ok_stack,
+    kkt_residual_host,
+)
+from repro_torch.engine.registry import route_for
+from repro_torch.obs.trace import span
+
+
+def _validate_solver_opts(solver: str, opts: dict) -> None:
+    """Reject unknown solver kwargs up front."""
+    params = inspect.signature(solver_spec(solver).fn).parameters
+    accepted = {
+        n for n, p in params.items() if p.kind == p.KEYWORD_ONLY
+    } - {"W0", "Theta0"}
+    unknown = sorted(set(opts) - accepted)
+    if unknown:
+        raise TypeError(
+            f"solver {solver!r} does not accept option(s) {unknown}; "
+            f"accepted: {sorted(accepted)}"
+        )
+
+
+def closed_form(
+    blocks: torch.Tensor, lams: torch.Tensor, *, tol: float, verify: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched closed-form forest solve + KKT verdict: (Theta, ok).
+
+    ``verify=False`` returns ok=True without the check — sound only for the
+    "pair" class, whose 2x2 support is complete (no non-edge constraint)."""
+    thetas = glasso_forest_stack(blocks, lams)
+    if verify:
+        ok = kkt_ok_stack(blocks, lams, thetas, tol=tol)
+    else:
+        ok = torch.ones(blocks.shape[0], dtype=torch.bool, device=blocks.device)
+    return thetas, ok
+
+
+def dispatch_repair(
+    solver: str,
+    dtype: torch.dtype,
+    device: torch.device,
+    opts: dict,
+    size: int,
+    blocks: np.ndarray,
+    lams: np.ndarray,
+    candidates,
+) -> torch.Tensor:
+    """Re-solve rejected fast-path blocks with the iterative tail.
+
+    The rejected candidate is usually PD but dual-infeasible, so its inverse
+    is a good W iterate and, for solvers consuming the Theta seed, the
+    candidate itself seeds the inner lasso.  A candidate that is singular
+    or not finite gets the cold pair (S + lam*I, diag(1/(S_ii + lam)))."""
+    spec = solver_spec(solver)
+    sub = torch.as_tensor(np.asarray(blocks), dtype=dtype, device=device)
+    lams_d = torch.as_tensor(np.asarray(lams), dtype=dtype, device=device)
+    W0 = T0 = None
+    if spec.warm_startable:
+        eye = torch.eye(size, dtype=dtype, device=device)
+        cand = torch.as_tensor(candidates, dtype=dtype, device=device)
+        W0, info = torch.linalg.inv_ex(cand)
+        finite = (
+            torch.isfinite(W0).all(dim=(1, 2)) & (info == 0)
+        )[:, None, None]
+        W0 = torch.where(finite, W0, sub + lams_d[:, None, None] * eye)
+        if spec.meta.get("theta_warm"):
+            diag = sub.diagonal(dim1=1, dim2=2)
+            cold_T = torch.diag_embed(1.0 / (diag + lams_d[:, None]))
+            T0 = torch.where(finite, cand, cold_T)
+    bump("executor.dispatches")
+    out, _ = timed_dispatch(spec.fn, sub, lams_d, W0=W0, Theta0=T0, **opts)
+    return out
+
+
+def solve_chordal_bucket(
+    bucket: blocks_mod.Bucket, lams: np.ndarray, *, tol: float
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host clique-tree direct solve of one chordal bucket.
+
+    Returns (padded Theta stack, per-block ok); verification failures are
+    left to the caller's fallback."""
+    n = bucket.blocks.shape[0]
+    thetas = np.empty_like(np.asarray(bucket.blocks))
+    ok = np.zeros(n, dtype=bool)
+    for i, comp in enumerate(bucket.comps):
+        b = len(comp)
+        lam = float(lams[i])
+        blk = np.asarray(bucket.blocks[i][:b, :b])
+        padded = np.eye(bucket.size, dtype=thetas.dtype) / (1.0 + lam)
+        try:
+            theta = glasso_chordal_host(blk, lam)
+            res = kkt_residual_host(blk, lam, theta)
+            scale = max(1.0, float(np.abs(blk).max()))
+            ok[i] = res <= tol * scale
+            padded[:b, :b] = theta
+        except (ValueError, np.linalg.LinAlgError):
+            ok[i] = False
+        thetas[i] = padded
+    return thetas, ok
+
+
+@dataclass
+class _Pending:
+    bucket: blocks_mod.Bucket
+    out: Any                       # tensor (device routes) or np (chordal)
+    ok: Any = None                 # per-block KKT flags of verified routes
+    repair: Any = None             # (row idx, in-flight iterative re-solve)
+
+
+@dataclass
+class BucketExecutor:
+    """Solves plans on one device."""
+
+    solver: str = "bcd"
+    dtype: torch.dtype = torch.float64
+    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    solver_opts: dict = field(default_factory=dict)
+    route: bool = True             # structure-routed ladder; False = all iterative
+    route_check_tol: float = 1e-6  # KKT acceptance for closed-form candidates
+    # assembly-stage seconds of the MOST RECENT solve_plan call
+    last_assemble_seconds: float = 0.0
+    # host seconds spent issuing launches in the MOST RECENT solve_plan call
+    last_dispatch_seconds: float = 0.0
+
+    def __post_init__(self):
+        self._spec = solver_spec(self.solver)  # unknown names raise ValueError
+        _validate_solver_opts(self.solver, self.solver_opts)
+        self._np_dtype = np.dtype(str(self.dtype).removeprefix("torch."))
+
+    def _warm_stack(
+        self, bucket: blocks_mod.Bucket, lam: float, warm_W: np.ndarray
+    ) -> torch.Tensor:
+        """W0 stack gathered from a caller's W iterate, with the padded
+        coordinates reset: diagonal 1 + lam (diagonal KKT), cross terms 0."""
+        stacks = [
+            blocks_mod.pad_block(
+                blocks_mod.gather_submatrix(warm_W, c, dtype=self._np_dtype),
+                bucket.size,
+            )
+            for c in bucket.comps
+        ]
+        W0 = torch.as_tensor(np.stack(stacks), dtype=self.dtype, device=self.device)
+        idx = torch.arange(bucket.size, device=self.device)
+        pad_mask = torch.stack([idx >= len(c) for c in bucket.comps])
+        eye = torch.eye(bucket.size, dtype=torch.bool, device=self.device)
+        fix = pad_mask[:, :, None] & eye[None, :, :]
+        W0 = torch.where(fix, torch.tensor(1.0 + lam, dtype=W0.dtype, device=self.device), W0)
+        off = pad_mask[:, :, None] ^ pad_mask[:, None, :]
+        return torch.where(off, torch.zeros((), dtype=W0.dtype, device=self.device), W0)
+
+    def solve_plan(
+        self,
+        plan: blocks_mod.Plan,
+        lam: float,
+        S: np.ndarray,
+        *,
+        warm_W: np.ndarray | None = None,
+    ) -> np.ndarray:
+        """Dispatch all buckets, wait once, verify, then assemble a dense
+        (p, p) Theta."""
+        if self.route and len(plan.isolated):
+            bump("router.route.singleton", int(len(plan.isolated)))
+        self.last_dispatch_seconds = 0.0
+        opts = dict(self.solver_opts)
+        pending: list[_Pending] = []
+        for bucket in plan.buckets:
+            n = len(bucket.comps)
+            route = route_for(bucket.structure) if self.route else "iterative"
+            if self.route:
+                bump(f"router.route.{bucket.structure}", n)
+            if route == "chordal":
+                # host solve: KKT failures are known at once, so their repair
+                # joins the same wave of launches as everything else
+                (out, ok), _ = timed_dispatch(
+                    solve_chordal_bucket, bucket, np.full(n, lam),
+                    tol=self.route_check_tol,
+                )
+                p = _Pending(bucket=bucket, out=out)
+                if not ok.all():
+                    idx = np.flatnonzero(~ok)
+                    bump(f"router.fallback.{bucket.structure}", int(idx.size))
+                    p.repair = self._dispatch_repair(bucket, idx, out[idx], lam)
+                pending.append(p)
+                continue
+            stacked = torch.as_tensor(bucket.blocks, dtype=self.dtype, device=self.device)
+            lams = torch.full((n,), lam, dtype=self.dtype, device=self.device)
+            if route == "closed_form":
+                (theta, ok), dt = timed_dispatch(
+                    closed_form, stacked, lams, tol=self.route_check_tol,
+                    verify=bucket.structure != "pair",
+                )
+                self.last_dispatch_seconds += dt
+                bump("executor.dispatches")
+                pending.append(_Pending(bucket=bucket, out=theta, ok=ok))
+                continue
+            W0 = None
+            if warm_W is not None and self._spec.warm_startable:
+                W0 = self._warm_stack(bucket, lam, warm_W)
+            out, dt = timed_dispatch(self._spec.fn, stacked, lams, W0=W0, **opts)
+            self.last_dispatch_seconds += dt
+            bump("executor.dispatches")
+            pending.append(_Pending(bucket=bucket, out=out))
+
+        # single synchronization point: everything above was queued
+        with span("engine.barrier"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        for p in pending:
+            if p.repair is not None:
+                idx, fixed = p.repair
+                p.out[idx] = fixed.cpu().numpy()
+        self._verify_and_fallback(pending, lam)
+
+        t0 = time.perf_counter()
+        with span("engine.assemble", output="dense"):
+            sols = [
+                p.out.cpu().numpy() if isinstance(p.out, torch.Tensor) else p.out
+                for p in pending
+            ]
+            Theta = blocks_mod.assemble_dense(plan, sols, S)
+        self.last_assemble_seconds = time.perf_counter() - t0
+        bump("engine.assemble_us", int(self.last_assemble_seconds * 1e6))
+        return Theta
+
+    def _dispatch_repair(
+        self, bucket: blocks_mod.Bucket, idx: np.ndarray, candidates, lam: float
+    ):
+        """Bucket-shaped wrapper over the shared ``dispatch_repair``."""
+        t0 = time.perf_counter()
+        out = dispatch_repair(
+            self.solver, self.dtype, self.device, dict(self.solver_opts),
+            bucket.size, np.asarray(bucket.blocks)[idx],
+            np.full(int(idx.size), lam), candidates,
+        )
+        self.last_dispatch_seconds += time.perf_counter() - t0
+        return (idx, out)
+
+    def _verify_and_fallback(self, pending: list[_Pending], lam: float) -> None:
+        """Re-solve every closed-form block whose KKT check failed with the
+        iterative tail and splice the repaired rows into the stacks."""
+        repairs = []
+        for p in pending:
+            if p.ok is None:
+                continue
+            ok = p.ok.cpu().numpy()
+            if ok.all():
+                continue
+            idx = np.flatnonzero(~ok)
+            bump(f"router.fallback.{p.bucket.structure}", int(idx.size))
+            cand = p.out[torch.as_tensor(idx, device=p.out.device)]
+            repairs.append((p, self._dispatch_repair(p.bucket, idx, cand, lam)))
+        for p, (idx, fixed) in repairs:
+            out = p.out.clone()
+            out[torch.as_tensor(idx, device=out.device)] = fixed
+            p.out = out

@@ -1,0 +1,162 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` source compiles with ``nvcc`` into an object — all
+sources at once, one ``nvcc`` process each — and the objects link into one
+shared library with a plain C interface, loaded with ``ctypes``.  Nothing is
+built when a module is imported: the first kernel launch (or an explicit
+``library()`` call) builds, into ``build/`` beside the package, under a name
+that hashes the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once.  The build writes to a temporary directory and
+renames the finished library into place, so concurrent processes never load
+a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+
+#: sm_90a: the Hopper target with wgmma/setmaxnreg (plain sm_90 refuses them)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "tree_glasso_launch": (_I, [_P, _P, _P, _I, _I, _P]),
+    "bucket_glasso_launch": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_double, _I, _P],
+    ),
+    "bucket_glasso_smem_bytes": (ctypes.c_size_t, [_I]),
+    "repro_torch_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, then
+    ``PATH``."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME); the CUDA kernels build on first "
+            "use on a machine with the CUDA toolkit"
+        )
+    return found
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile and link the kernels if the library is missing.
+
+    Returns (library path, build seconds, compiler output); seconds is 0.0
+    and the output empty when an up-to-date library already existed."""
+    target = library_path()
+    if target.is_file():
+        return target, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [exe, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append(
+                (src, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                ))
+            )
+        log = []
+        failed = []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(log)
+            )
+        tmp_so = Path(tmp) / target.name
+        link = subprocess.run(
+            [exe, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_so),
+             *(str(obj) for _, obj, _ in procs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log.append(f"== link\n{link.stdout}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+        os.replace(tmp_so, target)
+    return target, time.perf_counter() - t0, "\n".join(log)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            path, _, _ = build()
+            lib = ctypes.CDLL(str(path))
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _LIB = lib
+        return _LIB
+
+
+def check(status: int, kernel: str) -> None:
+    """Raise when a launcher returned a CUDA error code."""
+    if status != 0:
+        msg = library().repro_torch_cuda_error_string(status).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")
+
+
+def check_operands(kernel: str, blocks, *per_block) -> tuple[int, int]:
+    """Validate a (N, b, b) float64 CUDA stack and its (N,) per-block
+    vectors of the same dtype and device; returns (N, b)."""
+    if blocks.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {blocks.device}")
+    if blocks.dtype != torch.float64:
+        raise TypeError(f"{kernel}: the CUDA kernel takes float64, got {blocks.dtype}")
+    if blocks.ndim != 3 or blocks.shape[1] != blocks.shape[2]:
+        raise ValueError(f"{kernel}: blocks must be (N, b, b), got {tuple(blocks.shape)}")
+    n = blocks.shape[0]
+    for v in per_block:
+        if v.shape != (n,) or v.dtype != blocks.dtype or v.device != blocks.device:
+            raise ValueError(
+                f"{kernel}: per-block vectors must be ({n},) {blocks.dtype} on "
+                f"{blocks.device}, got {tuple(v.shape)} {v.dtype} on {v.device}"
+            )
+    return n, blocks.shape[1]

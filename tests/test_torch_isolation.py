@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: importing it (and its chip check) pulls in
+neither JAX nor any module of the reference package, and its entry points
+refuse to fall back to the CPU when CUDA is absent.  The import check runs
+in a subprocess because this test process imports JAX (conftest)."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import sys
+import repro_torch, repro_torch.engine, repro_torch.covariance, repro_torch.kernels.build
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(repr(bad))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    S = np.eye(3) + 0.5 * (np.ones((3, 3)) - np.eye(3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.glasso(S, 0.1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        repro_torch.Engine()
+    r = repro_torch.glasso(S, 0.1, options=repro_torch.EngineOptions(device="cpu"))
+    assert r.device == "cpu" and np.isfinite(r.Theta).all()
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without CUDA the chip check exits nonzero and prints no result; copied
+    alone, without the package, it cannot even import."""
+    code = (
+        "import sys, torch; torch.cuda.is_available = lambda: False; "
+        "sys.argv = ['chip_smoke.py']; import runpy; "
+        "runpy.run_path('chip_smoke.py', run_name='__main__')"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env.pop("PYTHONPATH")
+    proc = subprocess.run(
+        [sys.executable, str(alone)], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout
