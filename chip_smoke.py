@@ -23,8 +23,32 @@ Phases, each printing a line:
              first pays one-time library set-up).  Then each kernel is
              timed against its plain version on the inputs that solve gave
              it;
-5. kernels   one JSON line: every ported kernel with its launches on the
-             main path, error, times and bound;
+5. threshold_cc  the hook step against its plain version on
+             ``structured_synthetic`` at p = 6000 and p = 20016 (lam = 0.6):
+             ms per step, the bound, the rounds to the fixed point, the
+             host-to-device copy of S, and labels equal to the host
+             union-find;
+6. screen    the dense main path with ``cc_backend="pallas"`` (the device
+             screen) at p = 6000: labels and route mix equal to the host
+             screen's run, the same checks as phase 4, launch counters
+             zeroed just before and read just after; every hook step of
+             the first solve is recorded, then held against its plain
+             version and timed on its own inputs;
+7. covgram_screen  the fused Gram + threshold kernel against its plain
+             version at n = 192, tile 512 and tile 2048, on the tile pairs
+             the two data paths below schedule;
+8. from_data ``glasso(X=X, lam=0.40, from_data=True)`` at p = 8000 (the
+             benchmarks' dense-from-data arm): labels equal to the host
+             union-find on the card's dense ``sample_covariance(X)``,
+             cross-component zeros, KKT, and the margin min ||S_ij| - lam|
+             that shows the kernel's sum order cannot flip an edge; every
+             covgram_screen launch of the first solve is recorded, then
+             held against its plain version and timed on its own inputs;
+9. stream    ``stream_screen`` over an 8-lambda grid at p = 16000: every
+             partition equal to the dense one;
+10. kernels  one JSON line: every ported kernel with its launches on its
+             path and, summed over those launches on their recorded
+             inputs, its error, times and bound;
 
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits nonzero and prints no result; so does a machine without
@@ -33,10 +57,12 @@ CUDA.  Data is made from fixed seeds with numpy.
 
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -47,12 +73,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import EngineOptions, glasso  # noqa: E402
 from repro_torch.core import instrument  # noqa: E402
 from repro_torch.core.blocks import pad_block  # noqa: E402
-from repro_torch.core.screening import thresholded_components  # noqa: E402
+from repro_torch.core.components import components_from_covariance_host  # noqa: E402
+from repro_torch.core.screening import count_edges, thresholded_components  # noqa: E402
 from repro_torch.core.solvers.bcd import convergence_scale  # noqa: E402
 from repro_torch.core.solvers.kkt import kkt_residual  # noqa: E402
 from repro_torch.covariance import (  # noqa: E402
     lambda_interval_for_k,
     paper_synthetic,
+    sample_covariance,
     structured_synthetic,
 )
 from repro_torch.engine.planner import build_plan_incremental  # noqa: E402
@@ -61,7 +89,23 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bucket_glasso.ops import fused_bcd_stack  # noqa: E402
 from repro_torch.kernels.bucket_glasso.ref import fused_bcd_ref_stack  # noqa: E402
 from repro_torch.kernels.tree_glasso.ops import glasso_forest_stack  # noqa: E402
+from repro_torch.kernels.covgram_screen import (  # noqa: E402
+    covgram_screen_ref,
+    covgram_screen_tiles,
+    pad_for_screen,
+)
+from repro_torch.kernels.threshold_cc import (  # noqa: E402
+    connected_components_kernel,
+    labelprop_step,
+    labelprop_step_ref,
+)
 from repro_torch.kernels.tree_glasso.ref import glasso_forest_ref  # noqa: E402
+from repro_torch.stream import stream_screen  # noqa: E402
+from repro_torch.stream.tiler import (  # noqa: E402
+    column_moments,
+    tile_maxima,
+    tile_pair_schedule,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and the FP64
 # tensor-core rate, the highest FP64 rate the card has
@@ -78,6 +122,25 @@ TREE_RTOL = 1e-13
 # tolerance tol*scale = 1e-6 * scale at worst and far better in practice
 BUCKET_RTOL = 1e-9
 KKT_RTOL = 1e-5
+# covgram_screen sums the same float64 products as its plain version in
+# another order (FMA, 32-row slabs): entries of O(1) agree to ~1e-15; the
+# check allows 1e-12 of the largest |S_ij|, and counts must be equal
+COVGRAM_RTOL = 1e-12
+# the from-data and stream phases fail loudly when an |S_ij| lies closer to
+# a lambda than this (relative to max|S|): the sum order could flip it
+MARGIN_RTOL = 1e-12
+
+# sizes of the main-path phases (full size; a CPU rehearsal shrinks them)
+MAIN_CASE = (250, 24)    # structured_synthetic (K, p1): p = 6000
+PAPER_CASE = (5, 100)    # paper_synthetic (K, p1): the Table-1 shape
+THRESHOLD_CC_CASES = ((250, 24), (834, 24))  # structured_synthetic (K, p1)
+SCREEN_LAM = 0.6
+N_ROWS = 192
+FROM_DATA_P, FROM_DATA_LAM, FROM_DATA_TILE = 8000, 0.40, 2048
+STREAM_P, STREAM_TILE = 16000, 512
+STREAM_GRID = (0.30, 0.26, 0.22, 0.18, 0.14, 0.10, 0.075, 0.05)  # descending
+CHUNK = 64
+PAIR_BATCH = 64  # StreamConfig's default: tile pairs in flight per launch
 
 
 def log(phase: str, **fields) -> None:
@@ -97,6 +160,27 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextmanager
+def record_calls(module: str, name: str):
+    """Record the arguments of every call to ``module.name`` made inside the
+    block (the function itself still runs, launch counter and all): the
+    kernel rows of the JSON line time each kernel on exactly the inputs its
+    path gave it."""
+    mod = importlib.import_module(module)
+    inner = getattr(mod, name)
+    calls: list[tuple[tuple, dict]] = []
+
+    def recording(*args, **kwargs):
+        calls.append((args, kwargs))
+        return inner(*args, **kwargs)
+
+    setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, inner)
 
 
 def card_line() -> str:
@@ -246,6 +330,14 @@ def phase_bucket() -> None:
 # ------------------------------------------------------------------ phase 4
 
 
+def span_seconds(res, name: str) -> float:
+    """Seconds of every span called ``name`` in the result's trace, at any
+    depth (a from-data solve nests the engine's run under its screen)."""
+    if res.trace is None:
+        return 0.0
+    return sum(sp.seconds for sp in res.trace.spans if sp.name == name)
+
+
 def check_solution(S: np.ndarray, lam: float, res) -> float:
     """Theorem-1 partition, cross-component zeros and KKT on the card;
     returns the KKT residual."""
@@ -273,27 +365,30 @@ def check_solution(S: np.ndarray, lam: float, res) -> float:
     return kkt
 
 
-def solve_on_card(name: str, S: np.ndarray, lam: float) -> dict[str, int]:
-    """One default-options solve on the card, checked; returns its kernel
-    launches.  The first solve of the process also pays the CUDA libraries'
-    one-time set-up (the batched inverse of the KKT check)."""
+def solve_on_card(name: str, S: np.ndarray, lam: float, *, phase: str = "main",
+                  options: EngineOptions | None = None):
+    """One solve on the card (default options unless given), checked;
+    returns (its kernel launches, the result).  The launch counters are
+    zeroed just before the solve and read just after.  The first solve of
+    the process also pays the CUDA libraries' one-time set-up (the batched
+    inverse of the KKT check)."""
     torch.cuda.synchronize()
     instrument.reset("kernels.")
     t0 = time.perf_counter()
-    res = glasso(S, lam, options=EngineOptions())
+    res = glasso(S, lam, options=options or EngineOptions())
     wall = time.perf_counter() - t0
     launches = instrument.tail_counts("kernels.")
     kkt = check_solution(S, lam, res)
     stages = res.stages()
-    plan_s = res.trace.stage_seconds().get("engine.plan", 0.0) if res.trace else 0.0
-    log("main", case=name, p=S.shape[0], lam=f"{lam:.6g}", device=res.device,
+    plan_s = span_seconds(res, "engine.plan")
+    log(phase, case=name, p=S.shape[0], lam=f"{lam:.6g}", device=res.device,
         route_mix=json.dumps(res.route_mix, sort_keys=True),
         launches=json.dumps(launches, sort_keys=True), kkt=kkt,
         max_abs_S=float(np.abs(S).max()), wall_s=f"{wall:.3f}",
         screen_s=f"{stages['screen']:.4f}", plan_s=f"{plan_s:.4f}",
         solve_s=f"{stages['solve']:.4f}", dispatch_s=f"{stages['dispatch']:.4f}",
         assemble_s=f"{stages['assemble']:.4f}")
-    return launches
+    return launches, res
 
 
 def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
@@ -337,6 +432,387 @@ def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
     return [tree, bucket]
 
 
+# ------------------------------------------------------------ phases 5-9
+
+
+def workload(p: int, *, load: float, noise: float, seed: int = 0) -> np.ndarray:
+    """(n, p) data of the benchmarks' from-data arms: groups of 8 columns
+    in the leading tiles share one factor (``load``) over power-law column
+    scales.  ``benchmarks/bench_sparse.py`` uses load 0.9, noise 0.44 (the
+    dense-from-data arm: near-equicorrelated groups); ``bench_stream.py``
+    load 0.75, noise 0.66 (the streaming-screen arm)."""
+    rng = np.random.default_rng(seed)
+    n = N_ROWS
+    scales = 0.04 + 0.96 * (1.0 - np.arange(p) / p) ** 4
+    X = rng.standard_normal((n, p)) * scales
+    n_groups = max(2, p // 400)
+    f = rng.standard_normal((n, n_groups))
+    for g in range(n_groups):
+        cols = slice(g * 8, g * 8 + 8)
+        X[:, cols] = load * f[:, [g]] + noise * X[:, cols] / scales[cols]
+    return X
+
+
+def canonical(comp: np.ndarray) -> np.ndarray:
+    """Component ids -> each vertex labelled by its component's smallest
+    vertex."""
+    first = np.full(comp.max() + 1, comp.size)
+    np.minimum.at(first, comp, np.arange(comp.size))
+    return first[comp]
+
+
+def dense_partition(S_dev: torch.Tensor, lam: float) -> tuple[np.ndarray, float]:
+    """Canonical labels of |S_ij| > lam on a dense S on the card (edges by
+    torch.nonzero, components by scipy), and the margin min ||S_ij| - lam|
+    over the off-diagonal entries."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    p = S_dev.shape[0]
+    A = S_dev.abs()
+    ij = torch.nonzero(torch.triu(A > lam, diagonal=1)).cpu().numpy()
+    d = (A - lam).abs_()
+    d.fill_diagonal_(float("inf"))
+    margin = float(d.min())
+    del A, d
+    G = coo_matrix((np.ones(len(ij)), (ij[:, 0], ij[:, 1])), shape=(p, p))
+    _, comp = connected_components(G, directed=False)
+    return canonical(comp), margin
+
+
+def device_busy(phase: str, case: str, fn) -> None:
+    """Run ``fn`` once under torch.profiler and log the device's busy
+    seconds — the union of the time intervals of the device-side events
+    (kernels and copies; the profiler's own buffer requests excluded) —
+    against the wall seconds of the call.  A diagnostic: where the profiler
+    records no device event, the line says "not measured" and no check
+    depends on it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.name.startswith("Activity Buffer")]
+    if not events:
+        log(phase + "_profile", case=case, device_busy="not measured",
+            reason="no device event recorded")
+        return
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name: dict[str, float] = {}
+    for e in events:
+        by_name[e.name[:40]] = by_name.get(e.name[:40], 0.0) + e.time_range.elapsed_us()
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:5])
+    log(phase + "_profile", case=case, wall_s=f"{wall:.4f}", device_events=len(events),
+        device_busy_s=f"{busy_us / 1e6:.4f}", idle_share=f"{1 - busy_us / 1e6 / wall:.4f}",
+        top_device_ms=json.dumps({k: round(v / 1e3, 3) for k, v in top.items()}))
+
+
+def threshold_cc_bound_ms(p: int, itemsize: int = 8) -> float:
+    return p * p * itemsize / HBM_BYTES_PER_S * 1e3
+
+
+def hook_steps_on_path(steps: list) -> dict:
+    """Each recorded hook step of a path against its plain version (labels
+    equal), and the CUDA-event times of kernel and plain version on that
+    step's own inputs, summed over the steps."""
+    out = dict(n=len(steps), ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0)
+    for (S_dev, labels, lam), _ in steps:
+        got = labelprop_step(S_dev, labels, lam)
+        want = labelprop_step_ref(S_dev, labels, lam)
+        out["err"] = max(out["err"], int((got.long() - want.long()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError("threshold_cc: a hook step of the path differs from plain")
+        out["ms"] += cuda_ms(lambda: labelprop_step(S_dev, labels, lam), 5)
+        out["plain_ms"] += cuda_ms(lambda: labelprop_step_ref(S_dev, labels, lam), 2)
+        p = S_dev.shape[0]
+        out["bound_ms"] += (S_dev.numel() * S_dev.element_size() + 2 * p * 4) \
+            / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def phase_threshold_cc() -> None:
+    """The hook step at the two fixed shapes, from the first round's labels."""
+    for K, p1 in THRESHOLD_CC_CASES:
+        S = structured_synthetic(K, p1, seed=0)
+        p = S.shape[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S_dev = torch.as_tensor(S).to(DEV)
+        torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) * 1e3
+        labels0 = torch.arange(p, dtype=torch.int32, device=DEV)
+        got = labelprop_step(S_dev, labels0, SCREEN_LAM)
+        want = labelprop_step_ref(S_dev, labels0, SCREEN_LAM)
+        if not torch.equal(got, want):
+            raise AssertionError(f"threshold_cc p={p}: hook step differs from the plain version")
+        ms = cuda_ms(lambda: labelprop_step(S_dev, labels0, SCREEN_LAM), 20)
+        plain_ms = cuda_ms(lambda: labelprop_step_ref(S_dev, labels0, SCREEN_LAM), 3)
+        instrument.reset("screen.")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = connected_components_kernel(S_dev, SCREEN_LAM).cpu().numpy()
+        cc_s = time.perf_counter() - t0
+        rounds = instrument.count("screen.labelprop_rounds")
+        t0 = time.perf_counter()
+        host = components_from_covariance_host(S, SCREEN_LAM)
+        host_s = time.perf_counter() - t0
+        if not np.array_equal(labels, host):
+            raise AssertionError(f"threshold_cc p={p}: labels differ from the host union-find")
+        bound = threshold_cc_bound_ms(p)
+        log("threshold_cc", K=K, p1=p1, p=p, lam=SCREEN_LAM, ms_per_step=f"{ms:.4f}",
+            plain_ms_per_step=f"{plain_ms:.4f}", bound_ms_per_step=f"{bound:.4f}",
+            rounds=rounds, fixed_point_s=f"{cc_s:.4f}", h2d_ms=f"{h2d_ms:.2f}",
+            host_unionfind_s=f"{host_s:.4f}", n_components=int(np.unique(host).size),
+            labels_equal_host=True)
+        del S, S_dev, got, want
+        torch.cuda.empty_cache()
+
+
+def phase_screen(S: np.ndarray, lam: float, host_res) -> tuple[dict[str, int], dict]:
+    """The dense main path with the device screen; returns the launches of
+    its first solve and the hook steps of that solve, each timed on its own
+    inputs."""
+    opts = EngineOptions(cc_backend="pallas")
+    name = "structured K={} p1={} cc_backend=pallas".format(*MAIN_CASE)
+    with record_calls("repro_torch.kernels.threshold_cc.ops", "labelprop_step") as steps:
+        launches, res = solve_on_card(name, S, lam, phase="screen", options=opts)
+    if len(steps) != launches.get("threshold_cc.launches", 0):
+        raise AssertionError(f"{len(steps)} hook steps recorded, {launches} launched")
+    _, again = solve_on_card(name + " (repeat)", S, lam, phase="screen", options=opts)
+    for r in (res, again):
+        if not np.array_equal(r.labels, host_res.labels):
+            raise AssertionError("the device screen's labels differ from the host screen's")
+        if r.route_mix != host_res.route_mix:
+            raise AssertionError(f"route mix {r.route_mix} != host run's {host_res.route_mix}")
+    if launches.get("threshold_cc.launches", 0) <= 0:
+        raise AssertionError("threshold_cc was not launched on the [screen] path")
+    device_busy("screen", "pallas repeat, profiled",
+                lambda: glasso(S, lam, options=opts))
+    t0 = time.perf_counter()
+    n_edges = count_edges(S, lam)
+    host_count_s = time.perf_counter() - t0
+    S_dev = torch.as_tensor(S).to(DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if count_edges(S_dev, lam) != n_edges:
+        raise AssertionError("count_edges on the card differs from the host count")
+    log("screen_count_edges", p=S.shape[0], n_edges=n_edges,
+        host_count_s=f"{host_count_s:.4f}",
+        device_count_s=f"{time.perf_counter() - t0:.4f}",
+        host_screen_s=f"{host_res.stages()['screen']:.4f}",
+        device_screen_s=f"{again.stages()['screen']:.4f}")
+    del S_dev
+    path = hook_steps_on_path(steps)
+    log("screen_kernels", hook_steps=path["n"], max_abs_err=path["err"],
+        ms=f"{path['ms']:.4f}", plain_ms=f"{path['plain_ms']:.4f}",
+        bound_ms=f"{path['bound_ms']:.4f}")
+    del steps
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def _kept_pairs(X: np.ndarray, tile: int, lam_min: float):
+    """The tile pairs the stream screen computes (its moments pass and
+    Cauchy-Schwarz schedule), the number it skips, and the column means."""
+    mom = column_moments(X, chunk=CHUNK)
+    ti, tj, keep = tile_pair_schedule(tile_maxima(mom.norms, tile), lam_min, slack=1e-6)
+    return ti[keep].astype(np.int32), tj[keep].astype(np.int32), int((~keep).sum()), mom.mu
+
+
+def covgram_bound(N: int, P: int, B: int, bp: int) -> tuple[float, float]:
+    """(bytes ms, operations ms): vals written and X read once; 2 N bp^2
+    flops per pair at the FP64 tensor-core peak."""
+    t_bytes = (B * bp * bp * 8 + N * P * 8 + P * 8) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * N * bp * bp * B / FP64_FLOPS_PER_S * 1e3
+    return t_bytes, t_ops
+
+
+def covgram_measure(label: str, x_pad, mu_pad, ti, tj, lam: float, *, n_true: int,
+                    p_true: int, block_p: int) -> dict:
+    """covgram_screen against its plain version and the library Gram on one
+    launch's inputs: raises on disagreement; returns the error, the
+    CUDA-event times and the bound."""
+    args = (x_pad, mu_pad, ti, tj, lam)
+    kw = dict(n_true=n_true, p_true=p_true, block_p=block_p)
+    got = covgram_screen_tiles(*args, **kw)
+    want = covgram_screen_ref(*args, **kw)
+    scale = float(want[2][:, 0].max()) if len(ti) else 1.0
+    err = max(float((got[0] - want[0]).abs().max()), float((got[2] - want[2]).abs().max()))
+    if not err <= COVGRAM_RTOL * scale:
+        raise AssertionError(f"covgram_screen {label}: max|diff|={err} > {COVGRAM_RTOL}*{scale}")
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError(f"covgram_screen {label}: edge counts differ from the plain version")
+    edges = int(got[1].sum())
+    del got, want
+    ms = cuda_ms(lambda: covgram_screen_tiles(*args, **kw), 5)
+    plain_ms = cuda_ms(lambda: covgram_screen_ref(*args, **kw), 2)
+    # library yardstick: cuBLAS DGEMM on the centered tile batch, then the
+    # threshold — it computes vals only (no counts, no stats)
+    N, P = x_pad.shape
+    nt = P // block_p
+    xt, mt = x_pad.reshape(N, nt, block_p), mu_pad.reshape(nt, block_p)
+    idx_i = torch.as_tensor(np.asarray(ti), dtype=torch.int64, device=x_pad.device)
+    idx_j = torch.as_tensor(np.asarray(tj), dtype=torch.int64, device=x_pad.device)
+    A = (xt[:, idx_i, :] - mt[idx_i]).permute(1, 2, 0).contiguous()
+    Bm = (xt[:, idx_j, :] - mt[idx_j]).permute(1, 0, 2).contiguous()
+
+    def library():
+        G = torch.matmul(A, Bm).div_(n_true)
+        return torch.where(G.abs() > lam, G, 0.0)
+
+    library_ms = cuda_ms(library, 5)
+    t_bytes, t_ops = covgram_bound(N, P, len(ti), block_p)
+    del A, Bm
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes_ms=t_bytes, ops_ms=t_ops, pairs=len(ti), edges=edges)
+
+
+def covgram_case(label: str, X: np.ndarray, tile: int, lam: float, max_pairs: int) -> dict:
+    """covgram_screen on one batch of the pairs a data path schedules."""
+    n, p = X.shape
+    ti, tj, skipped, mu = _kept_pairs(X, tile, lam)
+    ti, tj = ti[:max_pairs], tj[:max_pairs]
+    x_pad, mu_pad = pad_for_screen(torch.as_tensor(X).to(DEV), mu, block_n=CHUNK, block_p=tile)
+    r = covgram_measure(label, x_pad, mu_pad, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    log("covgram_screen", case=label, n=n, p=p, tile=tile, pairs=r["pairs"],
+        skipped_pairs=skipped, lam=lam, max_abs_err=r["err"], edges=r["edges"],
+        ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+        library_ms=f"{r['library_ms']:.4f}", bytes_ms=f"{r['bytes_ms']:.4f}",
+        ops_ms=f"{r['ops_ms']:.4f}",
+        gflops=f"{2.0 * x_pad.shape[0] * tile * tile * r['pairs'] / r['ms'] / 1e6:.1f}")
+    return r
+
+
+def phase_covgram_screen(X_fd: np.ndarray, X_st: np.ndarray) -> None:
+    """Both fixed shapes: the first batch of the pairs each data path
+    schedules."""
+    covgram_case("from_data", X_fd, FROM_DATA_TILE, FROM_DATA_LAM, PAIR_BATCH)
+    covgram_case("stream", X_st, STREAM_TILE, min(STREAM_GRID), PAIR_BATCH)
+
+
+def covgram_launches_on_path(calls: list) -> dict:
+    """Each recorded covgram_screen launch of a path, measured on its own
+    inputs; errors and bounds combined, times summed."""
+    out = dict(n=len(calls), err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0)
+    for k, (args, kw) in enumerate(calls):
+        r = covgram_measure(f"path launch {k}", *args, **kw)
+        out["err"] = max(out["err"], r["err"])
+        for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+            out[key] += r[key]
+        out["bound_ms"] += max(r["bytes_ms"], r["ops_ms"])
+    return out
+
+
+def phase_from_data(X: np.ndarray) -> tuple[dict[str, int], dict]:
+    """glasso(X=...) on the card, checked; returns the launches of its first
+    solve and that solve's covgram_screen launches, each measured on its
+    own inputs."""
+    n, p = X.shape
+    lam = FROM_DATA_LAM
+    S_dev = sample_covariance(X)
+    S = S_dev.cpu().numpy()
+    smax = float(np.abs(S).max())
+    dense_labels, margin = dense_partition(S_dev, lam)
+    if margin < MARGIN_RTOL * smax:
+        raise AssertionError(
+            f"from_data: an |S_ij| lies within {margin} of lam={lam}; pick data whose "
+            "partition the sum order cannot flip"
+        )
+    host = components_from_covariance_host(S, lam)
+    if not np.array_equal(host, dense_labels):
+        raise AssertionError("from_data: host union-find and scipy disagree on the dense S")
+    opts = EngineOptions(output="dense", solver_opts={"tol": 1e-9})
+    stream = {"tile": FROM_DATA_TILE, "chunk": CHUNK}
+    launches = None
+    for case in ("first", "repeat"):
+        torch.cuda.synchronize()
+        instrument.reset("kernels.")
+        instrument.reset("stream.")
+        instrument.reset("router.fallback.")
+        with record_calls("repro_torch.stream.screen", "covgram_screen_tiles") as recorded:
+            t0 = time.perf_counter()
+            res = glasso(X=X, lam=lam, from_data=True, stream=stream, options=opts)
+            wall = time.perf_counter() - t0
+        if launches is None:
+            launches = instrument.tail_counts("kernels.")
+            calls = recorded
+        counters = instrument.counts("stream.")
+        if not np.array_equal(res.labels, host):
+            raise AssertionError("from_data: labels differ from the host union-find on dense S")
+        kkt = check_solution(S, lam, res)
+        stages = res.stages()
+        plan_s = span_seconds(res, "engine.plan")
+        log("from_data", case=case, n=n, p=p, lam=lam, tile=FROM_DATA_TILE, chunk=CHUNK,
+            route_mix=json.dumps(res.route_mix, sort_keys=True),
+            launches=json.dumps(instrument.tail_counts("kernels."), sort_keys=True),
+            fallbacks=sum(instrument.tail_counts("router.fallback.").values()),
+            kkt=kkt, max_abs_S=smax, margin=margin,
+            tiles_total=counters.get("stream.tiles_total", 0),
+            tiles_skipped=counters.get("stream.tiles_skipped", 0),
+            edges_emitted=counters.get("stream.edges_emitted", 0),
+            bytes_peak=counters.get("stream.bytes_peak", 0),
+            wall_s=f"{wall:.3f}", screen_s=f"{stages['screen']:.4f}",
+            stream_span_s=f"{span_seconds(res, 'engine.screen'):.4f}", plan_s=f"{plan_s:.4f}",
+            solve_s=f"{stages['solve']:.4f}", dispatch_s=f"{stages['dispatch']:.4f}",
+            assemble_s=f"{stages['assemble']:.4f}")
+    if launches.get("covgram_screen.launches", 0) <= 0:
+        raise AssertionError("covgram_screen was not launched on the [from_data] path")
+    if len(calls) != launches["covgram_screen.launches"]:
+        raise AssertionError(f"{len(calls)} covgram_screen calls recorded, {launches} launched")
+    device_busy("from_data", "repeat, profiled",
+                lambda: glasso(X=X, lam=lam, from_data=True, stream=stream, options=opts))
+    del S_dev
+    torch.cuda.empty_cache()
+    path = covgram_launches_on_path(calls)
+    log("from_data_kernels", covgram_launches=path["n"], max_abs_err=path["err"],
+        ms=f"{path['ms']:.4f}", plain_ms=f"{path['plain_ms']:.4f}",
+        library_ms=f"{path['library_ms']:.4f}", bound_ms=f"{path['bound_ms']:.4f}",
+        bytes_ms=f"{path['bytes_ms']:.4f}", ops_ms=f"{path['ops_ms']:.4f}")
+    return launches, path
+
+
+def phase_stream(X: np.ndarray) -> None:
+    """stream_screen over the grid; every partition equal to the dense one."""
+    n, p = X.shape
+    instrument.reset("stream.")
+    instrument.reset("kernels.")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sc = stream_screen(X, STREAM_GRID, config={"tile": STREAM_TILE, "chunk": CHUNK})
+    seconds = time.perf_counter() - t0
+    launches = instrument.count("kernels.covgram_screen.launches")
+    S_dev = sample_covariance(X)
+    smax = float(S_dev.abs().max())
+    margins = []
+    for lam, labels in zip(sc.lambdas, sc.labels):
+        dense, margin = dense_partition(S_dev, lam)
+        margins.append(margin)
+        if margin < MARGIN_RTOL * smax:
+            raise AssertionError(f"stream: an |S_ij| lies within {margin} of lam={lam}")
+        if not np.array_equal(labels, dense):
+            raise AssertionError(f"stream: partition at lam={lam} differs from the dense one")
+    log("stream", n=n, p=p, tile=STREAM_TILE, chunk=CHUNK, lambdas=len(sc.lambdas),
+        tiles_total=sc.tiles_total, tiles_skipped=sc.tiles_skipped,
+        skip_rate=f"{sc.tiles_skipped / max(sc.tiles_total, 1):.4f}",
+        edges_emitted=sc.stats[0].edges_emitted, bytes_peak=sc.stats[0].bytes_peak,
+        covgram_launches=launches, seconds=f"{seconds:.3f}",
+        n_components=json.dumps([st.n_components for st in sc.stats]),
+        min_margin=min(margins), partitions_equal_dense=True)
+    del S_dev
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -348,18 +824,20 @@ def main() -> int:
     phase_tree()
     phase_bucket()
 
-    S = structured_synthetic(250, 24, seed=0)
-    lam = 0.6
-    launches = solve_on_card("structured K=250 p1=24", S, lam)
-    solve_on_card("structured K=250 p1=24 (repeat)", S, lam)
+    S = structured_synthetic(*MAIN_CASE, seed=0)
+    lam = SCREEN_LAM
+    name = "structured K={} p1={}".format(*MAIN_CASE)
+    launches, host_res = solve_on_card(name, S, lam)
+    solve_on_card(name + " (repeat)", S, lam)
     for name in ("tree_glasso", "bucket_glasso"):
         if launches.get(f"{name}.launches", 0) <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
     tree, bucket = main_path_kernels(S, lam)
 
-    P = paper_synthetic(5, 100, seed=0)
-    lo, hi = lambda_interval_for_k(P, 5)
-    paper_launches = solve_on_card("paper_synthetic K=5 p1=100 lambda_I", P, 0.5 * (lo + hi))
+    P = paper_synthetic(*PAPER_CASE, seed=0)
+    lo, hi = lambda_interval_for_k(P, PAPER_CASE[0])
+    paper_launches, _ = solve_on_card(
+        "paper_synthetic K={} p1={} lambda_I".format(*PAPER_CASE), P, 0.5 * (lo + hi))
     if paper_launches.get("bucket_glasso.launches", 0) <= 0:
         raise AssertionError("bucket_glasso was not launched on the Table-1 shape")
 
@@ -367,6 +845,14 @@ def main() -> int:
         tree_bound_ms=tree["bound_ms"], bucket_ms=bucket["ms"],
         bucket_plain_ms=bucket["plain_ms"], bucket_bytes_ms=bucket["bytes_ms"],
         bucket_ops_ms=bucket["ops_ms"], bucket_serial_steps=bucket["chain"])
+
+    phase_threshold_cc()
+    screen_launches, thr = phase_screen(S, lam, host_res)
+    X_fd = workload(FROM_DATA_P, load=0.9, noise=0.44)
+    X_st = workload(STREAM_P, load=0.75, noise=0.66)
+    phase_covgram_screen(X_fd, X_st)
+    fd_launches, cov = phase_from_data(X_fd)
+    phase_stream(X_st)
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -385,6 +871,23 @@ def main() -> int:
             "bound_ms": bucket["bound_ms"],
             "bound_by": "operations" if bucket["ops_ms"] > bucket["bytes_ms"] else "bytes",
             "library_ms": None,
+        },
+        {
+            "name": "threshold_cc", "route": "cuda",
+            "source": "src/repro_torch/csrc/threshold_cc.cu",
+            "replaces": "src/repro/kernels/threshold_cc/threshold_cc.py:30",
+            "launches": screen_launches["threshold_cc.launches"], "max_abs_err": thr["err"],
+            "ms": thr["ms"], "plain_ms": thr["plain_ms"],
+            "bound_ms": thr["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "covgram_screen", "route": "cuda",
+            "source": "src/repro_torch/csrc/covgram_screen.cu",
+            "replaces": "src/repro/kernels/covgram_screen/covgram_screen.py:40",
+            "launches": fd_launches["covgram_screen.launches"], "max_abs_err": cov["err"],
+            "ms": cov["ms"], "plain_ms": cov["plain_ms"], "bound_ms": cov["bound_ms"],
+            "bound_by": "operations" if cov["ops_ms"] > cov["bytes_ms"] else "bytes",
+            "library_ms": cov["library_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

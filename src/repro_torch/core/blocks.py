@@ -75,14 +75,44 @@ def pad_block(S_block: np.ndarray, size: int) -> np.ndarray:
 
 
 def gather_submatrix(S, idx: np.ndarray, *, dtype=None) -> np.ndarray:
-    """S[np.ix_(idx, idx)], cast to ``dtype`` when given."""
-    blk = np.asarray(S)[np.ix_(idx, idx)]
+    """S[np.ix_(idx, idx)] through the covariance gather protocol, cast to
+    ``dtype`` when given.
+
+    Dense arrays index directly; objects exposing ``gather_block`` (the
+    streaming screener's ``MaterializedCovariance``) serve the same entries
+    from per-component blocks — the planner, executor and classifier never
+    learn which input produced S."""
+    if hasattr(S, "gather_block"):
+        blk = S.gather_block(idx)
+    else:
+        blk = np.asarray(S)[np.ix_(idx, idx)]
     return blk if dtype is None else blk.astype(dtype, copy=False)
 
 
 def gather_diag(S, idx) -> np.ndarray:
-    """S[idx, idx]."""
+    """S[idx, idx] (diagonal gather) through the same protocol."""
+    if hasattr(S, "diag_at"):
+        return S.diag_at(idx)
     return np.asarray(S)[idx, idx]
+
+
+def gather_submatrix_rows(S, rows: np.ndarray, cols: np.ndarray, *, dtype=None) -> np.ndarray:
+    """S[np.ix_(rows, cols)] through the gather protocol (both index sets
+    inside ONE component): the rectangular sibling of
+    ``gather_submatrix``."""
+    if hasattr(S, "gather_block_rows"):
+        blk = S.gather_block_rows(rows, cols)
+    else:
+        blk = np.asarray(S)[np.ix_(rows, cols)]
+    return blk if dtype is None else blk.astype(dtype, copy=False)
+
+
+def cov_dtype(S) -> np.dtype:
+    """The numpy dtype of a covariance operand — dense array or gather-
+    protocol object (``MaterializedCovariance`` carries ``.dtype``)."""
+    if hasattr(S, "gather_block"):
+        return np.dtype(S.dtype)
+    return np.asarray(S).dtype
 
 
 @dataclass
@@ -144,7 +174,7 @@ def assemble_dense(
     dtype = (
         np.asarray(bucket_solutions[0]).dtype
         if bucket_solutions
-        else np.asarray(S).dtype
+        else cov_dtype(S)
     )
     Theta = np.zeros((p, p), dtype=dtype)
     set_peak("result.bytes_peak", Theta.nbytes)

@@ -3,13 +3,18 @@
 One contract: labels[i] = component id, canonical = smallest vertex index in
 the component.  ``connected_components_host`` is the numpy union-find the
 default ``"host"`` screening backend runs (the paper's ``graphconncomp``
-role).  The reference's device label propagation belongs to its other
-backends and comes with the ``threshold_cc`` kernel.
+role).  ``connected_components_labelprop`` is min-label propagation with
+pointer jumping in plain torch on S's device (the ``"jax"`` backend), and
+``propagate_labels`` is its fixed-point loop, which the ``threshold_cc``
+kernel's hook step plugs into as well (the ``"pallas"`` backend).
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
+import torch
 
 
 def _find(parent: np.ndarray, i: int) -> int:
@@ -49,6 +54,56 @@ def threshold_adjacency(S: np.ndarray, lam: float) -> np.ndarray:
 
 def components_from_covariance_host(S: np.ndarray, lam: float) -> np.ndarray:
     return connected_components_host(threshold_adjacency(S, lam))
+
+
+def propagate_labels(
+    hook: Callable[[torch.Tensor], torch.Tensor],
+    p: int,
+    *,
+    device: torch.device,
+) -> tuple[torch.Tensor, int]:
+    """Drive a hook step to a fixed point; returns (int32 labels, rounds).
+
+    Each round is one hook ``l_i <- min(l_i, min_{j ~ i} l_j)`` followed by
+    two pointer jumps ``l <- l[l]``.  Labels are always vertex indices of a
+    member of one's own component, so a jump is well defined, and the fixed
+    point labels every vertex with its component's smallest vertex.  The
+    loop stops at the first round that changes nothing, capped at
+    ``p + 2`` rounds as in the reference; each convergence test reads one
+    flag back from the device."""
+    if p >= 2**31:
+        raise ValueError(f"int32 labels cover p < 2**31 vertices, got p={p}")
+    if p == 0:
+        return torch.zeros(0, dtype=torch.int32, device=device), 0
+
+    def round_(labels: torch.Tensor) -> torch.Tensor:
+        labels = hook(labels)
+        labels = labels[labels]
+        return labels[labels]
+
+    prev = torch.arange(p, dtype=torch.int32, device=device)
+    labels, rounds = round_(prev), 1
+    while rounds <= p + 2 and bool((labels != prev).any()):
+        labels, prev = round_(labels), labels
+        rounds += 1
+    return labels, rounds
+
+
+def connected_components_labelprop(S: torch.Tensor, lam: float) -> torch.Tensor:
+    """Min-label propagation with pointer jumping, fused with thresholding,
+    in plain torch on S's device; returns int32 labels (canonical at the
+    fixed point).  The (p, p) mask |S_ij| > lam, i != j, is formed once."""
+    p = S.shape[0]
+    eye = torch.eye(p, dtype=torch.bool, device=S.device)
+    mask = (S.abs() > lam) & ~eye
+    big = torch.tensor(p, dtype=torch.int32, device=S.device)
+
+    def hook(labels: torch.Tensor) -> torch.Tensor:
+        neigh = torch.where(mask, labels[None, :], big)
+        return torch.minimum(labels, neigh.amin(dim=1))
+
+    labels, _ = propagate_labels(hook, p, device=S.device)
+    return labels
 
 
 def canonicalize_labels(labels: np.ndarray) -> np.ndarray:

@@ -6,8 +6,15 @@ screening" baseline.  Configuration travels as one typed value,
 ``options=EngineOptions(...)``; the solve runs on ``options.device``
 (``"cuda"`` unless the caller passes ``device="cpu"``).
 
-``glasso_path`` and solving from the data matrix (``X=`` /
-``from_data=True``) raise ``NotImplementedError`` until their slices land.
+``glasso(X=X, lam=lam, from_data=True)`` solves from the (n, p) DATA
+matrix instead: screening runs out of core through ``repro_torch.stream``
+(the ``covgram_screen`` kernel on the card; the dense (p, p) S is never
+built, only the per-component blocks the solvers consume), exactness
+unchanged.  ``stream`` passes a ``StreamConfig`` (or kwargs dict) for the
+call, overriding ``options.stream``; ``screen``/``cc_backend`` do not apply
+there (the streamed screen IS the screening stage).
+
+``glasso_path`` raises ``NotImplementedError`` until its slice lands.
 """
 
 from __future__ import annotations
@@ -35,12 +42,22 @@ def glasso(
 ) -> GlassoResult:
     """Solve the graphical lasso at one lambda; returns a ``GlassoResult``
     whose ``Theta`` is a dense (p, p) numpy array."""
-    if from_data or X is not None or stream is not None:
-        raise NotImplementedError("solving from the data matrix is not ported yet (slice 6)")
     opts = normalize_options(options, engine_kwargs, warn=True, context="glasso")
+    engine = Engine(options=opts)
+    data = X if X is not None else (S if from_data else None)
+    if from_data or X is not None:
+        if data is None:
+            raise ValueError("from_data=True needs the data matrix (X=...)")
+        if X is not None and S is not None:
+            raise ValueError("pass either S or X=, not both")
+        if lam is None:
+            raise ValueError("glasso needs lam")
+        return engine.run_from_data(
+            data, lam, stream=stream, p_max=p_max, warm_W=warm_W
+        )
     if S is None or lam is None:
-        raise ValueError("glasso needs (S, lam)")
-    return Engine(options=opts).run(S, lam, screen=screen, p_max=p_max, warm_W=warm_W)
+        raise ValueError("glasso needs (S, lam) — or X=/from_data=True")
+    return engine.run(S, lam, screen=screen, p_max=p_max, warm_W=warm_W)
 
 
 def glasso_path(S=None, lambdas=None, **_kwargs):

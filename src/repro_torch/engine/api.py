@@ -4,8 +4,11 @@
 
 ``Engine.run`` is one (S, lam) solve through a registry screening backend,
 the bucket planner and the executor, on the device ``EngineOptions.device``
-names (``"cuda"`` by default).  ``repro_torch.glasso`` is a thin wrapper
-over it.  Inputs and results are numpy arrays, as in the reference package.
+names (``"cuda"`` by default); ``Engine.run_from_data`` screens straight
+from the (n, p) data matrix through ``repro_torch.stream`` and solves over
+the materialized component blocks.  ``repro_torch.glasso`` is a thin
+wrapper over both.  Inputs and results are numpy arrays, as in the
+reference package.
 """
 
 from __future__ import annotations
@@ -17,12 +20,24 @@ import numpy as np
 
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.instrument import bump
-from repro_torch.core.screening import ScreenStats, thresholded_components
+from repro_torch.core.screening import (
+    ScreenStats,
+    screen_stats_from_labels,
+    thresholded_components,
+)
 from repro_torch.core.sparse import resolve_output
 from repro_torch.engine.executor import BucketExecutor
 from repro_torch.engine.options import EngineOptions, normalize_options
 from repro_torch.engine.planner import build_plan_incremental
 from repro_torch.obs.trace import Trace, current_trace, span, trace_request
+
+
+def _as_cov_operand(S):
+    """Dense arrays pass through np.asarray; materialized streamed
+    covariances (the gather protocol: ``gather_block``/``diag_at``) are used
+    as-is — wrapping them in an object array would defeat the point."""
+    return S if hasattr(S, "gather_block") else np.asarray(S)
+
 
 class GlassoResult:
     """One solve's answer + attribution.
@@ -143,6 +158,7 @@ class Engine:
         self.np_dtype = opts.np_dtype()
         self.device = opts.resolved_device()
         self.cc_backend = opts.cc_backend
+        self.stream = opts.stream   # default StreamConfig for from-data runs
         self.executor = BucketExecutor(
             solver=self.solver,
             dtype=self.dtype,
@@ -161,7 +177,16 @@ class Engine:
 
     def screen(self, S: np.ndarray, lam: float) -> tuple[np.ndarray, ScreenStats]:
         with span("engine.screen", backend=self.cc_backend):
-            return thresholded_components(S, lam, backend=self.cc_backend)
+            return thresholded_components(
+                S, lam, backend=self.cc_backend, device=self.device
+            )
+
+    def _check_output(self, p: int) -> None:
+        if resolve_output(self.output, p) == "sparse":
+            raise NotImplementedError(
+                "output='sparse' (and output='auto' above AUTO_SPARSE_P) is "
+                "not ported yet (slice 3)"
+            )
 
     def run(
         self,
@@ -171,27 +196,41 @@ class Engine:
         screen: bool = True,
         p_max: int | None = None,
         warm_W: np.ndarray | None = None,
+        labels: np.ndarray | None = None,
+        screen_stats: ScreenStats | None = None,
     ) -> GlassoResult:
         """One solve.  ``screen=False`` is the paper's unscreened baseline
         (one global block); ``warm_W`` is a (p, p) covariance iterate whose
-        restrictions warm-start the iterative buckets."""
-        S = np.asarray(S)
+        restrictions warm-start the iterative buckets.  ``labels``
+        short-circuits the screening stage with a precomputed canonical
+        partition, and ``screen_stats`` rides along (the streaming
+        screener's stats carry tile counters a dense recount would lose).
+        ``S`` may be a materialized streamed covariance (gather protocol) —
+        then ``labels`` is required, since dense screening needs dense S."""
+        S = _as_cov_operand(S)
         p = S.shape[0]
-        if resolve_output(self.output, p) == "sparse":
-            raise NotImplementedError(
-                "output='sparse' (and output='auto' above AUTO_SPARSE_P) is "
-                "not ported yet (slice 3)"
-            )
+        self._check_output(p)
         with self._trace_ctx("engine.run", lam=float(lam), p=int(p)):
-            if screen:
+            screened = True
+            if labels is not None:
+                labels = np.asarray(labels)
+                if screen_stats is None:
+                    screen_stats = screen_stats_from_labels(S, lam, labels, seconds=0.0)
+            elif hasattr(S, "gather_block"):
+                raise ValueError(
+                    "materialized covariances cannot be re-screened densely; "
+                    "pass the streamed labels (see Engine.run_from_data)"
+                )
+            elif screen:
                 labels, screen_stats = self.screen(S, lam)
             else:
                 labels = np.zeros(p, dtype=np.int64)  # one global component
                 screen_stats = None
+                screened = False
             with span("engine.plan"):
                 plan = build_plan_incremental(
                     S, lam, labels, dtype=self.np_dtype,
-                    classify_structures=self.executor.route and screen,
+                    classify_structures=self.executor.route and screened,
                 )
             schedule_mod.check_capacity(
                 [len(c) for b in plan.buckets for c in b.comps] or [1], p_max
@@ -206,4 +245,38 @@ class Engine:
                 assemble_seconds=self.executor.last_assemble_seconds,
                 dispatch_seconds=self.executor.last_dispatch_seconds,
                 device=str(self.device),
+            )
+
+    def run_from_data(
+        self,
+        X: np.ndarray,
+        lam: float,
+        *,
+        stream=None,
+        p_max: int | None = None,
+        warm_W: np.ndarray | None = None,
+    ) -> GlassoResult:
+        """One solve screened straight from the (n, p) data matrix.
+
+        The dense S never exists: ``repro_torch.stream`` screens tile by
+        tile on the engine's device (the ``covgram_screen`` kernel on the
+        card), materializes only the per-component blocks, and the solve
+        proceeds through the ordinary plan/execute stages (``stream`` takes
+        a ``StreamConfig`` or kwargs dict, overriding ``options.stream``)."""
+        from repro_torch.stream import stream_screen
+
+        if stream is None:
+            stream = self.stream
+        p = int(np.shape(X)[1])
+        self._check_output(p)
+        with self._trace_ctx("engine.run", lam=float(lam), p=p, source="data"):
+            with span("engine.screen", backend="stream"):
+                sc = stream_screen(X, [lam], config=stream, device=self.device)
+            return self.run(
+                sc.S,
+                lam,
+                labels=sc.labels[0],
+                screen_stats=sc.stats[0],
+                p_max=p_max,
+                warm_W=warm_W,
             )

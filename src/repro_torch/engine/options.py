@@ -20,7 +20,19 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["EngineOptions", "ENGINE_OPTION_KEYS", "normalize_options"]
+__all__ = ["EngineOptions", "ENGINE_OPTION_KEYS", "normalize_options", "resolve_device"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA raises
+    instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass EngineOptions(device='cpu') to run the plain-PyTorch path"
+        )
+    return dev
 
 
 @dataclass(frozen=True)
@@ -97,15 +109,8 @@ class EngineOptions:
         return np.dtype(str(self.resolved_dtype()).removeprefix("torch."))
 
     def resolved_device(self) -> torch.device:
-        """``device`` as a ``torch.device``; a CUDA device without CUDA
-        raises instead of running on the CPU."""
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {self.device!r} requested but CUDA is not available; "
-                "pass EngineOptions(device='cpu') to run the plain-PyTorch path"
-            )
-        return dev
+        """``device`` as a ``torch.device`` (``resolve_device``)."""
+        return resolve_device(self.device)
 
     def replace(self, **changes) -> "EngineOptions":
         """``dataclasses.replace`` with solver_opts MERGED, not clobbered:

@@ -4,9 +4,22 @@ One contract for every implementation of the paper's eq.-(4) partition step:
 
     backend(S, lam, **opts) -> int labels, shape (p,), CANONICAL
     (labels[i] == smallest vertex index in i's component)
+    or (labels, n_edges) from a backend that counts the edges itself
 
-``"host"`` (numpy union-find) is the registered backend; the reference's
-device backends come with the ``threshold_cc`` kernel.  Register more with
+Three backends ship, under the reference's names so ``cc_backend`` values
+carried by ``EngineOptions.from_reference`` resolve:
+
+    "host"    numpy union-find (the paper's ``graphconncomp`` role)
+    "jax"     plain-torch min-label propagation + pointer jumping on the
+              engine's device (``core.components.connected_components_labelprop``)
+    "pallas"  the ``threshold_cc`` CUDA hook step driven to a fixed point
+              (``kernels.threshold_cc``); its plain version on the CPU
+
+The two device backends take ``device=`` (the engine passes its own;
+``"cuda"`` by default, which raises without CUDA), copy S there once,
+threshold it in its own dtype and count its edges on that copy, so the
+screen's stats never read S on the host.  The reference's ``"shard_map"``
+backend comes with the sharded slice.  Register more with
 ``@register_cc_backend("name")``.
 
 The second registry is the ROUTING LADDER: structure class (assigned per
@@ -29,6 +42,7 @@ from __future__ import annotations
 from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.core.instrument import bump
 from repro_torch.core.solvers.protocol import (  # noqa: F401  (re-export surface)
@@ -37,6 +51,7 @@ from repro_torch.core.solvers.protocol import (  # noqa: F401  (re-export surfac
     register_solver,
     solver_spec,
 )
+from repro_torch.engine.options import resolve_device
 
 CCBackend = Callable[..., np.ndarray]
 
@@ -44,7 +59,8 @@ _REGISTRY: dict[str, CCBackend] = {}
 
 
 def register_cc_backend(name: str) -> Callable[[CCBackend], CCBackend]:
-    """Decorator: register ``fn(S, lam, **opts) -> canonical labels``."""
+    """Decorator: register ``fn(S, lam, **opts) -> canonical labels`` (or
+    ``(labels, n_edges)``)."""
 
     def deco(fn: CCBackend) -> CCBackend:
         _REGISTRY[name] = fn
@@ -66,17 +82,29 @@ def get_cc_backend(name: str) -> CCBackend:
         ) from None
 
 
-def label_components(S, lam: float, *, backend: str = "host", **opts) -> np.ndarray:
-    """Screen S at lam through the named backend; returns canonical labels."""
+def screen_components(
+    S, lam: float, *, backend: str = "host", **opts
+) -> tuple[np.ndarray, int | None]:
+    """Screen S at lam through the named backend; returns (canonical
+    labels, the strict upper-triangle edge count where the backend took it,
+    else None)."""
     fn = get_cc_backend(backend)
     bump(f"registry.cc.{backend}")
-    labels = np.asarray(fn(S, lam, **opts))
-    if labels.shape != (np.asarray(S).shape[0],):
+    out = fn(S, lam, **opts)
+    labels, n_edges = out if isinstance(out, tuple) else (out, None)
+    labels = np.asarray(labels)
+    p = S.shape[0]
+    if labels.shape != (p,):
         raise AssertionError(
             f"backend {backend!r} broke the contract: labels shape "
-            f"{labels.shape} for p={np.asarray(S).shape[0]}"
+            f"{labels.shape} for p={p}"
         )
-    return labels
+    return labels, n_edges
+
+
+def label_components(S, lam: float, *, backend: str = "host", **opts) -> np.ndarray:
+    """Screen S at lam through the named backend; returns canonical labels."""
+    return screen_components(S, lam, backend=backend, **opts)[0]
 
 
 #: executor routes, cheapest first; "iterative" is the ladder's tail and the
@@ -114,3 +142,36 @@ def _host(S, lam, **_opts) -> np.ndarray:
     from repro_torch.core.components import components_from_covariance_host
 
     return components_from_covariance_host(np.asarray(S), float(lam))
+
+
+def to_device(S, device) -> torch.Tensor:
+    """S as a tensor on ``device`` in its own dtype (no cast); a tensor
+    already there passes through."""
+    dev = resolve_device(device)
+    if isinstance(S, torch.Tensor):
+        return S.to(dev)
+    return torch.as_tensor(np.asarray(S)).to(dev)
+
+
+@register_cc_backend("jax")
+def _labelprop(S, lam, *, device="cuda", **_opts) -> tuple[np.ndarray, int]:
+    from repro_torch.core.components import (
+        canonicalize_labels,
+        connected_components_labelprop,
+    )
+    from repro_torch.core.screening import count_edges
+
+    S = to_device(S, device)
+    labels = connected_components_labelprop(S, float(lam))
+    return canonicalize_labels(labels.cpu().numpy()), count_edges(S, lam)
+
+
+@register_cc_backend("pallas")
+def _threshold_cc(S, lam, *, device="cuda", **_opts) -> tuple[np.ndarray, int]:
+    from repro_torch.core.components import canonicalize_labels
+    from repro_torch.core.screening import count_edges
+    from repro_torch.kernels.threshold_cc import connected_components_kernel
+
+    S = to_device(S, device)
+    labels = connected_components_kernel(S, float(lam))
+    return canonicalize_labels(labels.cpu().numpy()), count_edges(S, lam)

@@ -45,6 +45,12 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_double, _I, _P],
     ),
     "bucket_glasso_smem_bytes": (ctypes.c_size_t, [_I]),
+    "threshold_cc_step_launch": (
+        _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _I, _P],
+    ),
+    "covgram_screen_launch": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
+    ),
     "repro_torch_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

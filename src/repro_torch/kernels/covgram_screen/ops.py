@@ -1,0 +1,127 @@
+"""Public wrapper for the covgram_screen kernel (the CUDA kernel on the
+card, the plain version on the CPU), its padding convention, and edge
+compaction.
+
+``compact_edges`` turns a batch of thresholded tiles into the compacted
+(i, j, |S_ij|) edge arrays the streaming screener accumulates: an entry of
+``vals`` is nonzero iff it is an eq.-(4) edge (|S_ij| > lam >= 0 implies
+S_ij != 0 in the same arithmetic), so compaction is one ``torch.nonzero``
+over the in-flight batch on its own device — only the compacted edges leave
+the card."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.instrument import bump
+from repro_torch.kernels.build import check, library
+from repro_torch.kernels.covgram_screen.ref import covgram_screen_ref
+
+
+def pad_for_screen(
+    x: torch.Tensor, mu, *, block_n: int, block_p: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad rows to a block_n multiple with copies of mu (centered
+    contribution exactly zero) and columns to a block_p multiple with zeros
+    (mu padded with zeros, so padded columns contribute exact zeros).
+
+    mu is cast to x's dtype and device FIRST and the cast copy is what both
+    the padding and the returned mean use, so padded rows center to exactly
+    zero."""
+    n, p = x.shape
+    mu = torch.as_tensor(mu).to(dtype=x.dtype, device=x.device)
+    pad_n = (-n) % block_n
+    pad_p = (-p) % block_p
+    if pad_n:
+        x = torch.cat([x, mu.expand(pad_n, p)])
+    if pad_p:
+        x = torch.nn.functional.pad(x, (0, pad_p))
+        mu = torch.nn.functional.pad(mu, (0, pad_p))
+    return x.contiguous(), mu.contiguous()
+
+
+def covgram_screen_tiles(
+    x_pad: torch.Tensor,
+    mu_pad: torch.Tensor,
+    i_idx,
+    j_idx,
+    lam: float,
+    *,
+    n_true: int,
+    p_true: int,
+    block_p: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compute and threshold the requested tile pairs of the centered Gram;
+    returns (vals (B, bp, bp), counts (B,) int32, stats (B, 2)) on x's
+    device (stats: [tile max |S_ij|, max |S_ij| <= lam], off-diagonal).
+
+    x_pad/mu_pad follow ``pad_for_screen``.  A CPU x runs the plain version;
+    a CUDA x launches ``csrc/covgram_screen.cu`` (float64) or raises.  Each
+    launch bumps ``kernels.covgram_screen.launches``."""
+    dev = x_pad.device
+    i_idx = torch.as_tensor(np.asarray(i_idx), dtype=torch.int32).to(dev)
+    j_idx = torch.as_tensor(np.asarray(j_idx), dtype=torch.int32).to(dev)
+    if dev.type == "cpu":
+        return covgram_screen_ref(
+            x_pad, mu_pad, i_idx, j_idx, lam,
+            n_true=n_true, p_true=p_true, block_p=block_p,
+        )
+    if dev.type != "cuda":
+        raise ValueError(f"covgram_screen: no kernel for device {dev}")
+    if x_pad.dtype != torch.float64 or mu_pad.dtype != torch.float64:
+        raise TypeError(
+            f"covgram_screen: the CUDA kernel takes float64, got {x_pad.dtype}/{mu_pad.dtype}"
+        )
+    N, P = x_pad.shape
+    if mu_pad.shape != (P,) or mu_pad.device != dev or P % block_p:
+        raise ValueError(
+            f"covgram_screen: x (N, P) with P a multiple of block_p={block_p} and "
+            f"mu ({P},) on {dev}; got x {tuple(x_pad.shape)}, mu {tuple(mu_pad.shape)} "
+            f"on {mu_pad.device}"
+        )
+    if i_idx.shape != j_idx.shape or i_idx.ndim != 1:
+        raise ValueError("covgram_screen: i_idx and j_idx must be equal-length vectors")
+    B = i_idx.shape[0]
+    x_pad, mu_pad = x_pad.contiguous(), mu_pad.contiguous()
+    vals = torch.empty((B, block_p, block_p), dtype=x_pad.dtype, device=dev)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    stats = torch.zeros((B, 2), dtype=x_pad.dtype, device=dev)
+    if B == 0:
+        return vals, counts, stats
+    with torch.cuda.device(dev):
+        status = library().covgram_screen_launch(
+            x_pad.data_ptr(), mu_pad.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(),
+            vals.data_ptr(), counts.data_ptr(), stats.data_ptr(), B, N, P,
+            block_p, int(n_true), int(p_true), float(lam),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    check(status, "covgram_screen")
+    bump("kernels.covgram_screen.launches")
+    return vals, counts, stats
+
+
+def compact_edges_signed(
+    vals: torch.Tensor, i_idx, j_idx, *, block_p: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Global (i, j, S_ij) of every nonzero in a batch of thresholded tiles,
+    upper triangle only (diagonal tile pairs hold both orientations;
+    off-diagonal pairs are scheduled with tile_i < tile_j), in row-major
+    order of (pair, row, col), as numpy arrays (int64, int64, float64)."""
+    dev = vals.device
+    i_idx = torch.as_tensor(np.asarray(i_idx), dtype=torch.int64).to(dev)
+    j_idx = torch.as_tensor(np.asarray(j_idx), dtype=torch.int64).to(dev)
+    t, ri, ci = torch.nonzero(vals, as_tuple=True)
+    gi = i_idx[t] * block_p + ri
+    gj = j_idx[t] * block_p + ci
+    keep = gi < gj
+    v = vals[t[keep], ri[keep], ci[keep]].to(torch.float64)
+    return gi[keep].cpu().numpy(), gj[keep].cpu().numpy(), v.cpu().numpy()
+
+
+def compact_edges(
+    vals: torch.Tensor, i_idx, j_idx, *, block_p: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``compact_edges_signed`` with weights |S_ij|."""
+    gi, gj, v = compact_edges_signed(vals, i_idx, j_idx, block_p=block_p)
+    return gi, gj, np.abs(v)

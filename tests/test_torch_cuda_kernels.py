@@ -122,3 +122,155 @@ def test_glasso_on_the_card_matches_the_cpu_path(cuda_device):
     assert got.device.startswith("cuda")
     assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
     np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------------------------- slice 2
+# threshold_cc compares in S's own dtype exactly as the plain step does, so
+# its labels are equal, not close.  covgram_screen sums the same products in
+# another order: bit-equal on integer data with a power-of-two n (every
+# partial sum is exact), within 1e-12 of max|S| on Gaussian data (float64
+# sums of <= 96 terms).
+
+
+@pytest.mark.parametrize("p", [1, 7, 33, 200, 1000])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_threshold_cc_step_matches_plain(cuda_device, p, dtype):
+    from repro_torch.kernels.threshold_cc import labelprop_step, labelprop_step_ref
+
+    rng = np.random.default_rng(p)
+    A = rng.uniform(-1.0, 1.0, size=(p, p))
+    S = 0.5 * (A + A.T)
+    lam = 0.9
+    if p > 2:  # an exact tie: not an edge
+        S[0, 1] = S[1, 0] = lam
+    St = torch.as_tensor(S, dtype=dtype, device=cuda_device)
+    labels = torch.as_tensor(rng.permutation(p), dtype=torch.int32, device=cuda_device)
+    instrument.reset("kernels.")
+    got = labelprop_step(St, labels, lam)
+    want = labelprop_step_ref(St, labels, lam)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.threshold_cc.launches") == 1
+    assert torch.equal(got, want)
+
+
+def test_pallas_backend_on_the_card_equals_host(cuda_device):
+    """The device screen through the registry, near tie included: the
+    float64 kernel keeps an edge that exceeds lam by 1e-12."""
+    from repro_torch.core.screening import thresholded_components
+    from repro_torch.covariance import structured_synthetic
+
+    S = structured_synthetic(30, 12, seed=1)
+    want, _ = thresholded_components(S, 0.6)
+    instrument.reset("kernels.")
+    got, _ = thresholded_components(S, 0.6, backend="pallas", device="cuda")
+    assert instrument.count("kernels.threshold_cc.launches") > 0
+    assert np.array_equal(got, want)
+    T = np.eye(4)
+    T[0, 1] = T[1, 0] = 0.5 + 1e-12
+    got, _ = thresholded_components(T, 0.5, backend="pallas", device="cuda")
+    assert got.tolist() == [0, 0, 2, 3]
+
+
+def _screen_inputs(X, tile, chunk=64):
+    from repro_torch.kernels.covgram_screen import pad_for_screen
+
+    n, p = X.shape
+    mu = X.mean(axis=0)
+    x = torch.as_tensor(X, device="cuda")
+    x_pad, mu_pad = pad_for_screen(x, mu, block_n=chunk, block_p=tile)
+    nt = x_pad.shape[1] // tile
+    ti, tj = np.triu_indices(nt)
+    return x_pad, mu_pad, ti.astype(np.int32), tj.astype(np.int32)
+
+
+@pytest.mark.parametrize("tile", [48, 64, 128])
+@pytest.mark.parametrize("integer", [True, False])
+def test_covgram_screen_matches_plain(cuda_device, tile, integer):
+    from repro_torch.kernels.covgram_screen import covgram_screen_ref, covgram_screen_tiles
+
+    rng = np.random.default_rng(tile)
+    n, p = (64, 300) if integer else (96, 300)
+    if integer:
+        X = rng.integers(-4, 5, size=(n, p)).astype(np.float64)
+    else:
+        X = rng.standard_normal((n, p)) * (0.1 + rng.random(p))
+    x_pad, mu_pad, ti, tj = _screen_inputs(X, tile)
+    vals = np.unique(np.abs(np.cov(X, rowvar=False, bias=True))[np.triu_indices(p, 1)])
+    k = int(0.9 * vals.size)
+    # integer data: lam an existing |S_ij| (an exact tie, not an edge);
+    # Gaussian data: lam midway between two values, far from any entry
+    lam = float(vals[k]) if integer else float(0.5 * (vals[k] + vals[k + 1]))
+    instrument.reset("kernels.")
+    got = covgram_screen_tiles(x_pad, mu_pad, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    want = covgram_screen_ref(x_pad, mu_pad, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.covgram_screen.launches") == 1
+    if integer:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    else:
+        scale = float(want[2][:, 0].max())
+        assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
+        assert float((got[2] - want[2]).abs().max()) <= 1e-12 * scale
+        assert torch.equal(got[1], want[1])
+
+
+def test_covgram_screen_rejects_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels.covgram_screen import covgram_screen_tiles
+
+    x = torch.zeros((8, 16), dtype=torch.float32, device=cuda_device)
+    mu = torch.zeros(16, dtype=torch.float32, device=cuda_device)
+    with pytest.raises(TypeError, match="float64"):
+        covgram_screen_tiles(x, mu, [0], [0], 0.1, n_true=8, p_true=16, block_p=16)
+    with pytest.raises(ValueError, match="multiple of block_p"):
+        covgram_screen_tiles(x.double(), mu.double(), [0], [0], 0.1, n_true=8,
+                             p_true=16, block_p=12)
+
+
+def _grouped_data():
+    rng = np.random.default_rng(0)
+    n, p = 128, 200
+    X = rng.standard_normal((n, p)) * (0.05 + 0.2 * rng.random(p))
+    f = rng.standard_normal((n, 12))
+    for g in range(12):  # planted groups: trees, cycles and denser blocks
+        cols = slice(g * 6, g * 6 + 6)
+        X[:, cols] = 0.7 * f[:, [g]] + 0.7 * rng.standard_normal((n, 6))
+    return X
+
+
+def test_glasso_from_data_on_the_card_matches_the_cpu_path(cuda_device):
+    """glasso(X=...) on the card streams through covgram_screen, solves
+    through both solve kernels, and agrees with the CPU path."""
+    X = _grouped_data()
+    lam = 0.45
+    stream = {"tile": 64, "chunk": 32}
+    cpu = repro_torch.EngineOptions(device="cpu", output="dense")
+    want = repro_torch.glasso(X=X, lam=lam, stream=stream, options=cpu)
+    # the data must hold blocks for both solve kernels: trees and general
+    assert want.route_mix.get("tree", 0) > 0 and want.route_mix.get("general", 0) > 0
+    instrument.reset("kernels.")
+    got = repro_torch.glasso(X=X, lam=lam, stream=stream,
+                             options=repro_torch.EngineOptions(output="dense"))
+    assert instrument.count("kernels.covgram_screen.launches") > 0
+    assert instrument.count("kernels.tree_glasso.launches") > 0
+    assert instrument.count("kernels.bucket_glasso.launches") > 0
+    assert got.device.startswith("cuda")
+    assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
+    np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-9)
+
+
+def test_glasso_from_float32_data_on_the_card_matches_the_cpu_path(cuda_device):
+    """float32 X is promoted to float64 before the float64 covgram_screen
+    kernel, on the card as on the CPU, so both paths take it and agree."""
+    X = _grouped_data().astype(np.float32)
+    lam = 0.45
+    stream = {"tile": 64, "chunk": 32}
+    cpu = repro_torch.EngineOptions(device="cpu", output="dense")
+    want = repro_torch.glasso(X=X, lam=lam, stream=stream, options=cpu)
+    assert want.route_mix.get("general", 0) > 0
+    instrument.reset("kernels.")
+    got = repro_torch.glasso(X=X, lam=lam, stream=stream,
+                             options=repro_torch.EngineOptions(output="dense"))
+    assert instrument.count("kernels.covgram_screen.launches") > 0
+    assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
+    np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-9)

@@ -190,8 +190,10 @@ def test_names_and_unported_features_raise():
         repro_torch.glasso(S, lam, options=CPU.replace(output="sparse"))
     with pytest.raises(NotImplementedError, match="slice 2"):
         repro_torch.glasso_path(S, [lam])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        repro_torch.glasso(X=S, lam=lam, options=CPU)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        repro_torch.glasso_path(X=S, lambdas=[lam], from_data=True)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        repro_torch.glasso(X=S, lam=lam, options=CPU.replace(output="sparse"))
     from repro_torch.core.sparse import AUTO_SPARSE_P, resolve_output
 
     assert resolve_output("auto", AUTO_SPARSE_P) == "dense"
