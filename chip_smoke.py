@@ -46,9 +46,28 @@ Phases, each printing a line:
              held against its plain version and timed on its own inputs;
 9. stream    ``stream_screen`` over an 8-lambda grid at p = 16000: every
              partition equal to the dense one;
-10. kernels  one JSON line: every ported kernel with its launches on its
-             path and, summed over those launches on their recorded
-             inputs, its error, times and bound;
+10. joint    ``joint_glasso`` (group penalty) on the card at p = 6000,
+             K = 4 (``benchmarks/bench_joint.py``'s generator, 85 % of the
+             planted blocks shared, lam1 = 0.4, lam2 = 0.1, tol 1e-9,
+             an ADMM budget of 20000 iterations),
+             first and repeat: labels equal to scipy's components of the
+             hybrid rule computed here on the card, all five route classes,
+             zero fallbacks, Theta zero across components in every class,
+             the joint KKT residual of every block <= 1e-5 max|S|; the
+             stages, the ADMM iteration counts per bucket and the split of
+             one ADMM iteration (eigh, reconstruction, joint_prox, lanes);
+11. joint_fused  the same with the fused penalty at bench_joint's p = 2400;
+12. joint_from_data  ``joint_glasso(Xs=...)`` for K = 3 classes of the
+             from-data workload at p = 8000 (tile 2048): streamed labels
+             equal to the port's dense joint screen of each class's
+             ``sample_covariance``, zero fallbacks, zeros, KKT, the
+             candidate pairs and the tiles skipped;
+13. joint_prox  the first, a middle and the last joint_prox launch of the
+             [joint] and [joint_fused] solves, each held against its plain
+             version on its own inputs and timed;
+14. kernels  one JSON line: every ported kernel with its launches on its
+             path and, summed over its recorded launches, its error, times
+             and bound;
 
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits nonzero and prints no result; so does a machine without
@@ -59,6 +78,7 @@ from __future__ import annotations
 
 import importlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -85,6 +105,7 @@ from repro_torch.covariance import (  # noqa: E402
 )
 from repro_torch.engine.planner import build_plan_incremental  # noqa: E402
 from repro_torch.engine.registry import route_for  # noqa: E402
+from repro_torch.joint import joint_glasso  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bucket_glasso.ops import fused_bcd_stack  # noqa: E402
 from repro_torch.kernels.bucket_glasso.ref import fused_bcd_ref_stack  # noqa: E402
@@ -141,9 +162,32 @@ STREAM_P, STREAM_TILE = 16000, 512
 STREAM_GRID = (0.30, 0.26, 0.22, 0.18, 0.14, 0.10, 0.075, 0.05)  # descending
 CHUNK = 64
 PAIR_BATCH = 64  # StreamConfig's default: tile pairs in flight per launch
+# the joint K-class phases: benchmarks/bench_joint.py's generator and
+# settings, structured_synthetic(K_blocks, p1, classes=, shared_fraction=,
+# seed=1) at lam1 = 0.4, lam2 = 0.1
+JOINT_CASE = (375, 16, 4, 0.85)        # p = 6000, K = 4: the main path's size
+JOINT_FUSED_CASE = (150, 16, 4, 0.85)  # p = 2400: bench_joint's own size
+JOINT_LAM1, JOINT_LAM2 = 0.4, 0.1
+# bench_joint's tol; the ADMM budget raised from the default 2000: at
+# p = 6000 the group penalty's b = 16 lanes need up to ~5100 iterations to
+# stop (the reference's ADMM stops at the same counts: ROADMAP queue 3)
+JOINT_SOLVER_OPTS = {"tol": 1e-9, "max_iter": 20000}
+JOINT_FROM_DATA_K = 3
+JOINT_ROUTES = ("singleton", "joint_forest", "joint_chordal", "joint_shared", "joint_general")
+# the fused rule screens no chordal shared component on its workload
+JOINT_FUSED_ROUTES = ("singleton", "joint_forest", "joint_shared", "joint_general")
+# joint_prox repeats the plain version's per-entry arithmetic; the class and
+# lane sums of rp2/rd2 run in another order (float64, sums of K b^2 terms)
+JOINT_PROX_ATOL = 1e-12
+JOINT_PROX_RTOL = 1e-9
+
+
+T_START = time.perf_counter()
 
 
 def log(phase: str, **fields) -> None:
+    """One result line, stamped with the seconds since the script started."""
+    fields["t"] = f"{time.perf_counter() - T_START:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -813,6 +857,354 @@ def phase_stream(X: np.ndarray) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------- phases 11-14
+
+
+@contextmanager
+def record_results(module: str, name: str):
+    """``record_calls`` that also keeps each call's result."""
+    mod = importlib.import_module(module)
+    inner = getattr(mod, name)
+    calls: list[tuple[tuple, dict, object]] = []
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, inner)
+
+
+@contextmanager
+def record_prox_launches():
+    """Keep the inputs of the first, every power-of-two-th and the last
+    ``joint_prox_step`` call the joint ADMM makes inside the block (the
+    launches of a whole solve would hold gigabytes); yields a dict
+    {call index: (args, kwargs)} with the call count under ``"n"``."""
+    mod = importlib.import_module("repro_torch.joint.admm")
+    inner = mod.joint_prox_step
+    kept: dict = {"n": 0}
+
+    def recording(*args, **kwargs):
+        i = kept["n"]
+        prev = i - 1
+        if prev > 0 and prev & (prev - 1):  # kept only while it was the last
+            del kept[prev]
+        kept[i] = (args, kwargs)
+        kept["n"] = i + 1
+        return inner(*args, **kwargs)
+
+    mod.joint_prox_step = recording
+    try:
+        yield kept
+    finally:
+        mod.joint_prox_step = inner
+
+
+def first_middle_last(kept: dict) -> list[tuple[int, tuple, dict]]:
+    """The first, a middle and the last recorded prox launch."""
+    idx = sorted(k for k in kept if isinstance(k, int))
+    if not idx:
+        return []
+    mid = min(idx, key=lambda i: abs(i - kept["n"] // 2))
+    return [(i, *kept[i]) for i in sorted({idx[0], mid, idx[-1]})]
+
+
+def hybrid_labels_on_card(Ss_dev: torch.Tensor, lam1: float, lam2: float,
+                          penalty: str) -> tuple[np.ndarray, float]:
+    """Canonical labels of the hybrid-thresholded union graph, computed here
+    on the card from the definitions (group: sum_k soft(|S_k|, lam1)^2 >
+    lam2^2; fused: some subset A of the classes with |sum_A S_k| >
+    |A| lam1 + |A|(K - |A|) lam2, checked through the sorted prefix sums),
+    components by scipy; and the margin min |excess| off the diagonal."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    K, p, _ = Ss_dev.shape
+    if penalty == "group":
+        soft = (Ss_dev.abs() - lam1).clamp_(min=0.0)
+        excess = (soft * soft).sum(dim=0) - lam2 * lam2
+        del soft
+    else:
+        srt = torch.sort(Ss_dev, dim=0).values
+        prefix = torch.cat([torch.zeros_like(srt[:1]), torch.cumsum(srt, dim=0)])
+        del srt
+        excess = torch.full((p, p), -math.inf, dtype=Ss_dev.dtype, device=Ss_dev.device)
+        for m in range(1, K + 1):
+            top = prefix[K] - prefix[K - m]
+            bound = m * lam1 + lam2 * m * (K - m)
+            excess = torch.maximum(excess, torch.maximum(top, -prefix[m]) - bound)
+        del prefix
+    excess.fill_diagonal_(-math.inf)
+    ij = torch.nonzero(torch.triu(excess > 0.0, diagonal=1)).cpu().numpy()
+    margin = float(excess.abs().min())
+    del excess
+    G = coo_matrix((np.ones(len(ij)), (ij[:, 0], ij[:, 1])), shape=(p, p))
+    _, comp = connected_components(G, directed=False)
+    return canonical(comp), margin
+
+
+def check_joint_solution(Ss: list, res, *, penalty: str) -> float:
+    """Cross-component zeros in every class, finite Theta, and the joint KKT
+    residual of every component block (host numpy, ``joint_kkt_residual``)
+    and of every isolated vertex; returns the worst residual."""
+    from repro_torch.core.components import component_lists
+    from repro_torch.joint import joint_kkt_residual
+
+    lab = np.asarray(res.labels)
+    cross = lab[:, None] != lab[None, :]
+    for k in range(len(Ss)):
+        if np.any(res.Theta[k][cross] != 0.0):
+            raise AssertionError(f"joint: Theta of class {k} is nonzero across components")
+    del cross
+    if not np.isfinite(res.Theta).all():
+        raise AssertionError("joint: Theta has non-finite entries")
+    worst = 0.0
+    iso = []
+    for comp in component_lists(lab):
+        if comp.size == 1:
+            iso.append(int(comp[0]))
+            continue
+        ix = np.ix_(comp, comp)
+        worst = max(worst, joint_kkt_residual(
+            [S[ix] for S in Ss], res.Theta[:, comp[:, None], comp[None, :]],
+            res.lam1, res.lam2, penalty=penalty))
+    iso = np.asarray(iso, dtype=np.int64)
+    for k, S in enumerate(Ss):
+        if iso.size:
+            worst = max(worst, float(np.abs(
+                1.0 / res.Theta[k][iso, iso] - S[iso, iso] - res.lam1).max()))
+    smax = max(float(np.abs(S).max()) for S in Ss)
+    if not worst <= KKT_RTOL * smax:
+        raise AssertionError(f"joint: KKT residual {worst} > {KKT_RTOL}*max|S|")
+    return worst
+
+
+def admm_iteration_split(S, lam1, lam2, args: tuple, *, penalty: str, iters: int) -> dict:
+    """One ADMM iteration of a bucket, piece by piece (CUDA events, mean of
+    ``reps`` runs each) on a recorded mid-solve state: the batched eigh, the
+    reconstruction of Theta, the joint_prox kernel, and the lane
+    bookkeeping; plus the host-clock ms per iteration of the whole loop over
+    ``iters`` iterations from a cold start of the same bucket."""
+    iters = min(iters, 1000)
+    from repro_torch.joint.admm import (
+        advance_lanes,
+        joint_admm_info,
+        theta_eigh,
+        theta_from_eigh,
+    )
+    from repro_torch.kernels.joint_prox import joint_prox_step
+
+    theta, U, Z, t = args
+    n, K, b, _ = S.shape
+    rho = lam1 / t[:, 0]
+    reps = 20
+    d, Q = theta_eigh(S, Z, U, rho)
+    new = joint_prox_step(theta, U, Z, t, penalty=penalty)
+    inf = torch.full((n,), math.inf, dtype=S.dtype, device=S.device)
+    state = (Z, U, rho, inf, inf, torch.zeros(n, dtype=torch.int32, device=S.device))
+    active = torch.ones(n, dtype=torch.bool, device=S.device)
+    eps = JOINT_SOLVER_OPTS["tol"] * b * math.sqrt(K)
+    out = {
+        "eigh_ms": cuda_ms(lambda: theta_eigh(S, Z, U, rho), reps),
+        "reconstruct_ms": cuda_ms(lambda: theta_from_eigh(d, Q, rho, S.shape), reps),
+        "joint_prox_ms": cuda_ms(lambda: joint_prox_step(theta, U, Z, t, penalty=penalty), reps),
+        "lanes_ms": cuda_ms(lambda: advance_lanes(state, new, active, eps, iters), reps),
+    }
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    joint_admm_info(S, lam1, lam2, penalty=penalty, tol=0.0, max_iter=iters)
+    torch.cuda.synchronize()
+    out["iteration_wall_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    return out
+
+
+def kernel_device_ms(fn, name: str, reps: int) -> float:
+    """Mean device milliseconds per call of the kernels whose names hold
+    ``name``, from torch.profiler's device events over ``reps`` calls (the
+    CUDA-event time of a call also holds the host's launch cost when the
+    host is the slower side); 0.0 where the profiler records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / 1e3 / reps
+
+
+def joint_prox_bound_ms(theta: torch.Tensor) -> float:
+    """Read theta, u and z_old, write z_new and u_new: 40 n K b^2 bytes."""
+    return 5 * theta.numel() * 8 / HBM_BYTES_PER_S * 1e3
+
+
+def joint_prox_on_path(launches: list, *, penalty: str, label: str) -> dict:
+    """Each recorded joint_prox launch against its plain version on its own
+    inputs (raises on disagreement), and CUDA-event times summed over
+    them."""
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+
+    out = dict(n=len(launches), err_z=0.0, err_u=0.0, rel_rp2=0.0, rel_rd2=0.0,
+               ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, shapes=[])
+    for i, args, kw in launches:
+        got = joint_prox_step(*args, **kw)
+        want = joint_prox_ref(*args, **kw)
+        ez = float((got[0] - want[0]).abs().max())
+        eu = float((got[1] - want[1]).abs().max())
+        rel = [float(((g - w).abs() / w.abs().clamp(min=1e-300)).max())
+               for g, w in zip(got[2:], want[2:])]
+        if not (ez <= JOINT_PROX_ATOL and eu <= JOINT_PROX_ATOL
+                and max(rel) <= JOINT_PROX_RTOL):
+            raise AssertionError(
+                f"joint_prox {label} launch {i}: |dZ|={ez} |dU|={eu} rel rp2/rd2={rel}")
+        out["err_z"] = max(out["err_z"], ez)
+        out["err_u"] = max(out["err_u"], eu)
+        out["rel_rp2"] = max(out["rel_rp2"], rel[0])
+        out["rel_rd2"] = max(out["rel_rd2"], rel[1])
+        out["ms"] += cuda_ms(lambda: joint_prox_step(*args, **kw), 20)
+        out["device_ms"] += kernel_device_ms(lambda: joint_prox_step(*args, **kw),
+                                             "joint_prox", 20)
+        out["plain_ms"] += cuda_ms(lambda: joint_prox_ref(*args, **kw), 3)
+        out["bound_ms"] += joint_prox_bound_ms(args[0])
+        out["shapes"].append([i] + list(args[0].shape))
+    return out
+
+
+def solve_joint_on_card(phase: str, case: str, Ss: list, penalty: str, *,
+                        Xs: list | None = None) -> tuple[dict, object, dict, list]:
+    """One joint solve through ``joint_glasso`` on the card (from Ss, or from
+    Xs when given), counters zeroed just before and read just after; returns
+    (launches, result, recorded prox launches, per-bucket ADMM results)."""
+    opts = EngineOptions(output="dense", solver_opts=JOINT_SOLVER_OPTS)
+    torch.cuda.synchronize()
+    for prefix in ("kernels.", "joint.", "router.", "stream."):
+        instrument.reset(prefix)
+    with record_prox_launches() as kept, \
+            record_results("repro_torch.joint.admm", "joint_admm_info") as admm:
+        t0 = time.perf_counter()
+        if Xs is None:
+            res = joint_glasso(Ss, JOINT_LAM1, JOINT_LAM2, penalty=penalty, options=opts)
+        else:
+            res = joint_glasso(Xs=Xs, lam1=JOINT_LAM1, lam2=JOINT_LAM2, penalty=penalty,
+                               stream={"tile": FROM_DATA_TILE, "chunk": CHUNK},
+                               options=opts)
+        wall = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    joint_counts = instrument.counts("joint.")
+    stream_counts = instrument.counts("stream.")
+    iters = [sorted(out[1].tolist()) for _, _, out in admm]
+    stages = res.stages()
+    log(phase, case=case, K=len(Ss), p=Ss[0].shape[0], penalty=penalty,
+        lam1=JOINT_LAM1, lam2=JOINT_LAM2, route_mix=json.dumps(res.route_mix, sort_keys=True),
+        launches=json.dumps(launches, sort_keys=True), fallbacks=res.fallbacks,
+        joint=json.dumps(joint_counts, sort_keys=True),
+        stream=json.dumps(stream_counts, sort_keys=True),
+        admm_buckets=json.dumps([[tuple(args[0].shape)[:2], it[0], it[len(it) // 2], it[-1]]
+                                 for (args, _, _), it in zip(admm, iters)]),
+        wall_s=f"{wall:.3f}", screen_s=f"{stages['screen']:.4f}",
+        plan_s=f"{span_seconds(res, 'engine.plan'):.4f}",
+        solve_s=f"{stages['solve']:.4f}", assemble_s=f"{stages['assemble']:.4f}")
+    if res.fallbacks != 0 or joint_counts.get("joint.fallbacks", 0) != 0:
+        raise AssertionError(f"{phase}: {res.fallbacks} fallbacks (expected none)")
+    return launches, res, kept, admm
+
+
+def phase_joint(phase: str, case: tuple, penalty: str, required: tuple) -> tuple:
+    """joint_glasso from Ss on the card, first and repeat, checked against
+    the union labels computed here, the route mix, fallbacks, zeros and
+    KKT; returns (launches of the first solve, its recorded prox launches)."""
+    K_blocks, p1, classes, shared = case
+    stack = structured_synthetic(K_blocks, p1, classes=classes, shared_fraction=shared,
+                                 seed=1)
+    Ss = list(stack)
+    S_dev = torch.as_tensor(stack).to(DEV)
+    del stack
+    labels, margin = hybrid_labels_on_card(S_dev, JOINT_LAM1, JOINT_LAM2, penalty)
+    smax = float(S_dev.abs().max())
+    del S_dev
+    torch.cuda.empty_cache()
+    if margin < MARGIN_RTOL * smax:
+        raise AssertionError(f"{phase}: a pair's excess lies within {margin} of the rule")
+    name = "structured K={} p1={} classes={} shared={}".format(*case)
+    first = None
+    for run in ("first", "repeat"):
+        launches, res, kept, admm = solve_joint_on_card(phase, f"{name} ({run})", Ss, penalty)
+        if not np.array_equal(res.labels, labels):
+            raise AssertionError(f"{phase}: labels differ from the hybrid rule's components")
+        missing = [c for c in required if res.route_mix.get(c, 0) <= 0]
+        if missing:
+            raise AssertionError(f"{phase}: route mix {res.route_mix} lacks {missing}")
+        kkt = check_joint_solution(Ss, res, penalty=penalty)
+        log(phase + "_check", case=run, labels_equal_rule=True, margin=margin, kkt=kkt,
+            max_abs_S=smax)
+        if first is None:
+            first = (launches, first_middle_last(kept), admm)
+    launches, prox, admm = first
+    for name_ in ("joint_prox", "tree_glasso", "bucket_glasso"):
+        if launches.get(f"{name_}.launches", 0) <= 0:
+            raise AssertionError(f"{name_} was not launched on the [{phase}] path")
+    if sum(len(out[1]) for _, _, out in admm) == 0:
+        raise AssertionError(f"{phase}: no joint ADMM bucket ran")
+    # the per-iteration split: the bucket of the middle recorded launch
+    i_mid, mid_args, _ = prox[len(prox) // 2]
+    S_b, l1, l2 = next(c[0][:3] for c in admm if c[0][0].shape == mid_args[0].shape)
+    iters = int(next(c[2][1].max() for c in admm if c[0][0].shape == mid_args[0].shape))
+    split = admm_iteration_split(S_b, l1, l2, mid_args[:4], penalty=penalty, iters=iters)
+    log(phase + "_split", bucket=list(S_b.shape), launch=i_mid, iterations=iters,
+        **{k: f"{v:.4f}" for k, v in split.items()})
+    del admm
+    return launches, prox
+
+
+def phase_joint_from_data() -> dict:
+    """joint_glasso(Xs=...) on the card, K classes of the from-data workload:
+    streamed labels equal to the port's dense joint screen on each class's
+    ``sample_covariance`` and to the rule computed here, zero fallbacks,
+    zeros and KKT; returns the launches of the first solve."""
+    from repro_torch.joint import joint_thresholded_components
+
+    Xs = [workload(FROM_DATA_P, load=0.9, noise=0.44, seed=k) for k in range(JOINT_FROM_DATA_K)]
+    S_devs = [sample_covariance(X) for X in Xs]
+    smax = max(float(S.abs().max()) for S in S_devs)
+    margins = [dense_partition(S, JOINT_LAM1)[1] for S in S_devs]
+    stack = torch.stack(S_devs)
+    del S_devs
+    rule_labels, margin = hybrid_labels_on_card(stack, JOINT_LAM1, JOINT_LAM2, "group")
+    Ss = list(stack.cpu().numpy())
+    del stack
+    torch.cuda.empty_cache()
+    if min(margins + [margin]) < MARGIN_RTOL * smax:
+        raise AssertionError("joint_from_data: a value lies within the margin of the rule")
+    dense_labels, _ = joint_thresholded_components(Ss, JOINT_LAM1, JOINT_LAM2, penalty="group")
+    if not np.array_equal(dense_labels, rule_labels):
+        raise AssertionError("joint_from_data: the dense joint screen differs from the rule")
+    case = f"workload p={FROM_DATA_P} n={N_ROWS} K={JOINT_FROM_DATA_K} tile={FROM_DATA_TILE}"
+    first = None
+    for run in ("first", "repeat"):
+        launches, res, _, _ = solve_joint_on_card("joint_from_data", f"{case} ({run})", Ss,
+                                                  "group", Xs=Xs)
+        if not np.array_equal(res.labels, dense_labels):
+            raise AssertionError("joint_from_data: streamed labels differ from the dense screen")
+        kkt = check_joint_solution(Ss, res, penalty="group")
+        log("joint_from_data_check", case=run, labels_equal_dense=True, margin=min(margins),
+            rule_margin=margin, kkt=kkt, max_abs_S=smax,
+            candidate_pairs=res.screen.candidate_pairs, tiles_total=res.screen.tiles_total,
+            tiles_skipped=res.screen.tiles_skipped, n_edges=res.screen.n_edges)
+        first = first or launches
+    if first.get("covgram_screen.launches", 0) <= 0:
+        raise AssertionError("covgram_screen was not launched on the [joint_from_data] path")
+    return first
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -853,6 +1245,21 @@ def main() -> int:
     phase_covgram_screen(X_fd, X_st)
     fd_launches, cov = phase_from_data(X_fd)
     phase_stream(X_st)
+    del X_fd, X_st
+
+    joint_launches, joint_prox = phase_joint("joint", JOINT_CASE, "group", JOINT_ROUTES)
+    _, fused_prox = phase_joint("joint_fused", JOINT_FUSED_CASE, "fused", JOINT_FUSED_ROUTES)
+    phase_joint_from_data()
+    jp = {}
+    for label, recorded, penalty in (("joint", joint_prox, "group"),
+                                     ("joint_fused", fused_prox, "fused")):
+        jp[label] = joint_prox_on_path(recorded, penalty=penalty, label=label)
+        r = jp[label]
+        log("joint_prox", path=label, penalty=penalty, launches_timed=r["n"],
+            shapes=json.dumps(r["shapes"]), max_abs_err_z=r["err_z"],
+            max_abs_err_u=r["err_u"], rel_err_rp2=r["rel_rp2"], rel_err_rd2=r["rel_rd2"],
+            ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
+            plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}")
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -888,6 +1295,15 @@ def main() -> int:
             "ms": cov["ms"], "plain_ms": cov["plain_ms"], "bound_ms": cov["bound_ms"],
             "bound_by": "operations" if cov["ops_ms"] > cov["bytes_ms"] else "bytes",
             "library_ms": cov["library_ms"],
+        },
+        {
+            "name": "joint_prox", "route": "cuda",
+            "source": "src/repro_torch/csrc/joint_prox.cu",
+            "replaces": "src/repro/kernels/joint_prox/joint_prox.py:36",
+            "launches": joint_launches["joint_prox.launches"],
+            "max_abs_err": max(jp["joint"]["err_z"], jp["joint"]["err_u"]),
+            "ms": jp["joint"]["ms"], "plain_ms": jp["joint"]["plain_ms"],
+            "bound_ms": jp["joint"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

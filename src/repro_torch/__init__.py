@@ -8,6 +8,8 @@ a host clique-tree solve for chordal blocks, the ``bucket_glasso`` CUDA
 kernel (whole BCD solve per lane) for the rest — and assembles a dense
 Theta.  It runs on the card by default; ``EngineOptions(device="cpu")``
 runs the plain-PyTorch versions of the kernels instead.
+``repro_torch.joint.joint_glasso`` solves the joint K-class problem the
+same way, its ADMM Z-update on the ``joint_prox`` CUDA kernel.
 
 The package imports ``torch``, ``numpy`` and ``scipy`` only.
 """

@@ -164,20 +164,26 @@ def make_bucket(
 
 
 def assemble_dense(
-    plan: Plan, bucket_solutions: list[np.ndarray], S: np.ndarray
+    plan: Plan, bucket_solutions: list[np.ndarray], S: np.ndarray, *,
+    out: np.ndarray | None = None,
 ) -> np.ndarray:
     """Scatter per-component solutions back into the global dense Theta.
 
     Members of one bucket that share a size scatter with a single fancy-index
-    assignment."""
+    assignment.  ``out``, when given, is a zero-initialized (p, p) buffer to
+    assemble into (the joint assembler passes per-class views of one
+    (K, p, p) allocation)."""
     p = plan.p
-    dtype = (
-        np.asarray(bucket_solutions[0]).dtype
-        if bucket_solutions
-        else cov_dtype(S)
-    )
-    Theta = np.zeros((p, p), dtype=dtype)
-    set_peak("result.bytes_peak", Theta.nbytes)
+    if out is not None:
+        Theta = out
+    else:
+        dtype = (
+            np.asarray(bucket_solutions[0]).dtype
+            if bucket_solutions
+            else cov_dtype(S)
+        )
+        Theta = np.zeros((p, p), dtype=dtype)
+        set_peak("result.bytes_peak", Theta.nbytes)
     if len(plan.isolated):
         Theta[plan.isolated, plan.isolated] = 1.0 / (
             gather_diag(S, plan.isolated) + plan.lam

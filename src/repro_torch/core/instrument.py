@@ -10,8 +10,11 @@ read:
     engine.assemble_us              assembly-stage microseconds
     kernels.tree_glasso.launches    CUDA launches of the forest kernel
     kernels.bucket_glasso.launches  CUDA launches of the fused BCD kernel
+    kernels.joint_prox.launches     CUDA launches of the joint prox kernel
+    joint.dispatches / joint.fallbacks / joint.closed_form_blocks /
+    joint.shared_blocks             the joint engine's routing ledger
 
-The two ``kernels.*`` counters are bumped by the kernel wrappers only where
+The ``kernels.*`` counters are bumped by the kernel wrappers only where
 they launch on the card — the CPU path through the plain versions leaves
 them at zero.
 """

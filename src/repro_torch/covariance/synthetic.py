@@ -10,7 +10,9 @@ so the port's own scripts need nothing of ``repro``:
 ``structured_synthetic`` planted-support covariance whose thresholded
                          components are trees / (mostly) chordal-seeded
                          blocks / chordless cycles, with edge magnitudes
-                         spread across a lambda interval.
+                         spread across a lambda interval; with
+                         ``classes=`` a (classes, p, p) stack for the joint
+                         K-class workload.
 """
 
 from __future__ import annotations
@@ -70,6 +72,22 @@ def lambda_interval_for_k(S: np.ndarray, K: int) -> tuple[float, float]:
     return lam_min, lam_max
 
 
+def _planted_edges(rng, kind: str, p1: int) -> list[tuple[int, int]]:
+    """Within-block support of one planted component: tree / 2-tree / cycle."""
+    if kind == "tree":
+        return [(i, int(rng.integers(0, i))) for i in range(1, p1)]
+    if kind == "chordal":
+        edges = [(1, 0), (2, 0), (2, 1)]
+        for v in range(3, p1):
+            a = int(rng.integers(0, v))
+            b = int(rng.integers(0, v))
+            while b == a:
+                b = int(rng.integers(0, v))
+            edges += [(v, a), (v, b)]
+        return edges
+    return [(i, (i + 1) % p1) for i in range(p1)]  # chordless cycle
+
+
 def structured_synthetic(
     K: int,
     p1: int,
@@ -80,6 +98,8 @@ def structured_synthetic(
     lam_hi: float = 0.8,
     noise: float = 0.9,
     seed: int = 0,
+    classes: int | None = None,
+    shared_fraction: float = 1.0,
 ) -> np.ndarray:
     """Covariance with K planted p1-vertex components of known structure.
 
@@ -95,7 +115,22 @@ def structured_synthetic(
     story on one path.  Diagonals are set diagonally dominant, keeping the
     soft-thresholded matrix PD (the closed-form regime of the ladder bench).
 
-    Returns the p x p matrix S with p = K * p1 (float64), columns shuffled."""
+    Returns the p x p matrix S with p = K * p1 (float64), columns shuffled.
+
+    Multi-class (``classes=k``): a (classes, p, p) stack for the joint
+    workload (``repro_torch.joint``).  The first ``round(shared_fraction *
+    K)`` planted blocks are identical across classes (the joint routing
+    ladder's closed-form regime); the rest are re-drawn per class (the
+    joint ADMM regime).  Off-block noise is drawn per class, below
+    ``noise * lam_lo``; diagonals use the class-max absolute row sum, so
+    shared blocks stay bit-identical and every class diagonally dominant;
+    one column permutation serves all classes."""
+    if classes is not None:
+        return _structured_synthetic_classes(
+            K, p1, int(classes), shared_fraction,
+            tree_frac=tree_frac, chordal_frac=chordal_frac,
+            lam_lo=lam_lo, lam_hi=lam_hi, noise=noise, seed=seed,
+        )
     rng = np.random.default_rng(seed)
     p = K * p1
     S = np.zeros((p, p))
@@ -131,3 +166,70 @@ def structured_synthetic(
     np.fill_diagonal(S, 1.0 + np.abs(S).sum(axis=1))
     perm = rng.permutation(p)
     return S[np.ix_(perm, perm)]
+
+
+def _structured_synthetic_classes(
+    K: int,
+    p1: int,
+    n_classes: int,
+    shared_fraction: float,
+    *,
+    tree_frac: float,
+    chordal_frac: float,
+    lam_lo: float,
+    lam_hi: float,
+    noise: float,
+    seed: int,
+) -> np.ndarray:
+    """The multi-class branch of ``structured_synthetic`` (its own RNG
+    stream, the reference's draw for draw)."""
+    rng = np.random.default_rng(seed)
+    p = K * p1
+    n_tree = int(round(tree_frac * K))
+    n_chordal = int(round(chordal_frac * K))
+    n_shared = int(round(np.clip(shared_fraction, 0.0, 1.0) * K))
+    kinds = [
+        "tree" if b < n_tree else
+        "chordal" if b < n_tree + n_chordal else "cycle"
+        for b in range(K)
+    ]
+    stacks = np.zeros((n_classes, p, p))
+
+    def fill(S, base, edges, gen):
+        for i, j in edges:
+            v = gen.uniform(lam_lo, lam_hi) * (1 if gen.random() < 0.5 else -1)
+            S[base + i, base + j] = S[base + j, base + i] = v
+
+    for blk in range(K):
+        base = blk * p1
+        if blk < n_shared:
+            edges = _planted_edges(rng, kinds[blk], p1)
+            vals = [
+                (i, j,
+                 rng.uniform(lam_lo, lam_hi) * (1 if rng.random() < 0.5 else -1))
+                for i, j in edges
+            ]
+            for k in range(n_classes):
+                for i, j, v in vals:
+                    stacks[k, base + i, base + j] = v
+                    stacks[k, base + j, base + i] = v
+        else:
+            for k in range(n_classes):
+                fill(stacks[k], base, _planted_edges(rng, kinds[blk], p1), rng)
+    # off-block noise, strictly below the screening range, per class
+    block_id = np.repeat(np.arange(K), p1)
+    off_block = np.triu(block_id[:, None] != block_id[None, :], 1)
+    n_off = int(off_block.sum())
+    for k in range(n_classes):
+        vals = rng.uniform(0, noise * lam_lo, size=n_off)
+        signs = rng.choice([-1.0, 1.0], size=n_off)
+        stacks[k][off_block] = vals * signs
+        stacks[k] = np.triu(stacks[k], 1)
+        stacks[k] = stacks[k] + stacks[k].T
+    # class-max row sums keep shared blocks identical and every class
+    # diagonally dominant
+    diag = 1.0 + np.abs(stacks).sum(axis=2).max(axis=0)
+    for k in range(n_classes):
+        np.fill_diagonal(stacks[k], diag)
+    perm = rng.permutation(p)
+    return stacks[:, perm][:, :, perm]

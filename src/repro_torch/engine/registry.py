@@ -31,6 +31,11 @@ bucket by the planner via ``engine.structure``) -> executor route:
     "chordal"   -> "chordal"      host clique-tree direct solve
     "general"   -> "iterative"    the configured solver (bucket_glasso)
 
+and the joint (K-class) union-graph classes of ``repro_torch.joint``:
+"joint_forest" -> "closed_form", "joint_chordal" -> "chordal",
+"joint_shared" -> "iterative" (one single-class bcd solve) and
+"joint_general" -> "iterative" (the joint ADMM).
+
 Every non-iterative route is KKT-verified by the executor and falls back to
 "iterative" on failure, so re-routing a class (``set_route``) changes cost,
 never correctness.  The solver protocol is re-exported here so every
@@ -117,6 +122,13 @@ _ROUTE_OF: dict[str, str] = {
     "tree": "closed_form",
     "chordal": "chordal",
     "general": "iterative",
+    # joint (K-class) union-graph classes: identical class blocks reduce to
+    # ONE single-class problem at an effective lambda (repro_torch.joint);
+    # class-specific blocks take the coupled joint ADMM through "iterative"
+    "joint_forest": "closed_form",
+    "joint_chordal": "chordal",
+    "joint_shared": "iterative",
+    "joint_general": "iterative",
 }
 
 

@@ -51,6 +51,10 @@ _SIGNATURES = {
     "covgram_screen_launch": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     ),
+    "joint_prox_launch": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    ),
+    "joint_prox_scratch_doubles": (ctypes.c_longlong, [_I, _I]),
     "repro_torch_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -125,3 +125,51 @@ def compact_edges(
     """``compact_edges_signed`` with weights |S_ij|."""
     gi, gj, v = compact_edges_signed(vals, i_idx, j_idx, block_p=block_p)
     return gi, gj, np.abs(v)
+
+
+def covgram_screen_tiles_stacked(
+    xs_pad,
+    mus_pad,
+    i_idx_per_class,
+    j_idx_per_class,
+    lam: float,
+    *,
+    n_trues,
+    p_true: int,
+    block_p: int,
+    pair_batch: int = 64,
+    tile_fn=None,
+) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """K-stacked screen: one gram + threshold + compact pass PER CLASS.
+
+    The joint screener's entry point: each class streams its OWN kept-tile
+    schedule (the Cauchy-Schwarz certificates are per class) in bounded
+    ``pair_batch`` flights through ``tile_fn`` (default
+    ``covgram_screen_tiles``: the kernel on the card), and the compacted
+    SIGNED per-class edges (i, j, S_ij) come back for the hybrid rule.
+    Per-class row counts n_k differ, which is why this loops over classes
+    rather than launching one K-batched kernel."""
+    if tile_fn is None:
+        tile_fn = covgram_screen_tiles
+    batch = max(1, int(pair_batch))
+    out = []
+    for x_pad, mu_pad, bi, bj, n_true in zip(
+        xs_pad, mus_pad, i_idx_per_class, j_idx_per_class, n_trues
+    ):
+        bi = np.asarray(bi, np.int32)
+        bj = np.asarray(bj, np.int32)
+        parts = []
+        for b0 in range(0, bi.size, batch):
+            sl = slice(b0, b0 + batch)
+            vals, _, _ = tile_fn(
+                x_pad, mu_pad, bi[sl], bj[sl], lam,
+                n_true=int(n_true), p_true=p_true, block_p=block_p,
+            )
+            parts.append(compact_edges_signed(vals, bi[sl], bj[sl], block_p=block_p))
+        out.append(
+            tuple(
+                np.concatenate([pt[c] for pt in parts]) if parts else np.empty(0, dt)
+                for c, dt in enumerate((np.int64, np.int64, np.float64))
+            )
+        )
+    return out

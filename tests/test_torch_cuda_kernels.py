@@ -274,3 +274,74 @@ def test_glasso_from_float32_data_on_the_card_matches_the_cpu_path(cuda_device):
     assert instrument.count("kernels.covgram_screen.launches") > 0
     assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
     np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-9)
+
+
+# ---------------------------------------------------------------- slice 3
+# joint_prox repeats the plain version's arithmetic operation for operation
+# (rounded products, the same order per entry); only the K-class and
+# per-lane residual sums run in another order: atol 1e-12 on Z and U,
+# rtol 1e-9 on rp2 and rd2, as in tests/test_torch_joint_prox.py.
+
+
+@pytest.mark.parametrize("penalty", ["group", "fused"])
+@pytest.mark.parametrize("K,b", [(1, 7), (3, 17), (4, 16), (16, 5)])
+def test_joint_prox_matches_plain(cuda_device, K, b, penalty):
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+
+    rng = np.random.default_rng(100 * K + b)
+    n = 5
+    theta, u, z_old = (
+        torch.as_tensor(rng.standard_normal((n, K, b, b)), device=cuda_device)
+        for _ in range(3)
+    )
+    if K > 1:  # tied class values at some entries
+        theta[:, 1, :2] = theta[:, 0, :2]
+        u[:, 1, :2] = u[:, 0, :2]
+    t = torch.as_tensor(
+        np.stack([0.3 * rng.random(n) + 0.01, 0.3 * rng.random(n)], axis=1), device=cuda_device
+    )
+    instrument.reset("kernels.")
+    got = joint_prox_step(theta, u, z_old, t, penalty=penalty)
+    want = joint_prox_ref(theta, u, z_old, t, penalty=penalty)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.joint_prox.launches") == 1
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-12
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-9)
+    if K > 1:
+        assert torch.equal(got[0][:, 1, :2], got[0][:, 0, :2])
+
+
+def test_joint_prox_rejects_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels.joint_prox import joint_prox_step
+
+    ops = [torch.zeros((2, 17, 4, 4), dtype=torch.float64, device=cuda_device) for _ in range(3)]
+    t = torch.zeros((2, 2), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 16 classes"):
+        joint_prox_step(*ops, t, penalty="group")
+    ops32 = [x[:, :3].float() for x in ops]
+    with pytest.raises(TypeError, match="float64"):
+        joint_prox_step(*ops32, t.float(), penalty="fused")
+
+
+def test_joint_glasso_on_the_card_matches_the_cpu_path(cuda_device):
+    """joint_glasso on the card goes through joint_prox (joint_general),
+    tree_glasso (joint_forest) and bucket_glasso (joint_shared), and agrees
+    with the plain-PyTorch CPU path: same labels, route mix and fallbacks."""
+    from repro_torch.covariance import structured_synthetic
+    from repro_torch.joint import joint_glasso
+
+    Ss = list(structured_synthetic(40, 12, classes=3, shared_fraction=0.8, seed=1))
+    opts = dict(output="dense", solver_opts={"tol": 1e-9})
+    want = joint_glasso(Ss, 0.4, 0.1, options=repro_torch.EngineOptions(device="cpu", **opts))
+    # the data must hold blocks for all three kernels
+    for cls in ("joint_general", "joint_forest", "joint_shared"):
+        assert want.route_mix.get(cls, 0) > 0, want.route_mix
+    instrument.reset("kernels.")
+    got = joint_glasso(Ss, 0.4, 0.1, options=repro_torch.EngineOptions(**opts))
+    for name in ("joint_prox", "tree_glasso", "bucket_glasso"):
+        assert instrument.count(f"kernels.{name}.launches") > 0, name
+    assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
+    assert got.fallbacks == want.fallbacks == 0
+    np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-7)

@@ -21,6 +21,7 @@ import sys
 import repro_torch, repro_torch.engine, repro_torch.covariance, repro_torch.kernels.build
 import repro_torch.stream, repro_torch.select, repro_torch.kernels.threshold_cc
 import repro_torch.kernels.covgram_screen
+import repro_torch.joint, repro_torch.kernels.joint_prox, repro_torch.stream.unionfind
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
