@@ -65,7 +65,24 @@ Phases, each printing a line:
 13. joint_prox  the first, a middle and the last joint_prox launch of the
              [joint] and [joint_fused] solves, each held against its plain
              version on its own inputs and timed;
-14. kernels  one JSON line: every ported kernel with its launches on its
+14. pg, admm ``glasso(S, lam, solver="pg" | "admm")`` on the p = 6000 case
+             of phase 4 (tol 1e-9), first and repeat: the checks of phase
+             4, every rung of the route mix, Theta against phase 4's bcd
+             solve, and the prox_l1 / shard_prox launches;
+15. prox_l1  the first, a middle and the last prox_l1 launch of the [pg]
+             solve, held against the plain version (bit-equal) and timed
+             beside softshrink(theta - t*grad, t*lam);
+16. oversize ``glasso(S, lam, solver="admm", oversize_threshold=1024)`` on
+             ``benchmarks/bench_giant.py``'s workload at p = 1280 (one
+             component of 1273): one sharded dispatch, no fallback, the
+             in-place KKT within route_check_tol * max(1, max|S|), Theta
+             against the dense single-device admm solve of the same S
+             (tol 1e-11); the
+             outer and inner iterations, rho, the memory, and the split of
+             one outer iteration;
+17. shard_prox  the first, a middle and the last shard_prox launch of the
+             [oversize] solve, held against the plain version and timed;
+18. kernels  one JSON line: every ported kernel with its launches on its
              path and, summed over its recorded launches, its error, times
              and bound;
 
@@ -180,6 +197,38 @@ JOINT_FUSED_ROUTES = ("singleton", "joint_forest", "joint_shared", "joint_genera
 # lane sums of rp2/rd2 run in another order (float64, sums of K b^2 terms)
 JOINT_PROX_ATOL = 1e-12
 JOINT_PROX_RTOL = 1e-9
+# [pg] / [admm]: the main path with the other block solvers, their stopping
+# tolerance tightened from the reference's default 1e-7 to 1e-9 (the joint
+# phases' and benchmarks' tol): at 1e-7, an absolute bound on the iterate,
+# both stop above the KKT bound 1e-5 max|S| on this workload's badly scaled
+# blocks (S_ii ~ 100), the reference exactly as the port
+# (scripts/solver_buckets.py; ROADMAP queue 3)
+SOLVER_OPTS = {"tol": 1e-9}
+SOLVER_KERNELS = {
+    "pg": ("repro_torch.core.solvers.pg", "prox_step", "prox_l1"),
+    "admm": ("repro_torch.core.solvers.admm", "fused_prox_residual", "shard_prox"),
+}
+MAIN_ROUTES = ("singleton", "pair", "tree", "chordal", "general")
+# Theta of pg / admm against the bcd solve of the same run, relative to
+# max|Theta|: all three are KKT-optimal to 1e-5 max|S|; on the CPU at
+# K = 40 and 120 the three agree to ~1e-6 (scripts/solver_buckets.py)
+THETA_VS_BCD_RTOL = 1e-4
+# shard_prox sums the same rounded squares as its plain version in another
+# order (float64, up to bp^2 terms of the giant block)
+SHARD_PROX_RTOL = 1e-14
+# [oversize]: benchmarks/bench_giant.py's workload (its generator, n = 320)
+# at its lambda, one giant component past the threshold, and bench_giant's
+# acceptance at the engine's default route_check_tol.  p = 1280 (b = 1273),
+# cut from 2560 (b = 2559): there the sharded solve alone took 99 s on the
+# H100 (2215 outer iterations) and the phase ran past 150 s (PERF.md)
+GIANT_P, GIANT_N, GIANT_LAM = 1280, 320, 0.12
+GIANT_THRESHOLD = 1024
+ROUTE_CHECK_TOL = 1e-6
+# the dense single-device admm oracle of [oversize]: its stopping rule
+# eps = tol * b is absolute, so at bench_giant's tol 1e-9 the b = 2559
+# oracle stopped with a KKT residual of 1.9e-4 > 1e-5 max|S|; 1e-11 holds
+# it to the same KKT check as every solve here
+ORACLE_OPTS = {"tol": 1e-11, "max_iter": 20000}
 
 
 T_START = time.perf_counter()
@@ -880,13 +929,14 @@ def record_results(module: str, name: str):
 
 
 @contextmanager
-def record_prox_launches():
-    """Keep the inputs of the first, every power-of-two-th and the last
-    ``joint_prox_step`` call the joint ADMM makes inside the block (the
+def record_prox_launches(module: str = "repro_torch.joint.admm",
+                         name: str = "joint_prox_step"):
+    """Keep the inputs of the first, every power-of-two-th and the last call
+    of the kernel wrapper ``module.name`` made inside the block (the
     launches of a whole solve would hold gigabytes); yields a dict
     {call index: (args, kwargs)} with the call count under ``"n"``."""
-    mod = importlib.import_module("repro_torch.joint.admm")
-    inner = mod.joint_prox_step
+    mod = importlib.import_module(module)
+    inner = getattr(mod, name)
     kept: dict = {"n": 0}
 
     def recording(*args, **kwargs):
@@ -898,11 +948,11 @@ def record_prox_launches():
         kept["n"] = i + 1
         return inner(*args, **kwargs)
 
-    mod.joint_prox_step = recording
+    setattr(mod, name, recording)
     try:
         yield kept
     finally:
-        mod.joint_prox_step = inner
+        setattr(mod, name, inner)
 
 
 def first_middle_last(kept: dict) -> list[tuple[int, tuple, dict]]:
@@ -1205,6 +1255,256 @@ def phase_joint_from_data() -> dict:
     return first
 
 
+# ---------------------------------------------------------- phases 15-19
+
+
+def phase_solver(solver: str, S: np.ndarray, lam: float, bcd_res) -> tuple[dict, dict]:
+    """glasso(S, lam, solver=...) on the main case, first and repeat: the
+    checks of [main] (labels against scipy, zeros, KKT), every rung of the
+    route mix, Theta against the bcd solve of the same run; returns the
+    launches of the first solve and its recorded kernel launches."""
+    module, name, kernel = SOLVER_KERNELS[solver]
+    opts = EngineOptions(solver=solver, solver_opts=SOLVER_OPTS)
+    case = "structured K={} p1={}".format(*MAIN_CASE)
+    scale = float(np.abs(bcd_res.Theta).max())
+    first = None
+    for run in ("first", "repeat"):
+        with record_prox_launches(module, name) as kept:
+            launches, res = solve_on_card(f"{case} solver={solver} ({run})", S, lam,
+                                          phase=solver, options=opts)
+        missing = [c for c in MAIN_ROUTES if res.route_mix.get(c, 0) <= 0]
+        if missing:
+            raise AssertionError(f"[{solver}] route mix {res.route_mix} lacks {missing}")
+        if res.route_mix != bcd_res.route_mix or not np.array_equal(res.labels, bcd_res.labels):
+            raise AssertionError(f"[{solver}] plan differs from the bcd solve's")
+        diff = float(np.abs(res.Theta - bcd_res.Theta).max())
+        if not diff <= THETA_VS_BCD_RTOL * scale:
+            raise AssertionError(
+                f"[{solver}] max|Theta - Theta_bcd| = {diff} > {THETA_VS_BCD_RTOL}*{scale}")
+        log(solver + "_check", case=run, theta_vs_bcd=diff, max_abs_theta=scale,
+            fallbacks=json.dumps(instrument.tail_counts("router.fallback."), sort_keys=True),
+            kernel_calls=kept["n"])
+        first = first or (launches, kept)
+    launches, kept = first
+    if launches.get(f"{kernel}.launches", 0) <= 0:
+        raise AssertionError(f"{kernel} was not launched on the [{solver}] path")
+    if kept["n"] != launches[f"{kernel}.launches"]:
+        raise AssertionError(
+            f"[{solver}] {kept['n']} {kernel} calls recorded, {launches} launched")
+    return launches, kept
+
+
+def elementwise_bound_ms(x: torch.Tensor, passes: int) -> float:
+    """``passes`` arrays of x's size moved once each, at the HBM rate."""
+    return passes * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+
+
+def prox_l1_on_path(kept: dict) -> dict:
+    """The first, a middle and the last prox_l1 launch of the [pg] solve:
+    kernel against plain version (bit-equal), CUDA-event and device times,
+    the plain version, and the nearest PyTorch expression
+    softshrink(theta - t*grad, t*lam) with the first lane's t as a scalar."""
+    from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
+
+    out = dict(n=0, err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, shapes=[])
+    for i, args, kw in first_middle_last(kept):
+        theta, grad, t, lam = args
+        got, want = prox_step(*args, **kw), prox_step_ref(*args, **kw)
+        if not torch.equal(got, want):
+            raise AssertionError(f"prox_l1 launch {i} differs from its plain version")
+        t0 = float(t[0]) if isinstance(t, torch.Tensor) and t.ndim else float(t)
+        l0 = float(lam[0]) if isinstance(lam, torch.Tensor) and lam.ndim else float(lam)
+        out["n"] += 1
+        out["err"] = max(out["err"], float((got - want).abs().max()))
+        out["ms"] += cuda_ms(lambda: prox_step(*args, **kw), 20)
+        out["device_ms"] += kernel_device_ms(lambda: prox_step(*args, **kw), "prox_l1", 20)
+        out["plain_ms"] += cuda_ms(lambda: prox_step_ref(*args, **kw), 5)
+        out["library_ms"] += cuda_ms(
+            lambda: torch.nn.functional.softshrink(theta - t0 * grad, t0 * l0), 20)
+        out["bound_ms"] += elementwise_bound_ms(theta, 3)
+        out["shapes"].append([i] + list(theta.shape))
+    return out
+
+
+def shard_prox_on_path(kept: dict) -> dict:
+    """The first, a middle and the last shard_prox launch of a solve: Z' and
+    U' bit-equal to the plain version, rp2/rd2 within SHARD_PROX_RTOL;
+    CUDA-event and device times, the plain version, and the nearest PyTorch
+    expression softshrink(x_new + u, t) (Z' only, no residuals)."""
+    from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
+
+    out = dict(n=0, err=0.0, rel_sums=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
+               library_ms=0.0, bound_ms=0.0, shapes=[])
+    for i, args, kw in first_middle_last(kept):
+        x, u, _, t = args
+        got, want = fused_prox_residual(*args, **kw), fused_prox_ref(*args, **kw)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"shard_prox launch {i}: Z'/U' differ from the plain version")
+        rel = max(float(((g - w).abs() / w.abs().clamp(min=1e-300)).max())
+                  for g, w in zip(got[2:], want[2:]))
+        if not rel <= SHARD_PROX_RTOL:
+            raise AssertionError(f"shard_prox launch {i}: rp2/rd2 relative error {rel}")
+        t0 = float(t.reshape(-1)[0]) if isinstance(t, torch.Tensor) else float(t)
+        out["n"] += 1
+        out["err"] = max(out["err"], float((got[0] - want[0]).abs().max()),
+                         float((got[1] - want[1]).abs().max()))
+        out["rel_sums"] = max(out["rel_sums"], rel)
+        out["ms"] += cuda_ms(lambda: fused_prox_residual(*args, **kw), 20)
+        out["device_ms"] += kernel_device_ms(lambda: fused_prox_residual(*args, **kw),
+                                             "shard_prox", 20)
+        out["plain_ms"] += cuda_ms(lambda: fused_prox_ref(*args, **kw), 5)
+        out["library_ms"] += cuda_ms(lambda: torch.nn.functional.softshrink(x + u, t0), 20)
+        out["bound_ms"] += elementwise_bound_ms(x, 5)
+        out["shapes"].append([i] + list(x.shape))
+    return out
+
+
+def log_shard_prox(path: str, sp: dict, launches: dict) -> None:
+    """The [shard_prox] line of one path's checked and timed launches."""
+    log("shard_prox", path=path, path_launches=launches["shard_prox.launches"],
+        launches_timed=sp["n"], shapes=json.dumps(sp["shapes"]), max_abs_err=sp["err"],
+        rel_err_sums=sp["rel_sums"], ms=f"{sp['ms']:.4f}", device_ms=f"{sp['device_ms']:.4f}",
+        plain_ms=f"{sp['plain_ms']:.4f}", softshrink_expression_ms=f"{sp['library_ms']:.4f}",
+        bound_ms=f"{sp['bound_ms']:.6f}")
+
+
+def giant_workload(p: int, seed: int = 0) -> np.ndarray:
+    """``benchmarks/bench_giant.py``'s ``_workload``: one giant
+    factor-coupled component plus a fringe of planted pairs and isolated
+    vertices (n = 320 rows)."""
+    rng = np.random.default_rng(seed)
+    X = 0.8 * rng.standard_normal((GIANT_N, p))
+    giant = int(0.8 * p)
+    f = rng.standard_normal((GIANT_N, 3))
+    load = 0.5 + 0.2 * rng.random(giant)
+    X[:, :giant] += f[:, rng.integers(0, 3, giant)] * load
+    for k in range(giant, p - 1, 6):
+        X[:, k + 1] += 0.9 * X[:, k]
+    S = np.cov(X, rowvar=False, bias=True)
+    return 0.5 * (S + S.T)
+
+
+def sharded_iteration_split(S_pad: torch.Tensor, args: tuple, lam: float, *, ns_steps: float,
+                            pow_steps: int = 10) -> dict:
+    """One outer iteration of the sharded ADMM, piece by piece (CUDA events)
+    on a recorded mid-solve state: the power iteration (pow_steps + 1
+    matvecs), M^2 + 4 rho I, one Newton-Schulz step (three (bp, bp)
+    products and the error's max), the shard_prox launch, and one host read
+    of a device flag (host clock); and the model of a whole iteration with
+    the solve's mean NS steps."""
+    from repro_torch.kernels.shard_prox import fused_prox_residual
+
+    Theta, U, Z, t = args
+    bp = S_pad.shape[0]
+    rho = lam / t
+    M = rho * (Z - U) - S_pad
+    eye = torch.eye(bp, dtype=S_pad.dtype, device=S_pad.device)
+    v0 = torch.ones(bp, dtype=S_pad.dtype, device=S_pad.device) / math.sqrt(bp)
+
+    def power():
+        v = v0
+        for _ in range(pow_steps + 1):
+            u = M @ v
+            v = u / (torch.linalg.vector_norm(u) + 1e-30)
+        return v
+
+    A = M @ M + 4.0 * rho * eye
+    Y = A / float(A.abs().max())
+
+    def ns_step():
+        T = 0.5 * (3.0 * eye - eye @ Y)
+        err = torch.max(torch.abs(T - eye))
+        return Y @ T, T @ eye, err
+
+    reps = 10
+    out = {
+        "power_ms": cuda_ms(power, reps),
+        "m2_ms": cuda_ms(lambda: M @ M + 4.0 * rho * eye, reps),
+        "ns_step_ms": cuda_ms(ns_step, reps),
+        "prox_ms": cuda_ms(lambda: fused_prox_residual(*args), reps),
+    }
+    flag = torch.zeros((), device=S_pad.device) > 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        bool(flag)
+    out["host_read_ms"] = (time.perf_counter() - t0) * 1e3 / 100
+    out["model_iteration_ms"] = (out["power_ms"] + out["m2_ms"] + out["prox_ms"]
+                                 + ns_steps * (out["ns_step_ms"] + out["host_read_ms"])
+                                 + out["host_read_ms"])
+    del M, A, Y
+    return out
+
+
+def phase_oversize() -> tuple[dict, dict]:
+    """The giant-block route on the card: glasso(S, lam, solver="admm",
+    oversize_threshold=...) on bench_giant's workload, checked as [main] is,
+    plus one sharded dispatch, no fallback, the in-place KKT within
+    route_check_tol*max(1, max|S|) and Theta against the dense
+    single-device admm solve of the same S (bench_giant's acceptance);
+    returns the launches of the solve and its recorded shard_prox
+    launches."""
+    S = giant_workload(GIANT_P)
+    lam = GIANT_LAM
+    smax = float(np.abs(S).max())
+    sizes = np.unique(components_from_covariance_host(S, lam), return_counts=True)[1]
+    b_giant = int(sizes.max())
+    if b_giant <= GIANT_THRESHOLD or (sizes > GIANT_THRESHOLD).sum() != 1:
+        raise AssertionError(f"[oversize] expected one component above {GIANT_THRESHOLD}, "
+                             f"got sizes {sorted(sizes)[-3:]}")
+    opts = EngineOptions(solver="admm", oversize_threshold=GIANT_THRESHOLD,
+                         solver_opts=SOLVER_OPTS)
+    case = f"bench_giant p={GIANT_P} n={GIANT_N} b={b_giant}"
+    instrument.reset("solver.oversize.")
+    instrument.reset("router.")
+    torch.cuda.reset_peak_memory_stats()
+    sharded = "repro_torch.core.solvers.sharded"
+    with record_prox_launches(sharded, "fused_prox_residual") as kept, \
+            record_results(sharded, "glasso_sharded") as solves:
+        launches, res = solve_on_card(case, S, lam, phase="oversize", options=opts)
+    peak = torch.cuda.max_memory_allocated()
+    counters = instrument.counts("solver.oversize.")
+    fallbacks = instrument.tail_counts("router.fallback.")
+    if res.route_mix.get("oversize", 0) != 1 or len(solves) != 1:
+        raise AssertionError(
+            f"[oversize] route mix {res.route_mix}: expected one oversize block")
+    if res.oversize.get("dispatched") != 1 or res.oversize.get("fallbacks") != 0:
+        raise AssertionError(f"[oversize] {res.oversize}: expected 1 dispatch, 0 fallbacks")
+    (S_pad, *_), _, sol = solves[0]
+    kkt_bound = ROUTE_CHECK_TOL * max(1.0, sol.s_max)
+    if not sol.kkt_residual <= kkt_bound:
+        raise AssertionError(f"[oversize] in-place KKT {sol.kkt_residual} > {kkt_bound}")
+    if kept["n"] != sol.iters or launches.get("shard_prox.launches", 0) < sol.iters:
+        raise AssertionError(f"[oversize] {launches} launches for {sol.iters} iterations")
+    with record_results("repro_torch.core.solvers.admm", "glasso_admm_info") as dense_calls:
+        _, dense = solve_on_card(case + " dense admm", S, lam, phase="oversize_dense",
+                                 options=EngineOptions(solver="admm", solver_opts=ORACLE_OPTS))
+    diff = float(np.abs(res.Theta - dense.Theta).max())
+    theta_bound = ROUTE_CHECK_TOL * max(1.0, smax)
+    if not diff <= theta_bound:
+        raise AssertionError(f"[oversize] max|Theta - Theta_dense| = {diff} > {theta_bound}")
+    dense_iters = [int(c[2][1].max()) for c in dense_calls if c[0][0].shape[-1] >= b_giant]
+    log("oversize_check", b=sol.b, padded=sol.padded, iters=sol.iters,
+        inner_iters=sol.inner_iters, retries=sol.retries, rho=sol.rho,
+        kkt_inplace=sol.kkt_residual, kkt_bound=kkt_bound, s_max=sol.s_max,
+        theta_vs_dense=diff, theta_bound=theta_bound, dense_iters=json.dumps(dense_iters),
+        oversize=json.dumps(res.oversize, sort_keys=True),
+        counters=json.dumps(counters, sort_keys=True),
+        fallbacks=json.dumps(fallbacks, sort_keys=True),
+        device_bytes=sol.device_bytes, max_memory_allocated=peak,
+        solve_s_per_iteration=f"{res.stages()['solve'] / sol.iters:.6f}")
+    _, mid_args, _ = first_middle_last(kept)[len(first_middle_last(kept)) // 2]
+    split = sharded_iteration_split(S_pad, mid_args, lam,
+                                    ns_steps=sol.inner_iters / max(sol.iters, 1))
+    log("oversize_split", bp=S_pad.shape[0],
+        ns_steps_per_iteration=f"{sol.inner_iters / sol.iters:.2f}",
+        **{k: f"{v:.4f}" for k, v in split.items()})
+    del solves, dense_calls, S_pad, mid_args
+    torch.cuda.empty_cache()
+    return launches, kept
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1240,6 +1540,19 @@ def main() -> int:
 
     phase_threshold_cc()
     screen_launches, thr = phase_screen(S, lam, host_res)
+    pg_launches, pg_kept = phase_solver("pg", S, lam, host_res)
+    admm_launches, admm_kept = phase_solver("admm", S, lam, host_res)
+    sp_admm = shard_prox_on_path(admm_kept)
+    if not any(len(sh) == 4 and sh[1] > 1 for sh in sp_admm["shapes"]):
+        raise AssertionError(f"[admm] no stacked shard_prox launch checked: {sp_admm['shapes']}")
+    log_shard_prox("admm", sp_admm, admm_launches)
+    del admm_kept
+    pl = prox_l1_on_path(pg_kept)
+    log("prox_l1", path="pg", launches_timed=pl["n"], shapes=json.dumps(pl["shapes"]),
+        max_abs_err=pl["err"], ms=f"{pl['ms']:.4f}", device_ms=f"{pl['device_ms']:.4f}",
+        plain_ms=f"{pl['plain_ms']:.4f}", softshrink_expression_ms=f"{pl['library_ms']:.4f}",
+        bound_ms=f"{pl['bound_ms']:.6f}")
+    del pg_kept
     X_fd = workload(FROM_DATA_P, load=0.9, noise=0.44)
     X_st = workload(STREAM_P, load=0.75, noise=0.66)
     phase_covgram_screen(X_fd, X_st)
@@ -1260,6 +1573,10 @@ def main() -> int:
             max_abs_err_u=r["err_u"], rel_err_rp2=r["rel_rp2"], rel_err_rd2=r["rel_rd2"],
             ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
             plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}")
+    oversize_launches, sp_kept = phase_oversize()
+    sp = shard_prox_on_path(sp_kept)
+    log_shard_prox("oversize", sp, oversize_launches)
+    del sp_kept
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -1304,6 +1621,23 @@ def main() -> int:
             "max_abs_err": max(jp["joint"]["err_z"], jp["joint"]["err_u"]),
             "ms": jp["joint"]["ms"], "plain_ms": jp["joint"]["plain_ms"],
             "bound_ms": jp["joint"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "prox_l1", "route": "cuda",
+            "source": "src/repro_torch/csrc/prox_l1.cu",
+            "replaces": "src/repro/kernels/prox_l1/prox_l1.py:26",
+            "launches": pg_launches["prox_l1.launches"], "max_abs_err": pl["err"],
+            "ms": pl["ms"], "plain_ms": pl["plain_ms"], "bound_ms": pl["bound_ms"],
+            "bound_by": "bytes", "library_ms": pl["library_ms"],
+        },
+        {
+            "name": "shard_prox", "route": "cuda",
+            "source": "src/repro_torch/csrc/shard_prox.cu",
+            "replaces": "src/repro/kernels/shard_prox/shard_prox.py:27",
+            "launches": oversize_launches["shard_prox.launches"],
+            "max_abs_err": max(sp["err"], sp_admm["err"]),
+            "ms": sp["ms"], "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+            "bound_by": "bytes", "library_ms": sp["library_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

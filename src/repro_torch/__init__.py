@@ -5,9 +5,13 @@ components for large-scale graphical lasso (arXiv:1108.3829).
 (Theorem 1), plans size/structure buckets, solves each bucket on its rung
 of the route ladder — the ``tree_glasso`` CUDA kernel for pairs and trees,
 a host clique-tree solve for chordal blocks, the ``bucket_glasso`` CUDA
-kernel (whole BCD solve per lane) for the rest — and assembles a dense
-Theta.  It runs on the card by default; ``EngineOptions(device="cpu")``
-runs the plain-PyTorch versions of the kernels instead.
+kernel (whole BCD solve per lane) for the rest, or ``solver="pg"`` (its
+step the ``prox_l1`` kernel) or ``solver="admm"`` (its Z/U tail the
+``shard_prox`` kernel) — and assembles a dense Theta.  Components above
+``oversize_threshold`` take the sharded route: a matmul-only ADMM on the
+card, its prox tail the same ``shard_prox`` kernel.  It runs on the card
+by default; ``EngineOptions(device="cpu")`` runs the plain-PyTorch
+versions of the kernels instead.
 ``repro_torch.joint.joint_glasso`` solves the joint K-class problem the
 same way, its ADMM Z-update on the ``joint_prox`` CUDA kernel.
 

@@ -41,6 +41,26 @@ def plan_bucket_size(b: int, *, single_block: bool = False, min_bucket: int = 2)
     return min(p2, ((b + 127) // 128) * 128)
 
 
+#: working-set multiplier for a SINGLE-DEVICE iterative solve of one (b, b)
+#: block: S, the solver pair (Z/U or Theta/W), the eigh/Cholesky workspace
+#: and the result — the memory model behind the oversize threshold
+SINGLE_DEVICE_BUFFERS = 8
+
+
+def oversize_threshold(budget_mb: float, dtype=np.float64) -> int:
+    """Largest block size a single device's memory budget can solve.
+
+    Components LARGER than this are classed "oversize" by the planner and
+    routed to the sharded solver.  The model is ``SINGLE_DEVICE_BUFFERS``
+    resident (b, b) buffers:
+
+        b_max = sqrt(budget_bytes / (SINGLE_DEVICE_BUFFERS * itemsize))
+    """
+    budget_bytes = float(budget_mb) * 2**20
+    itemsize = np.dtype(dtype).itemsize
+    return max(1, int(np.sqrt(budget_bytes / (SINGLE_DEVICE_BUFFERS * itemsize))))
+
+
 def group_components(
     comps: list[np.ndarray], classify=None
 ) -> tuple[np.ndarray, dict[tuple[int, str], list[np.ndarray]]]:
@@ -119,7 +139,10 @@ def cov_dtype(S) -> np.dtype:
 class Bucket:
     size: int                                  # padded block size
     comps: list[np.ndarray]                    # member-vertex arrays
-    blocks: np.ndarray                         # (n_blocks, size, size) padded S
+    blocks: np.ndarray | None                  # (n_blocks, size, size) padded S;
+                                               # None for "oversize" buckets —
+                                               # the sharded route gathers
+                                               # straight into device shards
     structure: str = "general"                 # routing ladder class
 
 
@@ -143,8 +166,11 @@ class Plan:
         return mx
 
     def block_bytes(self) -> int:
-        """Bytes held by the plan's padded input stacks."""
-        return int(sum(b.blocks.nbytes for b in self.buckets))
+        """Bytes held by the plan's padded input stacks (oversize buckets
+        carry none)."""
+        return int(
+            sum(b.blocks.nbytes for b in self.buckets if b.blocks is not None)
+        )
 
 
 def make_bucket(
@@ -156,7 +182,13 @@ def make_bucket(
     structure: str = "general",
 ) -> Bucket:
     """Pad and stack one size-group of components (the only place padded
-    bucket stacks are built, so the padding convention cannot drift)."""
+    bucket stacks are built, so the padding convention cannot drift).
+
+    "oversize" buckets carry NO host block stack: the executor's sharded
+    route gathers each block row chunk by row chunk straight onto the
+    device (``stream.materialize.shard_gather``)."""
+    if structure == "oversize":
+        return Bucket(size=size, comps=members, blocks=None, structure=structure)
     blocks = np.stack(
         [pad_block(gather_submatrix(S, c, dtype=dtype), size) for c in members]
     )

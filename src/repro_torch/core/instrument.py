@@ -11,6 +11,13 @@ read:
     kernels.tree_glasso.launches    CUDA launches of the forest kernel
     kernels.bucket_glasso.launches  CUDA launches of the fused BCD kernel
     kernels.joint_prox.launches     CUDA launches of the joint prox kernel
+    kernels.prox_l1.launches        CUDA launches of the pg step kernel
+    kernels.shard_prox.launches     CUDA launches of the ADMM prox-tail kernel
+    structure.classified.oversize   components the planner classed oversize
+    solver.oversize.dispatched / .cg_iters / .fallbacks
+                                    sharded solves, their inner steps, and
+                                    the blocks repaired by the iterative tail
+    solver.oversize.device_bytes_peak   the sharded solve's memory model
     joint.dispatches / joint.fallbacks / joint.closed_form_blocks /
     joint.shared_blocks             the joint engine's routing ledger
 

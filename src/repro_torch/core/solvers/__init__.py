@@ -1,12 +1,32 @@
 """Graphical-lasso block solvers behind the Solver protocol.
 
-``bcd`` — GLASSO block coordinate descent, the paper-faithful baseline —
-is the one iterative solver of the port so far; a bucket solves in one
-``bucket_glasso`` launch.  The reference's ``pg``, ``admm``, ``fused_bcd``
-and ``sharded`` specs are not registered yet: asking for one raises the
-registry's ``ValueError`` naming the available solvers.
+Every solver is registered as a capability-tagged ``SolverSpec``
+(``protocol.py``, re-exported through ``engine.registry``) and the executor
+consults the spec — batched? warm-startable? sharded? — instead of
+hard-coded name sets.  The batched contract is
+``fn(blocks (N, b, b), lams (N,), *, W0=None, Theta0=None, **opts) -> Theta``:
+
+``bcd``      GLASSO block coordinate descent [Friedman et al. 2007] — the
+             paper-faithful baseline; a bucket solves in one
+             ``bucket_glasso`` launch.  Consumes W0 plus a Theta0 seed for
+             the inner-lasso coefficients.
+``pg``       G-ISTA-style proximal gradient — the first-order stand-in for
+             SMACS [Lu 2010]; its step is the ``prox_l1`` kernel.
+             Warm-starts from Theta0, not W0.
+``admm``     ADMM [Boyd et al. 2011] — batched eigh plus the ``shard_prox``
+             kernel for the Z/U tail; the most robust on ill-conditioned
+             blocks, the cross-check oracle in tests.  Consumes W0:
+             Z0 = W0^{-1}, U0 = (W0 - S)/rho (see admm.py).
+``sharded``  matmul-only ADMM for OVERSIZE blocks (``sharded.py``): the
+             eigh is replaced by Newton-Schulz + CG inner iterations on the
+             row-sharded layout (one device in the port).  Different
+             calling convention (``ShardedSolve`` result) — reached through
+             the executor's "sharded" route, never batched.
 """
 
+from collections.abc import Mapping as _Mapping, Set as _Set
+
+from repro_torch.core.solvers.admm import glasso_admm_info, glasso_admm_stack
 from repro_torch.core.solvers.bcd import glasso_bcd_stack
 from repro_torch.core.solvers.closed_form import (
     glasso_chordal_host,
@@ -15,12 +35,15 @@ from repro_torch.core.solvers.closed_form import (
     kkt_residual_host,
 )
 from repro_torch.core.solvers.kkt import kkt_residual
+from repro_torch.core.solvers.pg import glasso_pg_stack
 from repro_torch.core.solvers.protocol import (
     SolverSpec,
     available_solvers,
+    block_solvers,
     register_solver,
     solver_spec,
 )
+from repro_torch.core.solvers.sharded import ShardedSolve, glasso_sharded
 
 register_solver(
     SolverSpec(
@@ -34,10 +57,85 @@ register_solver(
         meta={"theta_warm": True},
     )
 )
+register_solver(
+    SolverSpec(
+        name="pg",
+        fn=glasso_pg_stack,
+        batched=True,
+        warm_startable=False,  # accepts W0 for parity; warm-starts via Theta0
+        description="G-ISTA proximal gradient (SMACS stand-in)",
+    )
+)
+register_solver(
+    SolverSpec(
+        name="admm",
+        fn=glasso_admm_stack,
+        batched=True,
+        warm_startable=True,
+        description="ADMM (eigh Theta-update); the test oracle",
+        # consumes the Theta-side seed alongside W0: callers holding the
+        # Theta iterate (repairs) skip admm's inv(W0)
+        meta={"theta_warm": True},
+    )
+)
+register_solver(
+    SolverSpec(
+        name="sharded",
+        fn=glasso_sharded,
+        batched=False,
+        warm_startable=True,
+        sharded=True,
+        description="row-sharded matmul-only ADMM for oversize blocks (no eigh)",
+        meta={"warm_kwarg": "Theta0"},
+    )
+)
 
+
+class _BlockSolversView(_Mapping):
+    """LIVE name -> fn view of the registry's user-pickable block solvers:
+    re-derived from the specs on every access, so a solver registered later
+    is visible too."""
+
+    def __getitem__(self, name):
+        return block_solvers()[name]
+
+    def __iter__(self):
+        return iter(block_solvers())
+
+    def __len__(self):
+        return len(block_solvers())
+
+
+class _WarmStartView(_Set):
+    """LIVE view of batched solvers that genuinely consume a W0 warm start
+    (the sharded solver's Theta0 warm start rides its own dispatch path)."""
+
+    def _names(self):
+        return available_solvers(batched=True, warm_startable=True)
+
+    def __contains__(self, name):
+        return name in self._names()
+
+    def __iter__(self):
+        return iter(self._names())
+
+    def __len__(self):
+        return len(self._names())
+
+
+#: user-pickable single-device block solvers (live registry view)
+SOLVERS = _BlockSolversView()
+
+#: batched solvers whose W0 covariance warm start is genuinely consumed
+WARM_START_SOLVERS = _WarmStartView()
 
 __all__ = [
     "glasso_bcd_stack",
+    "glasso_pg_stack",
+    "glasso_admm_stack",
+    "glasso_admm_info",
+    "glasso_sharded",
+    "ShardedSolve",
     "glasso_forest_stack",
     "glasso_chordal_host",
     "kkt_ok_stack",
@@ -47,4 +145,7 @@ __all__ = [
     "register_solver",
     "solver_spec",
     "available_solvers",
+    "block_solvers",
+    "SOLVERS",
+    "WARM_START_SOLVERS",
 ]

@@ -9,7 +9,10 @@ the spec instead of hard-coded name sets:
                     dimension out where the reference vmaps a per-block fn
     batched         the executor may hand it a bucket stack
     warm_startable  genuinely consumes a W0 covariance warm start
-    sharded         spans several devices (none registered yet)
+    sharded         runs one oversize block on the row-sharded layout
+                    (``glasso_sharded``'s signature and ``ShardedSolve``
+                    result); dispatched per block down the executor's
+                    "sharded" route, never batched
     iterative       eligible as the routing ladder's tail
 """
 
@@ -62,3 +65,13 @@ def available_solvers(**caps: bool) -> tuple[str, ...]:
         if all(getattr(spec, cap) == want for cap, want in caps.items()):
             names.append(name)
     return tuple(names)
+
+
+def block_solvers() -> dict[str, Callable]:
+    """name -> fn for the user-pickable block solvers (the ``SOLVERS``
+    view: batched, iterative, not sharded)."""
+    return {
+        name: spec.fn
+        for name, spec in sorted(_SPECS.items())
+        if spec.batched and spec.iterative and not spec.sharded
+    }

@@ -44,7 +44,9 @@ class GlassoResult:
 
     ``Theta`` is the dense (p, p) numpy precision matrix; ``labels`` the
     canonical screening partition; ``route_mix`` the number of blocks per
-    structure class.  Timing lives in the ``stages()`` view (seconds per
+    structure class; ``oversize`` the sharded route's accounting
+    ({dispatched, inner_iters, fallbacks}, empty when no block took it).
+    Timing lives in the ``stages()`` view (seconds per
     canonical stage); ``trace`` carries the request's span tree when the
     solve ran traced."""
 
@@ -62,6 +64,7 @@ class GlassoResult:
         dispatch_seconds: float = 0.0,
         device: str = "cpu",
         trace: Trace | None = None,
+        oversize: dict | None = None,
     ):
         self.lam = lam
         self.Theta = Theta
@@ -72,6 +75,10 @@ class GlassoResult:
         self.routed = routed
         self.device = device
         self.trace = trace
+        # oversize-route accounting of this solve: {dispatched, inner_iters,
+        # fallbacks}, empty when no block took the route; the process-wide
+        # view is instrument counts("solver.oversize.")
+        self.oversize = dict(oversize) if oversize is not None else {}
         self._stage_seconds = {
             "screen": float(screen.seconds) if screen is not None else 0.0,
             "solve": float(solve_seconds),
@@ -110,9 +117,42 @@ class GlassoResult:
         return 1.0 - iterative / total
 
 
+def resolve_oversize(
+    threshold: int | None, budget_mb: float | str | None, np_dtype, *,
+    route: bool = True, device="cpu",
+) -> int | None:
+    """Resolve the single-device block-size cap for the oversize route.
+
+    An explicit ``threshold`` wins; otherwise it is derived from a per-device
+    memory budget in MB (``blocks.oversize_threshold``), where ``"auto"``
+    reads the memory of ``device`` (``distributed.device_memory_budget_mb``
+    — None on the CPU, disabling the route).  Returns None when oversize
+    routing is off.  Oversize is a ROUTE, so it requires the routing
+    ladder."""
+    if threshold is None and budget_mb is None:
+        return None
+    if not route:
+        raise ValueError(
+            "oversize_threshold / oversize_budget_mb require route=True "
+            "(the oversize class is a routing-ladder rung)"
+        )
+    if threshold is not None:
+        return int(threshold)
+    if budget_mb == "auto":
+        from repro_torch.core.distributed import device_memory_budget_mb
+
+        budget_mb = device_memory_budget_mb(device)
+        if budget_mb is None:
+            return None
+    from repro_torch.core.blocks import oversize_threshold as _threshold_from_budget
+
+    return _threshold_from_budget(float(budget_mb), np_dtype)
+
+
 def _result(
     plan, labels, screen_stats, Theta, seconds, solver, lam, *,
     routed: bool, assemble_seconds: float, dispatch_seconds: float, device: str,
+    oversize: dict | None = None,
 ) -> GlassoResult:
     route_mix = {"singleton": len(plan.isolated)} if len(plan.isolated) else {}
     for b in plan.buckets:
@@ -134,6 +174,7 @@ def _result(
         assemble_seconds=assemble_seconds,
         dispatch_seconds=dispatch_seconds,
         device=device,
+        oversize=oversize,
     )
 
 
@@ -143,10 +184,6 @@ class Engine:
 
     def __init__(self, *, options: EngineOptions | None = None, **legacy_engine_kwargs):
         opts = normalize_options(options, legacy_engine_kwargs, context="Engine")
-        if opts.oversize_threshold is not None or opts.oversize_budget_mb is not None:
-            raise NotImplementedError(
-                "the oversize (sharded) route is not ported yet (slice 9)"
-            )
         if opts.fused is True:
             raise NotImplementedError("the fused wave packer is not ported yet (slice 4)")
         if opts.trace == "jax":
@@ -157,6 +194,10 @@ class Engine:
         self.dtype = opts.resolved_dtype()
         self.np_dtype = opts.np_dtype()
         self.device = opts.resolved_device()
+        self.oversize = resolve_oversize(
+            opts.oversize_threshold, opts.oversize_budget_mb, self.np_dtype,
+            route=opts.route, device=self.device,
+        )
         self.cc_backend = opts.cc_backend
         self.stream = opts.stream   # default StreamConfig for from-data runs
         self.executor = BucketExecutor(
@@ -231,6 +272,7 @@ class Engine:
                 plan = build_plan_incremental(
                     S, lam, labels, dtype=self.np_dtype,
                     classify_structures=self.executor.route and screened,
+                    oversize=self.oversize if screened else None,
                 )
             schedule_mod.check_capacity(
                 [len(c) for b in plan.buckets for c in b.comps] or [1], p_max
@@ -245,6 +287,7 @@ class Engine:
                 assemble_seconds=self.executor.last_assemble_seconds,
                 dispatch_seconds=self.executor.last_dispatch_seconds,
                 device=str(self.device),
+                oversize=self.executor.last_oversize,
             )
 
     def run_from_data(
@@ -271,7 +314,9 @@ class Engine:
         self._check_output(p)
         with self._trace_ctx("engine.run", lam=float(lam), p=p, source="data"):
             with span("engine.screen", backend="stream"):
-                sc = stream_screen(X, [lam], config=stream, device=self.device)
+                sc = stream_screen(
+                    X, [lam], config=stream, device=self.device, oversize=self.oversize
+                )
             return self.run(
                 sc.S,
                 lam,

@@ -15,6 +15,10 @@ assemble.
   iterative solver warm-started from the rejected candidate
   (``dispatch_repair``; ``router.fallback.*`` counters).  Routing changes
   cost, never the answer.
+* **Oversize blocks.**  Buckets classed "oversize" take the "sharded"
+  route: one blocking ``glasso_sharded`` solve per block, issued after the
+  asynchronous small buckets are in flight, with its own in-place KKT
+  verdict and the same fallback (``solve_sharded_bucket``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from repro_torch.core.solvers.closed_form import (
     kkt_ok_stack,
     kkt_residual_host,
 )
+from repro_torch.engine.options import resolve_device
 from repro_torch.engine.registry import route_for
 from repro_torch.obs.trace import span
 
@@ -106,6 +111,75 @@ def dispatch_repair(
     return out
 
 
+def solve_sharded_bucket(
+    bucket: blocks_mod.Bucket,
+    lams: np.ndarray,
+    S,
+    *,
+    solver: str,
+    dtype: torch.dtype,
+    device: torch.device,
+    opts: dict,
+    tol: float,
+    warm_thetas: list | None = None,
+) -> tuple[np.ndarray, dict]:
+    """Solve of one oversize bucket (route "sharded").
+
+    Per block: shard-direct gather onto the device
+    (``stream.materialize.shard_gather``: the (b, b) block arrives row
+    chunk by row chunk, a full host copy never exists), the sharded ADMM
+    (``core.solvers.glasso_sharded``) and its in-place KKT verdict.  Blocks
+    whose residual exceeds ``tol * max(1, max|S|)`` fall back to the
+    engine's iterative ``solver`` warm-started from the rejected candidate
+    (the shared ``dispatch_repair``), counted loudly:
+    ``solver.oversize.fallbacks`` + ``router.fallback.oversize``.  Returns
+    (padded (n, size, size) Theta stack, info dict {dispatched,
+    inner_iters, fallbacks} for ``GlassoResult.oversize``)."""
+    from repro_torch.core.solvers.sharded import glasso_sharded
+    from repro_torch.stream.materialize import shard_gather
+
+    np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    n = len(bucket.comps)
+    out = np.zeros((n, bucket.size, bucket.size), dtype=np_dtype)
+    info = {"dispatched": 0, "inner_iters": 0, "fallbacks": 0}
+    failed: list[int] = []
+    for i, comp in enumerate(bucket.comps):
+        b = len(comp)
+        lam = float(lams[i])
+        S_sh = shard_gather(S, comp, device=device, dtype=np_dtype)
+        theta0 = None if warm_thetas is None else warm_thetas[i]
+        res, _ = timed_dispatch(
+            glasso_sharded, S_sh, lam, b=b, Theta0=theta0, kkt_target=tol,
+        )
+        del S_sh
+        info["dispatched"] += 1
+        info["inner_iters"] += res.inner_iters
+        padded = np.eye(bucket.size, dtype=np_dtype) / (1.0 + lam)
+        padded[:b, :b] = res.Theta
+        out[i] = padded
+        scale = max(1.0, res.s_max)
+        if not res.kkt_residual <= tol * scale:  # NaN-safe: not (nan <= x)
+            failed.append(i)
+    if failed:
+        idx = np.asarray(failed)
+        info["fallbacks"] = int(idx.size)
+        bump("solver.oversize.fallbacks", int(idx.size))
+        bump(f"router.fallback.{bucket.structure}", int(idx.size))
+        blocks = np.stack([
+            blocks_mod.pad_block(
+                blocks_mod.gather_submatrix(S, bucket.comps[k], dtype=np_dtype),
+                bucket.size,
+            )
+            for k in idx
+        ])
+        fixed = dispatch_repair(
+            solver, dtype, device, opts, bucket.size, blocks,
+            np.asarray(lams)[idx], out[idx],
+        )
+        out[idx] = fixed.cpu().numpy()
+    return out, info
+
+
 def solve_chordal_bucket(
     bucket: blocks_mod.Bucket, lams: np.ndarray, *, tol: float
 ) -> tuple[np.ndarray, np.ndarray]:
@@ -147,7 +221,7 @@ class BucketExecutor:
 
     solver: str = "bcd"
     dtype: torch.dtype = torch.float64
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: Any = "cuda"           # resolved as EngineOptions.device is
     solver_opts: dict = field(default_factory=dict)
     route: bool = True             # structure-routed ladder; False = all iterative
     route_check_tol: float = 1e-6  # KKT acceptance for closed-form candidates
@@ -155,8 +229,12 @@ class BucketExecutor:
     last_assemble_seconds: float = 0.0
     # host seconds spent issuing launches in the MOST RECENT solve_plan call
     last_dispatch_seconds: float = 0.0
+    # oversize accounting of the MOST RECENT solve_plan call (dispatched /
+    # inner_iters / fallbacks), surfaced as GlassoResult.oversize
+    last_oversize: dict = field(default_factory=dict)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         self._spec = solver_spec(self.solver)  # unknown names raise ValueError
         _validate_solver_opts(self.solver, self.solver_opts)
         self._np_dtype = np.dtype(str(self.dtype).removeprefix("torch."))
@@ -195,13 +273,22 @@ class BucketExecutor:
         if self.route and len(plan.isolated):
             bump("router.route.singleton", int(len(plan.isolated)))
         self.last_dispatch_seconds = 0.0
+        self.last_oversize = {}
         opts = dict(self.solver_opts)
         pending: list[_Pending] = []
+        sharded_pending: list[_Pending] = []
         for bucket in plan.buckets:
             n = len(bucket.comps)
             route = route_for(bucket.structure) if self.route else "iterative"
             if self.route:
                 bump(f"router.route.{bucket.structure}", n)
+            if route == "sharded":
+                # blocking solves: queued after the asynchronous small
+                # buckets below, so their launches are in flight first
+                p = _Pending(bucket=bucket, out=None)
+                pending.append(p)
+                sharded_pending.append(p)
+                continue
             if route == "chordal":
                 # host solve: KKT failures are known at once, so their repair
                 # joins the same wave of launches as everything else
@@ -234,6 +321,18 @@ class BucketExecutor:
             self.last_dispatch_seconds += dt
             bump("executor.dispatches")
             pending.append(_Pending(bucket=bucket, out=out))
+
+        totals = {"dispatched": 0, "inner_iters": 0, "fallbacks": 0}
+        for p in sharded_pending:
+            n = len(p.bucket.comps)
+            p.out, info = solve_sharded_bucket(
+                p.bucket, np.full(n, lam), S, solver=self.solver, dtype=self.dtype,
+                device=self.device, opts=opts, tol=self.route_check_tol,
+            )
+            for k in totals:
+                totals[k] += info[k]
+        if totals["dispatched"]:
+            self.last_oversize = totals
 
         # single synchronization point: everything above was queued
         with span("engine.barrier"):

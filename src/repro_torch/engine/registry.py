@@ -19,8 +19,9 @@ The two device backends take ``device=`` (the engine passes its own;
 ``"cuda"`` by default, which raises without CUDA), copy S there once,
 threshold it in its own dtype and count its edges on that copy, so the
 screen's stats never read S on the host.  The reference's ``"shard_map"``
-backend comes with the sharded slice.  Register more with
-``@register_cc_backend("name")``.
+backend (label propagation across several devices) comes with the
+multi-device slice; the port's sharded solver runs on one device.  Register
+more with ``@register_cc_backend("name")``.
 
 The second registry is the ROUTING LADDER: structure class (assigned per
 bucket by the planner via ``engine.structure``) -> executor route:
@@ -29,7 +30,11 @@ bucket by the planner via ``engine.structure``) -> executor route:
     "pair"      -> "closed_form"  batched forest kernel (tree_glasso)
     "tree"      -> "closed_form"  batched forest kernel (tree_glasso)
     "chordal"   -> "chordal"      host clique-tree direct solve
-    "general"   -> "iterative"    the configured solver (bucket_glasso)
+    "general"   -> "iterative"    the configured solver (bucket_glasso for
+                                  bcd, prox_l1 for pg, shard_prox for admm)
+    "oversize"  -> "sharded"      the matmul-only ADMM for blocks past the
+                                  single-device cap (``oversize_threshold``),
+                                  KKT-verified in place
 
 and the joint (K-class) union-graph classes of ``repro_torch.joint``:
 "joint_forest" -> "closed_form", "joint_chordal" -> "chordal",
@@ -37,7 +42,8 @@ and the joint (K-class) union-graph classes of ``repro_torch.joint``:
 "joint_general" -> "iterative" (the joint ADMM).
 
 Every non-iterative route is KKT-verified by the executor and falls back to
-"iterative" on failure, so re-routing a class (``set_route``) changes cost,
+"iterative" on failure (an oversize miss also bumps
+``solver.oversize.fallbacks``), so re-routing a class (``set_route``) changes cost,
 never correctness.  The solver protocol is re-exported here so every
 extension point shares one import.
 """
@@ -114,7 +120,7 @@ def label_components(S, lam: float, *, backend: str = "host", **opts) -> np.ndar
 
 #: executor routes, cheapest first; "iterative" is the ladder's tail and the
 #: fallback target of every verified fast path
-ROUTES = ("assemble", "closed_form", "chordal", "iterative")
+ROUTES = ("assemble", "closed_form", "chordal", "iterative", "sharded")
 
 _ROUTE_OF: dict[str, str] = {
     "singleton": "assemble",
@@ -122,6 +128,7 @@ _ROUTE_OF: dict[str, str] = {
     "tree": "closed_form",
     "chordal": "chordal",
     "general": "iterative",
+    "oversize": "sharded",
     # joint (K-class) union-graph classes: identical class blocks reduce to
     # ONE single-class problem at an effective lambda (repro_torch.joint);
     # class-specific blocks take the coupled joint ADMM through "iterative"

@@ -41,7 +41,7 @@ from repro_torch.core.instrument import bump
 #: is assigned by the PLANNER (size threshold from the device memory budget,
 #: checked before any graph classification — running MCS on a giant
 #: component would cost more than it could ever save), never by
-#: ``classify_component``; it routes to the mesh-spanning sharded solver.
+#: ``classify_component``; it routes to the sharded solver.
 STRUCTURES = ("singleton", "pair", "tree", "chordal", "general", "oversize")
 
 

@@ -42,6 +42,7 @@ import math
 
 import torch
 
+from repro_torch.core.solvers.admm import advance_lanes
 from repro_torch.kernels.joint_prox.ops import joint_prox_step
 
 #: iterations between the host's reads of "is any lane still active"
@@ -62,33 +63,6 @@ def theta_from_eigh(d: torch.Tensor, Q: torch.Tensor, rho: torch.Tensor, shape) 
     r = rho.repeat_interleave(shape[1])[:, None]
     theta_d = (d + torch.sqrt(d * d + 4.0 * r)) / (2.0 * r)
     return ((Q * theta_d[:, None, :]) @ Q.transpose(-1, -2)).reshape(shape)
-
-
-def advance_lanes(state, new, active: torch.Tensor, eps: float, max_iter: int):
-    """One iteration's bookkeeping over the lanes: the adaptive rho step and
-    the freeze of finished lanes.  ``state`` is (Z, U, rho, r_prim, r_dual,
-    it), ``new`` the prox step's (Z_new, U_new, rp2, rd2); returns the next
-    (state, active)."""
-    Z, U, rho, r_prim, r_dual, it = state
-    Z_new, U_new, rp2, rd2 = new
-    rp_new = torch.sqrt(rp2)
-    rd_new = rho * torch.sqrt(rd2)
-    # adaptive rho; U is the SCALED dual, so it rescales inversely
-    one = torch.ones_like(rho)
-    factor = torch.where(
-        rp_new > 10.0 * rd_new, 2.0 * one, torch.where(rd_new > 10.0 * rp_new, 0.5 * one, one)
-    )
-    a4 = active[:, None, None, None]
-    state = (
-        torch.where(a4, Z_new, Z),
-        torch.where(a4, U_new / factor[:, None, None, None], U),
-        torch.where(active, rho * factor, rho),
-        torch.where(active, rp_new, r_prim),
-        torch.where(active, rd_new, r_dual),
-        it + active.to(it.dtype),
-    )
-    active = active & ((state[3] > eps) | (state[4] > eps)) & (state[5] < max_iter)
-    return state, active
 
 
 def _per_lane(x, n: int, like: torch.Tensor) -> torch.Tensor:

@@ -55,6 +55,11 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     ),
     "joint_prox_scratch_doubles": (ctypes.c_longlong, [_I, _I]),
+    "prox_l1_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _P]),
+    "shard_prox_launch": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
+    ),
+    "shard_prox_scratch_doubles": (ctypes.c_longlong, [_I, ctypes.c_longlong]),
     "repro_torch_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -151,6 +156,21 @@ def check(status: int, kernel: str) -> None:
     if status != 0:
         msg = library().repro_torch_cuda_error_string(status).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")
+
+
+def lane_vector(kernel: str, x, n: int, like) -> "torch.Tensor":
+    """A Python scalar, a 0-d tensor or an (n,) tensor as a contiguous (n,)
+    tensor of ``like``'s dtype on its device (per-lane kernel arguments)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((n,), float(x), dtype=like.dtype, device=like.device)
+    if x.ndim == 0:
+        return x.to(dtype=like.dtype, device=like.device).expand(n).contiguous()
+    if x.shape != (n,) or x.dtype != like.dtype or x.device != like.device:
+        raise ValueError(
+            f"{kernel}: per-lane values must be a scalar or ({n},) {like.dtype} on "
+            f"{like.device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
+        )
+    return x.contiguous()
 
 
 def check_operands(kernel: str, blocks, *per_block) -> tuple[int, int]:

@@ -26,6 +26,8 @@ Counters (repro_torch.core.instrument):
     stream.tiles_skipped    pairs the Cauchy-Schwarz bound pruned
     stream.edges_emitted    compacted edges (|S_ij| > grid minimum)
     stream.bytes_peak       screening-stage high-watermark (bytes)
+    stream.deferred_*       oversize components kept as columns, and the
+                            gathers they served (``stream.materialize``)
 """
 
 from __future__ import annotations
@@ -95,12 +97,16 @@ def stream_screen(
     keep_tile_stats: bool = False,
     materialize: bool = True,
     device="cuda",
+    oversize: int | None = None,
 ) -> StreamScreen:
     """Screen (X, every lambda) out-of-core; see the module docstring.
 
     ``device`` is where the tiles are computed (``"cuda"`` by default,
     which raises without CUDA; ``"cpu"`` runs the plain version), in
-    float64 whatever X's dtype."""
+    float64 whatever X's dtype.  ``oversize`` is the planner's
+    single-device block-size cap: components larger than it are
+    materialized DEFERRED (no block — the sharded route computes them
+    chunk-wise onto the device via ``materialize.shard_gather``)."""
     from repro_torch.select.grid import normalize_lambda_grid
 
     cfg = as_config(config)
@@ -176,7 +182,8 @@ def stream_screen(
         # Theorem-2 sweep (lams is descending, so labels[-1]); every finer
         # plan gathers sub-blocks of these blocks
         S = materialize_components(
-            x_dev, torch.as_tensor(moments.mu).to(dev), moments.diag, labels[-1]
+            x_dev, torch.as_tensor(moments.mu).to(dev), moments.diag, labels[-1],
+            oversize=oversize,
         )
         local_peak = max(local_peak, base_bytes + acc.bytes_held() + S.nbytes())
         set_peak("stream.bytes_peak", local_peak)

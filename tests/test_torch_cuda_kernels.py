@@ -345,3 +345,149 @@ def test_joint_glasso_on_the_card_matches_the_cpu_path(cuda_device):
     assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
     assert got.fallbacks == want.fallbacks == 0
     np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("B,b", [(1, 1), (3, 7), (5, 33), (2, 256)])
+def test_prox_l1_matches_plain(cuda_device, B, b):
+    """Bit-equal to the plain version for a scalar and a per-lane t, odd
+    sizes included; ties |theta - t*grad| == t*lam give exactly 0."""
+    from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
+
+    rng = np.random.default_rng(10 * B + b)
+    theta, grad = (torch.as_tensor(rng.standard_normal((B, b, b)), device=cuda_device)
+                   for _ in range(2))
+    t, lam = 0.5, 0.75
+    theta[:, 0, 0] = 0.375   # a tie: |theta - t*0| == t*lam
+    grad[:, 0, 0] = 0.0
+    t_lane = torch.as_tensor(rng.uniform(0.05, 1.5, B), device=cuda_device)
+    lam_lane = torch.as_tensor(rng.uniform(0.0, 1.0, B), device=cuda_device)
+    instrument.reset("kernels.")
+    got = prox_step(theta, grad, t, lam)
+    got_lane = prox_step(theta, grad, t_lane, lam_lane)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.prox_l1.launches") == 2
+    assert torch.equal(got, prox_step_ref(theta, grad, t, lam))
+    assert torch.equal(got_lane, prox_step_ref(theta, grad, t_lane, lam_lane))
+    assert (got[:, 0, 0] == 0).all()
+    assert torch.equal(prox_step(theta[0], grad[0], t, lam), got[0])
+
+
+@pytest.mark.parametrize("shape", [(8, 136), (1, 1), (3, 17, 17), (2, 300, 257)])
+def test_shard_prox_matches_plain(cuda_device, shape):
+    """Z' and U' bit-equal to the plain version, rp2/rd2 within 1e-14
+    relative (the same squares summed in another order) and identical from
+    run to run (fixed-order partial sums, no atomics)."""
+    from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
+
+    rng = np.random.default_rng(sum(shape))
+    x, u, z = (torch.as_tensor(rng.standard_normal(shape), device=cuda_device)
+               for _ in range(3))
+    t = (torch.as_tensor(rng.uniform(0.05, 1.0, shape[0]), device=cuda_device)
+         if len(shape) == 3 else 0.3)
+    instrument.reset("kernels.")
+    got = fused_prox_residual(x, u, z, t)
+    again = fused_prox_residual(x, u, z, t)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.shard_prox.launches") == 2
+    want = fused_prox_ref(x, u, z, t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-14)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def _solver_lanes(rng, n, b):
+    blocks, lams = [], []
+    for _ in range(n):
+        S = _covariance(rng, b - 1)
+        blocks.append(pad_block(S, b))
+        lams.append(_lam(S, 0.5))
+    return np.stack(blocks), np.asarray(lams)
+
+
+def test_pg_and_admm_buckets_on_the_card_match_the_cpu(cuda_device):
+    """The batched pg (prox_l1) and admm (shard_prox) solves on the card
+    against the same solves on the CPU, lane by lane: Theta within 1e-6
+    (pg: its line search's accept test can flip on last-bit differences of
+    cuSOLVER's and LAPACK's Cholesky) and 1e-8 (admm, tol 1e-9), admm's
+    iteration counts equal."""
+    from repro_torch.core.solvers import glasso_admm_info, glasso_pg_stack
+
+    rng = np.random.default_rng(5)
+    blocks, lams = _solver_lanes(rng, 6, 12)
+    S_c, l_c = torch.as_tensor(blocks), torch.as_tensor(lams)
+    S_g, l_g = S_c.to(cuda_device), l_c.to(cuda_device)
+    instrument.reset("kernels.")
+    pg = glasso_pg_stack(S_g, l_g)
+    admm, it = glasso_admm_info(S_g, l_g, tol=1e-9)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.prox_l1.launches") > 0
+    assert instrument.count("kernels.shard_prox.launches") > 0
+    np.testing.assert_allclose(pg.cpu().numpy(), glasso_pg_stack(S_c, l_c).numpy(),
+                               rtol=0, atol=1e-6)
+    admm_c, it_c = glasso_admm_info(S_c, l_c, tol=1e-9)
+    np.testing.assert_allclose(admm.cpu().numpy(), admm_c.numpy(), rtol=0, atol=1e-8)
+    assert it.cpu().tolist() == it_c.tolist()
+
+
+def test_glasso_sharded_on_the_card_matches_the_cpu(cuda_device):
+    """The sharded solve through shard_prox on the card: the same outer
+    iterations as on the CPU, Theta within 1e-8, KKT verified in place."""
+    from repro_torch.core.solvers import glasso_sharded
+
+    rng = np.random.default_rng(6)
+    S = _covariance(rng, 40)
+    lam = _lam(S, 0.5)
+    instrument.reset("kernels.")
+    got = glasso_sharded(S, lam)
+    assert instrument.count("kernels.shard_prox.launches") == got.iters > 0
+    want = glasso_sharded(S, lam, device="cpu")
+    assert got.iters == want.iters and got.retries == want.retries
+    np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-8)
+    assert got.kkt_residual <= 1e-6 * max(1.0, got.s_max)
+
+
+def test_glasso_oversize_and_solvers_on_the_card_match_the_cpu(cuda_device):
+    """glasso(S, lam) on the card with solver pg and admm, and with the
+    oversize route, against the CPU path: labels, route mix, oversize
+    accounting."""
+    rng = np.random.default_rng(7)
+    S = _covariance(rng, 30)
+    lam = _lam(S, 0.4)
+    for opts in (dict(solver="pg"), dict(solver="admm", solver_opts={"tol": 1e-9}),
+                 dict(solver="admm", solver_opts={"tol": 1e-9}, oversize_threshold=10)):
+        want = repro_torch.glasso(S, lam, options=repro_torch.EngineOptions(device="cpu", **opts))
+        instrument.reset("kernels.")
+        got = repro_torch.glasso(S, lam, options=repro_torch.EngineOptions(**opts))
+        name = "prox_l1" if opts["solver"] == "pg" else "shard_prox"
+        assert instrument.count(f"kernels.{name}.launches") > 0, opts
+        assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
+        assert got.oversize == want.oversize
+        np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-6)
+
+
+def test_glasso_from_data_oversize_on_the_card_matches_the_cpu(cuda_device):
+    """glasso(X=..., oversize_threshold=...) on the card: the giant
+    component is deferred to its centered columns on the card, gathered
+    onto the card and solved on the sharded route through shard_prox, as
+    on the CPU path (same labels, route mix and oversize accounting)."""
+    rng = np.random.default_rng(8)
+    n, p, k = 64, 48, 30
+    X = 0.3 * rng.standard_normal((n, p))
+    X[:, :k] += rng.standard_normal((n, 1)) * (0.8 + 0.2 * rng.random(k))
+    opts = dict(solver="admm", oversize_threshold=20, solver_opts={"tol": 1e-9},
+                output="dense")
+    want = repro_torch.glasso(X=X, lam=0.1, options=repro_torch.EngineOptions(
+        device="cpu", **opts))
+    assert want.route_mix.get("oversize", 0) >= 1
+    instrument.reset("kernels.")
+    instrument.reset("stream.")
+    got = repro_torch.glasso(X=X, lam=0.1, options=repro_torch.EngineOptions(**opts))
+    assert instrument.count("kernels.covgram_screen.launches") > 0
+    assert instrument.count("kernels.shard_prox.launches") > 0
+    assert instrument.count("stream.deferred_components") >= 1
+    assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
+    assert got.oversize == want.oversize and got.oversize["fallbacks"] == 0
+    np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-8)

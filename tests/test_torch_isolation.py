@@ -22,6 +22,8 @@ import repro_torch, repro_torch.engine, repro_torch.covariance, repro_torch.kern
 import repro_torch.stream, repro_torch.select, repro_torch.kernels.threshold_cc
 import repro_torch.kernels.covgram_screen
 import repro_torch.joint, repro_torch.kernels.joint_prox, repro_torch.stream.unionfind
+import repro_torch.kernels.prox_l1, repro_torch.kernels.shard_prox, repro_torch.core.distributed
+import repro_torch.core.solvers.pg, repro_torch.core.solvers.admm, repro_torch.core.solvers.sharded
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -221,8 +221,8 @@ def test_cross_component_gather_raises_and_dense_only_helpers_refuse():
     assert st.n_edges == 7
     with pytest.raises(ValueError, match="cannot be re-screened"):
         repro_torch.Engine(options=CPU).run(sc.S, 0.35)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        shard_gather(sc.S, comps[0], None)
+    with pytest.raises(ValueError, match="across components"):
+        shard_gather(sc.S, np.array([comps[0][0], comps[1][0]]), device="cpu")
 
 
 def _kkt(S, Theta, lam):
