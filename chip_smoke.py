@@ -50,7 +50,7 @@ Phases, each printing a line:
              K = 4 (``benchmarks/bench_joint.py``'s generator, 85 % of the
              planted blocks shared, lam1 = 0.4, lam2 = 0.1, tol 1e-9,
              an ADMM budget of 20000 iterations),
-             first and repeat: labels equal to scipy's components of the
+             one solve: labels equal to scipy's components of the
              hybrid rule computed here on the card, all five route classes,
              zero fallbacks, Theta zero across components in every class,
              the joint KKT residual of every block <= 1e-5 max|S|; the
@@ -80,9 +80,38 @@ Phases, each printing a line:
              (tol 1e-11); the
              outer and inner iterations, rho, the memory, and the split of
              one outer iteration;
+             [oversize_budget] logs the budget that
+             oversize_budget_mb="auto" reads, the threshold it derives, and
+             whether the dense admm solve fits in the budget at that
+             threshold, from the dense solve's measured bytes per entry;
+             the [pg], [admm], [oversize] and joint paths' checked launches
+             also run through the kernels' float32 instances (float32
+             copies of the same inputs, held to the float32 plain versions)
+             and are timed (ms_f32);
 17. shard_prox  the first, a middle and the last shard_prox launch of the
              [oversize] solve, held against the plain version and timed;
-18. kernels  one JSON line: every ported kernel with its launches on its
+18. from_data_sparse  ``glasso(X=X, lam=0.30)`` with default options at
+             bench_stream's p = 16000 workload: a SparseTheta whose
+             partition equals the dense screen's on the card, its sparse
+             KKT and stage split;
+19. covgram  the covgram kernel against its plain version at the
+             pipeline's shape (n = 80, p = 16000, float32), on bf16 input
+             and at a ragged shape, timed beside its bound, the plain
+             version and torch.matmul of the centered X;
+20. large_scale  examples/large_scale_glasso.py's pipeline through the port
+             at n = 80, p = 16000: covgram, the correlation R in float64,
+             the capacity lambda for p_max = 64, the device screen held
+             to the host
+             screen, Engine(solver="bcd", tol=1e-7).run(R, lam, p_max=64,
+             labels=...) with default options returning a SparseTheta, the
+             blockwise KKT of the five largest components and of all;
+21. f32      the phase-4 workload at dtype="float32" with bcd, pg and admm:
+             Theta against the float64 solve, every float32 kernel
+             instance's recorded launches against its float32 plain
+             version;
+22. joint_prox k20  joint_prox at K = 20 classes (the shared-memory shape),
+             float64 and float32, against its plain version;
+23. kernels  one JSON line: every ported kernel with its launches on its
              path and, summed over its recorded launches, its error, times
              and bound;
 
@@ -99,7 +128,7 @@ import math
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -107,15 +136,28 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch import EngineOptions, glasso  # noqa: E402
+from repro_torch import Engine, EngineOptions, glasso  # noqa: E402
 from repro_torch.core import instrument  # noqa: E402
-from repro_torch.core.blocks import pad_block  # noqa: E402
-from repro_torch.core.components import components_from_covariance_host  # noqa: E402
+from repro_torch.core.blocks import (  # noqa: E402
+    SINGLE_DEVICE_BUFFERS,
+    oversize_threshold,
+    pad_block,
+)
+from repro_torch.core.components import (  # noqa: E402
+    component_lists,
+    components_from_covariance_host,
+    partitions_equal,
+)
+from repro_torch.core.distributed import device_memory_budget_mb  # noqa: E402
+from repro_torch.core.partition import lambda_for_max_component  # noqa: E402
 from repro_torch.core.screening import count_edges, thresholded_components  # noqa: E402
 from repro_torch.core.solvers.bcd import convergence_scale  # noqa: E402
-from repro_torch.core.solvers.kkt import kkt_residual  # noqa: E402
+from repro_torch.core.solvers.closed_form import kkt_residual_host  # noqa: E402
+from repro_torch.core.solvers.kkt import kkt_residual, kkt_residual_sparse  # noqa: E402
+from repro_torch.core.sparse import SparseTheta  # noqa: E402
 from repro_torch.covariance import (  # noqa: E402
     lambda_interval_for_k,
+    microarray_like,
     paper_synthetic,
     sample_covariance,
     structured_synthetic,
@@ -145,10 +187,13 @@ from repro_torch.stream.tiler import (  # noqa: E402
     tile_pair_schedule,
 )
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth and the FP64
-# tensor-core rate, the highest FP64 rate the card has
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, the FP64
+# tensor-core rate (the highest FP64 rate the card has) and the FP32 rate
+# outside the tensor cores (covgram's float32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 67e12
+FP32_FLOPS_PER_S = 67e12
+EPS32 = float(torch.finfo(torch.float32).eps)
 
 DEV = torch.device("cuda")
 # max|Theta_kernel - Theta_plain| allowed, relative to max|Theta_plain|:
@@ -229,6 +274,38 @@ ROUTE_CHECK_TOL = 1e-6
 # oracle stopped with a KKT residual of 1.9e-4 > 1e-5 max|S|; 1e-11 holds
 # it to the same KKT check as every solve here
 ORACLE_OPTS = {"tol": 1e-11, "max_iter": 20000}
+# [covgram] / [large_scale]: examples/large_scale_glasso.py's pipeline at the
+# example's n = 80 and bench_stream's largest p = 16000 (the example runs
+# p = 1200), microarray_like(seed=7), p_max = 64, bcd at tol 1e-7, and the
+# example's KKT bound on the blockwise residuals.  covgram's tolerance
+# against its plain version is n float32 epsilons of max|S| (both sum n
+# float32 products, in another order); the ragged case is not a multiple of
+# the 64 x 64 tile or the 32-row slab
+LARGE_N, LARGE_P, LARGE_SEED, LARGE_P_MAX = 80, 16000, 7, 64
+LARGE_TOL, LARGE_KKT = 1e-7, 1e-4
+COVGRAM_CASES = (("pipeline", 80, 16000, torch.float32),
+                 ("bf16", 80, 16000, torch.bfloat16),
+                 ("ragged", 77, 1001, torch.float32))
+# [from_data_sparse]: bench_stream's p = 16000 workload at its grid's first
+# lambda, default options (output "auto": sparse above p = 8192)
+FROM_DATA_SPARSE_LAM = 0.30
+# [f32]: the [main] workload at dtype="float32".  Theta against the float64
+# bcd solve, relative to max|Theta|, about twice what the reference package's
+# own float32 solve gives on the CPU: bcd 1e-5 (the float32 sweeps; the
+# port 2.8e-7 on the CPU), pg 1e-2 (its line search decides float32 ties:
+# the reference 5.0e-3, the port 5.3e-4), admm 5e-2 (float32 ADMM on blocks
+# with S_ii up to 831 stops on its absolute rule ~2 % of max|Theta| away:
+# the reference 2.3e-2, the port 1.95e-2).  Their default tol 1e-7: the
+# 1e-9 of [pg]/[admm] lies below float32's resolution of the iterates.  The float32
+# kernel instances against their float32 plain versions: tree_glasso 6e-5
+# and bucket_glasso 1e-5 relative, prox_l1 and shard_prox's Z'/U' bit-equal,
+# shard_prox's and joint_prox's sums 1e-5 relative, joint_prox's Z/U 1e-5
+# absolute (tests/test_torch_cuda_kernels.py says why)
+F32_THETA_RTOL = {"bcd": 1e-5, "pg": 1e-2, "admm": 5e-2}
+F32_TREE_RTOL, F32_BUCKET_RTOL = 6e-5, 1e-5
+F32_SUM_RTOL, F32_JOINT_ATOL = 1e-5, 1e-5
+# joint_prox above 16 classes (the shared-memory shape): (n, K, b)
+JOINT_PROX_K20 = (56, 20, 16)
 
 
 T_START = time.perf_counter()
@@ -1093,8 +1170,9 @@ def kernel_device_ms(fn, name: str, reps: int) -> float:
 
 
 def joint_prox_bound_ms(theta: torch.Tensor) -> float:
-    """Read theta, u and z_old, write z_new and u_new: 40 n K b^2 bytes."""
-    return 5 * theta.numel() * 8 / HBM_BYTES_PER_S * 1e3
+    """Read theta, u and z_old, write z_new and u_new: 5 n K b^2 itemsize
+    bytes."""
+    return 5 * theta.numel() * theta.element_size() / HBM_BYTES_PER_S * 1e3
 
 
 def joint_prox_on_path(launches: list, *, penalty: str, label: str) -> dict:
@@ -1104,10 +1182,14 @@ def joint_prox_on_path(launches: list, *, penalty: str, label: str) -> dict:
     from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
 
     out = dict(n=len(launches), err_z=0.0, err_u=0.0, rel_rp2=0.0, rel_rd2=0.0,
-               ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, shapes=[])
+               ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, ms_f32=0.0, shapes=[])
     for i, args, kw in launches:
         got = joint_prox_step(*args, **kw)
         want = joint_prox_ref(*args, **kw)
+        a32 = as_f32(args)
+        check_joint_prox_f32(joint_prox_step(*a32, **kw), joint_prox_ref(*a32, **kw),
+                             f"{label} launch {i} in float32")
+        out["ms_f32"] += cuda_ms(lambda: joint_prox_step(*a32, **kw), 20)
         ez = float((got[0] - want[0]).abs().max())
         eu = float((got[1] - want[1]).abs().max())
         rel = [float(((g - w).abs() / w.abs().clamp(min=1e-300)).max())
@@ -1169,7 +1251,7 @@ def solve_joint_on_card(phase: str, case: str, Ss: list, penalty: str, *,
 
 
 def phase_joint(phase: str, case: tuple, penalty: str, required: tuple) -> tuple:
-    """joint_glasso from Ss on the card, first and repeat, checked against
+    """joint_glasso from Ss on the card (one solve), checked against
     the union labels computed here, the route mix, fallbacks, zeros and
     KKT; returns (launches of the first solve, its recorded prox launches)."""
     K_blocks, p1, classes, shared = case
@@ -1185,20 +1267,16 @@ def phase_joint(phase: str, case: tuple, penalty: str, required: tuple) -> tuple
     if margin < MARGIN_RTOL * smax:
         raise AssertionError(f"{phase}: a pair's excess lies within {margin} of the rule")
     name = "structured K={} p1={} classes={} shared={}".format(*case)
-    first = None
-    for run in ("first", "repeat"):
-        launches, res, kept, admm = solve_joint_on_card(phase, f"{name} ({run})", Ss, penalty)
-        if not np.array_equal(res.labels, labels):
-            raise AssertionError(f"{phase}: labels differ from the hybrid rule's components")
-        missing = [c for c in required if res.route_mix.get(c, 0) <= 0]
-        if missing:
-            raise AssertionError(f"{phase}: route mix {res.route_mix} lacks {missing}")
-        kkt = check_joint_solution(Ss, res, penalty=penalty)
-        log(phase + "_check", case=run, labels_equal_rule=True, margin=margin, kkt=kkt,
-            max_abs_S=smax)
-        if first is None:
-            first = (launches, first_middle_last(kept), admm)
-    launches, prox, admm = first
+    launches, res, kept, admm = solve_joint_on_card(phase, name, Ss, penalty)
+    if not np.array_equal(res.labels, labels):
+        raise AssertionError(f"{phase}: labels differ from the hybrid rule's components")
+    missing = [c for c in required if res.route_mix.get(c, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{phase}: route mix {res.route_mix} lacks {missing}")
+    kkt = check_joint_solution(Ss, res, penalty=penalty)
+    log(phase + "_check", labels_equal_rule=True, margin=margin, kkt=kkt, max_abs_S=smax)
+    prox = first_middle_last(kept)
+    del res, kept
     for name_ in ("joint_prox", "tree_glasso", "bucket_glasso"):
         if launches.get(f"{name_}.launches", 0) <= 0:
             raise AssertionError(f"{name_} was not launched on the [{phase}] path")
@@ -1307,12 +1385,16 @@ def prox_l1_on_path(kept: dict) -> dict:
     from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
 
     out = dict(n=0, err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, shapes=[])
+               bound_ms=0.0, ms_f32=0.0, shapes=[])
     for i, args, kw in first_middle_last(kept):
         theta, grad, t, lam = args
         got, want = prox_step(*args, **kw), prox_step_ref(*args, **kw)
         if not torch.equal(got, want):
             raise AssertionError(f"prox_l1 launch {i} differs from its plain version")
+        a32 = as_f32(args)
+        if not torch.equal(prox_step(*a32, **kw), prox_step_ref(*a32, **kw)):
+            raise AssertionError(f"prox_l1 launch {i} in float32 differs from its plain version")
+        out["ms_f32"] += cuda_ms(lambda: prox_step(*a32, **kw), 20)
         t0 = float(t[0]) if isinstance(t, torch.Tensor) and t.ndim else float(t)
         l0 = float(lam[0]) if isinstance(lam, torch.Tensor) and lam.ndim else float(lam)
         out["n"] += 1
@@ -1335,12 +1417,16 @@ def shard_prox_on_path(kept: dict) -> dict:
     from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
 
     out = dict(n=0, err=0.0, rel_sums=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
-               library_ms=0.0, bound_ms=0.0, shapes=[])
+               library_ms=0.0, bound_ms=0.0, ms_f32=0.0, shapes=[])
     for i, args, kw in first_middle_last(kept):
         x, u, _, t = args
         got, want = fused_prox_residual(*args, **kw), fused_prox_ref(*args, **kw)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise AssertionError(f"shard_prox launch {i}: Z'/U' differ from the plain version")
+        a32 = as_f32(args)
+        check_shard_prox_f32(fused_prox_residual(*a32, **kw), fused_prox_ref(*a32, **kw),
+                             f"launch {i} in float32")
+        out["ms_f32"] += cuda_ms(lambda: fused_prox_residual(*a32, **kw), 20)
         rel = max(float(((g - w).abs() / w.abs().clamp(min=1e-300)).max())
                   for g, w in zip(got[2:], want[2:]))
         if not rel <= SHARD_PROX_RTOL:
@@ -1366,7 +1452,7 @@ def log_shard_prox(path: str, sp: dict, launches: dict) -> None:
         launches_timed=sp["n"], shapes=json.dumps(sp["shapes"]), max_abs_err=sp["err"],
         rel_err_sums=sp["rel_sums"], ms=f"{sp['ms']:.4f}", device_ms=f"{sp['device_ms']:.4f}",
         plain_ms=f"{sp['plain_ms']:.4f}", softshrink_expression_ms=f"{sp['library_ms']:.4f}",
-        bound_ms=f"{sp['bound_ms']:.6f}")
+        bound_ms=f"{sp['bound_ms']:.6f}", ms_f32=f"{sp['ms_f32']:.4f}")
 
 
 def giant_workload(p: int, seed: int = 0) -> np.ndarray:
@@ -1437,6 +1523,36 @@ def sharded_iteration_split(S_pad: torch.Tensor, args: tuple, lam: float, *, ns_
     return out
 
 
+def oversize_budget() -> dict:
+    """oversize_budget_mb="auto" on the card: the budget (free bytes plus
+    what the caching allocator reserves) and the threshold derived from it
+    by the reference's model of SINGLE_DEVICE_BUFFERS float64 (b, b)
+    buffers, checked to lie within the card's memory."""
+    torch.cuda.empty_cache()
+    budget_mb = device_memory_budget_mb(DEV)
+    threshold = oversize_threshold(budget_mb)
+    need = SINGLE_DEVICE_BUFFERS * 8 * threshold * threshold
+    total = torch.cuda.get_device_properties(DEV).total_memory
+    if not (need <= budget_mb * 2**20 <= total):
+        raise AssertionError(f"[oversize] budget {budget_mb} MB, need {need}, total {total}")
+    return dict(budget_mb=budget_mb, total_mb=total / 2**20, threshold=threshold,
+                model_bytes=need)
+
+
+def budget_fit(budget: dict, peak_bytes: int, padded: int) -> dict:
+    """Does the dense solve fit in the budget at the derived threshold?
+    Its measured peak bytes per padded entry, scaled to b = threshold,
+    against the budget; and the largest b whose scaled peak fits."""
+    per_entry = peak_bytes / padded ** 2
+    fit_b = int(math.sqrt(budget["budget_mb"] * 2**20 / per_entry))
+    return dict(budget_mb=f"{budget['budget_mb']:.1f}", total_mb=f"{budget['total_mb']:.1f}",
+                threshold=budget["threshold"], model_bytes=budget["model_bytes"],
+                model_bytes_per_entry=SINGLE_DEVICE_BUFFERS * 8,
+                dense_admm_peak_bytes=peak_bytes, dense_admm_padded=padded,
+                dense_admm_bytes_per_entry=f"{per_entry:.1f}", dense_admm_fit_b=fit_b,
+                threshold_fits_dense_solve=budget["threshold"] <= fit_b)
+
+
 def phase_oversize() -> tuple[dict, dict]:
     """The giant-block route on the card: glasso(S, lam, solver="admm",
     oversize_threshold=...) on bench_giant's workload, checked as [main] is,
@@ -1453,6 +1569,7 @@ def phase_oversize() -> tuple[dict, dict]:
     if b_giant <= GIANT_THRESHOLD or (sizes > GIANT_THRESHOLD).sum() != 1:
         raise AssertionError(f"[oversize] expected one component above {GIANT_THRESHOLD}, "
                              f"got sizes {sorted(sizes)[-3:]}")
+    budget = oversize_budget()
     opts = EngineOptions(solver="admm", oversize_threshold=GIANT_THRESHOLD,
                          solver_opts=SOLVER_OPTS)
     case = f"bench_giant p={GIANT_P} n={GIANT_N} b={b_giant}"
@@ -1477,9 +1594,13 @@ def phase_oversize() -> tuple[dict, dict]:
         raise AssertionError(f"[oversize] in-place KKT {sol.kkt_residual} > {kkt_bound}")
     if kept["n"] != sol.iters or launches.get("shard_prox.launches", 0) < sol.iters:
         raise AssertionError(f"[oversize] {launches} launches for {sol.iters} iterations")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with record_results("repro_torch.core.solvers.admm", "glasso_admm_info") as dense_calls:
         _, dense = solve_on_card(case + " dense admm", S, lam, phase="oversize_dense",
                                  options=EngineOptions(solver="admm", solver_opts=ORACLE_OPTS))
+    dense_peak = torch.cuda.max_memory_allocated() - base
     diff = float(np.abs(res.Theta - dense.Theta).max())
     theta_bound = ROUTE_CHECK_TOL * max(1.0, smax)
     if not diff <= theta_bound:
@@ -1494,6 +1615,8 @@ def phase_oversize() -> tuple[dict, dict]:
         fallbacks=json.dumps(fallbacks, sort_keys=True),
         device_bytes=sol.device_bytes, max_memory_allocated=peak,
         solve_s_per_iteration=f"{res.stages()['solve'] / sol.iters:.6f}")
+    padded = max(c[0][0].shape[-1] for c in dense_calls)
+    log("oversize_budget", **budget_fit(budget, dense_peak, padded))
     _, mid_args, _ = first_middle_last(kept)[len(first_middle_last(kept)) // 2]
     split = sharded_iteration_split(S_pad, mid_args, lam,
                                     ns_steps=sol.inner_iters / max(sol.iters, 1))
@@ -1503,6 +1626,342 @@ def phase_oversize() -> tuple[dict, dict]:
     del solves, dense_calls, S_pad, mid_args
     torch.cuda.empty_cache()
     return launches, kept
+
+
+# ---------------------------------------------------------- phases 20-24
+
+
+def as_f32(args: tuple) -> tuple:
+    """A recorded launch's arguments with every floating tensor as float32:
+    the float32 instance timed and checked on the same shapes."""
+    return tuple(a.float() if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                 for a in args)
+
+
+def check_shard_prox_f32(got, want, label: str) -> None:
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"shard_prox {label}: Z'/U' differ from the plain version")
+    rel = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+              for g, w in zip(got[2:], want[2:]))
+    if not rel <= F32_SUM_RTOL:
+        raise AssertionError(f"shard_prox {label}: rp2/rd2 relative error {rel}")
+
+
+def check_joint_prox_f32(got, want, label: str) -> float:
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+    rel = max(float(((g - w).abs() / w.abs().clamp(min=1e-30)).max())
+              for g, w in zip(got[2:], want[2:]))
+    if not (err <= F32_JOINT_ATOL and rel <= F32_SUM_RTOL):
+        raise AssertionError(f"joint_prox {label}: |dZ|,|dU| {err}, rel rp2/rd2 {rel}")
+    return err
+
+
+def gram_bound(n: int, p: int, itemsize: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one centered Gram: X read once and the
+    float32 S written once; S is symmetric, so the function needs the
+    n p (p + 1) flops of one triangle, at the FP32 rate outside the tensor
+    cores."""
+    t_bytes = (n * p * itemsize + 4 * p * p) / HBM_BYTES_PER_S * 1e3
+    t_ops = gram_flops(n, p) / FP32_FLOPS_PER_S * 1e3
+    return t_bytes, t_ops
+
+
+def gram_flops(n: int, p: int) -> float:
+    """Flops of one triangle of a (p, p) Gram over n rows: n p (p + 1)."""
+    return float(n) * p * (p + 1)
+
+
+def phase_covgram() -> dict:
+    """The covgram kernel against its plain version at the pipeline's shape,
+    on bf16 input and at a ragged shape; CUDA-event times beside the bound,
+    the plain version and torch.matmul of the centered X (TF32 off).
+    Returns the pipeline shape's numbers and the largest error of the
+    three."""
+    from repro_torch.kernels.covgram import covgram, covgram_ref
+
+    out = {}
+    worst = 0.0
+    for label, n, p, dtype in COVGRAM_CASES:
+        X = microarray_like(n, p, seed=LARGE_SEED)
+        x = torch.as_tensor(X, dtype=torch.float32).to(DEV).to(dtype)
+        got, want = covgram(x), covgram_ref(x)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        tol = n * EPS32 * scale
+        if not err <= tol:
+            raise AssertionError(f"covgram {label}: max|diff| {err} > n eps max|S| = {tol}")
+        if not torch.equal(got, got.T):
+            raise AssertionError(f"covgram {label}: S is not symmetric")
+        del got, want
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: covgram(x), 10)
+        plain_ms = cuda_ms(lambda: covgram_ref(x), 5)
+        xf = x.float()
+        xc = xf - xf.mean(dim=0, keepdim=True)
+        library_ms = cuda_ms(lambda: torch.matmul(xc.T, xc), 10)
+        del xf, xc
+        t_bytes, t_ops = gram_bound(n, p, x.element_size())
+        bound = max(t_bytes, t_ops)
+        log("covgram", case=label, n=n, p=p, dtype=str(dtype).removeprefix("torch."),
+            max_abs_err=err, tol=tol, max_abs_S=scale, ms=f"{ms:.4f}",
+            plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
+            bytes_ms=f"{t_bytes:.4f}", ops_ms=f"{t_ops:.4f}", bound_ms=f"{bound:.4f}",
+            tflops=f"{gram_flops(n, p) / ms / 1e9:.2f}", share_of_bound=f"{bound / ms:.3f}")
+        if label == "pipeline":
+            out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                       bound_by="operations" if t_ops > t_bytes else "bytes")
+        del x
+        torch.cuda.empty_cache()
+    out["err"] = worst
+    return out
+
+
+def phase_large_scale() -> tuple[dict, dict]:
+    """examples/large_scale_glasso.py's pipeline through the port at
+    n = 80, p = 16000: covgram on the card -> correlation R (float64) ->
+    capacity lambda for p_max -> device screen held to the host screen ->
+    Engine(solver="bcd", tol=1e-7).run(R, lam, p_max, labels) with default
+    options, which must return a SparseTheta with no (p, p) result buffer;
+    the example's blockwise KKT on the five largest components and
+    kkt_residual_sparse over all.  Launch counters zeroed just before the
+    pipeline and read just after.  Returns (launches, numbers)."""
+    from repro_torch.kernels.covgram import covgram
+
+    n, p = LARGE_N, LARGE_P
+    X = microarray_like(n, p, seed=LARGE_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    instrument.reset("kernels.")
+    instrument.reset("result.")
+    t_start = time.perf_counter()
+    S = covgram(torch.as_tensor(X, dtype=torch.float32).to(DEV))
+    d = torch.sqrt(torch.clamp(torch.diagonal(S), min=1e-12))
+    R_dev = (S / torch.outer(d, d)).double()
+    R_dev.fill_diagonal_(1.0)
+    del S, d
+    R = R_dev.cpu().numpy()
+    del R_dev
+    torch.cuda.empty_cache()
+    t_cov = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    cap = lambda_for_max_component(R, LARGE_P_MAX)
+    t_cap = time.perf_counter() - t0
+    lam = cap * 1.0005
+    t0 = time.perf_counter()
+    labels, _ = thresholded_components(R, lam, backend="pallas", device=DEV)
+    t_screen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, _ = thresholded_components(R, lam)
+    t_host = time.perf_counter() - t0
+    if not partitions_equal(labels, host):
+        raise AssertionError("[large_scale] the device screen's partition differs from host")
+    engine = Engine(solver="bcd", tol=LARGE_TOL)
+    t0 = time.perf_counter()
+    res = engine.run(R, lam, p_max=LARGE_P_MAX, labels=labels)
+    t_run = time.perf_counter() - t0
+    wall = time.perf_counter() - t_start
+    launches = instrument.tail_counts("kernels.")
+    result_peak = instrument.counts("result.").get("result.bytes_peak", 0)
+    dev_peak = torch.cuda.max_memory_allocated()
+    if not isinstance(res.Theta, SparseTheta):
+        raise AssertionError(f"[large_scale] default options gave {type(res.Theta).__name__}")
+    if not result_peak < p * p * 8 // 16 or res.bytes_peak != result_peak:
+        raise AssertionError(f"[large_scale] result bytes {result_peak} vs p^2 8 = {p * p * 8}")
+    for name in ("covgram", "threshold_cc"):
+        if launches.get(f"{name}.launches", 0) <= 0:
+            raise AssertionError(f"{name} was not launched on the [large_scale] path")
+    comps = sorted(component_lists(res.labels), key=len, reverse=True)
+    top5 = 0.0
+    for comp in comps[:5]:
+        if len(comp) > 1:
+            top5 = max(top5, kkt_residual_host(R[np.ix_(comp, comp)], lam,
+                                               res.Theta.gather_block(comp)))
+    kkt_all = kkt_residual_sparse(R, res.Theta, lam)
+    if not (top5 < LARGE_KKT and kkt_all < LARGE_KKT):
+        raise AssertionError(f"[large_scale] KKT top-5 {top5}, all {kkt_all} >= {LARGE_KKT}")
+    if max(res.block_sizes or [1]) > LARGE_P_MAX:
+        raise AssertionError(f"[large_scale] a block above p_max: {res.block_sizes[:3]}")
+    stages = res.stages()
+    log("large_scale", n=n, p=p, seed=LARGE_SEED, p_max=LARGE_P_MAX, lam=f"{lam:.6g}",
+        n_components=len(comps), max_comp=len(comps[0]),
+        route_mix=json.dumps(res.route_mix, sort_keys=True),
+        launches=json.dumps(launches, sort_keys=True), output=res.output,
+        kkt_top5=top5, kkt_all=kkt_all, result_nbytes=res.bytes_peak,
+        dense_nbytes=p * p * 8, max_memory_allocated=dev_peak,
+        covariance_s=f"{t_cov:.3f}", capacity_s=f"{t_cap:.3f}",
+        device_screen_s=f"{t_screen:.3f}", host_screen_s=f"{t_host:.3f}",
+        run_s=f"{t_run:.3f}", plan_s=f"{span_seconds(res, 'engine.plan'):.4f}",
+        solve_s=f"{stages['solve']:.4f}", dispatch_s=f"{stages['dispatch']:.4f}",
+        assemble_s=f"{stages['assemble']:.4f}", wall_s=f"{wall:.3f}")
+    del R, res
+    return launches, dict(lam=lam)
+
+
+def phase_from_data_sparse(X: np.ndarray) -> dict:
+    """glasso(X=...) at bench_stream's p = 16000 workload with default
+    options: a SparseTheta whose partition equals the dense screen's on the
+    card; its sparse KKT and stage split."""
+    n, p = X.shape
+    lam = FROM_DATA_SPARSE_LAM
+    S_dev = sample_covariance(X)
+    smax = float(S_dev.abs().max())
+    dense_labels, margin = dense_partition(S_dev, lam)
+    if margin < MARGIN_RTOL * smax:
+        raise AssertionError(f"[from_data_sparse] an |S_ij| lies within {margin} of lam={lam}")
+    S = S_dev.cpu().numpy()
+    del S_dev
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    instrument.reset("kernels.")
+    instrument.reset("result.")
+    t0 = time.perf_counter()
+    res = glasso(X=X, lam=lam)
+    wall = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    if not isinstance(res.Theta, SparseTheta):
+        raise AssertionError(f"[from_data_sparse] default options gave {type(res.Theta).__name__}")
+    if not np.array_equal(res.labels, dense_labels):
+        raise AssertionError("[from_data_sparse] partition differs from the dense screen's")
+    if launches.get("covgram_screen.launches", 0) <= 0:
+        raise AssertionError("covgram_screen was not launched on [from_data_sparse]")
+    kkt = kkt_residual_sparse(S, res.Theta, lam)
+    if not kkt <= KKT_RTOL * smax:
+        raise AssertionError(f"[from_data_sparse] KKT {kkt} > {KKT_RTOL}*max|S|")
+    stages = res.stages()
+    log("from_data_sparse", n=n, p=p, lam=lam, output=res.output,
+        route_mix=json.dumps(res.route_mix, sort_keys=True),
+        launches=json.dumps(launches, sort_keys=True), kkt=kkt, max_abs_S=smax,
+        margin=margin, partition_equals_dense=True, result_nbytes=res.bytes_peak,
+        result_bytes_peak=instrument.counts("result.").get("result.bytes_peak", 0),
+        wall_s=f"{wall:.3f}", stream_span_s=f"{span_seconds(res, 'engine.screen'):.4f}",
+        plan_s=f"{span_seconds(res, 'engine.plan'):.4f}", solve_s=f"{stages['solve']:.4f}",
+        dispatch_s=f"{stages['dispatch']:.4f}", assemble_s=f"{stages['assemble']:.4f}")
+    return launches
+
+
+def f32_launches_on_path(kernel: str, calls: list) -> dict:
+    """The float32 launches recorded on an [f32] solve against their
+    float32 plain versions (the card tests' tolerances), CUDA-event times
+    of kernel and plain version summed over them."""
+    from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
+    from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
+
+    fns = {
+        "tree_glasso": (glasso_forest_stack, glasso_forest_ref),
+        "bucket_glasso": (fused_bcd_stack, fused_bcd_ref_stack),
+        "prox_l1": (prox_step, prox_step_ref),
+        "shard_prox": (fused_prox_residual, fused_prox_ref),
+    }
+    kern, plain = fns[kernel]
+    out = dict(n=len(calls), rel_err=0.0, ms=0.0, plain_ms=0.0, shapes=[])
+    for i, args, kw in calls:
+        if args[0].dtype != torch.float32:
+            raise AssertionError(f"[f32] {kernel} launch {i} is {args[0].dtype}")
+        got, want = kern(*args, **kw), plain(*args, **kw)
+        if kernel == "shard_prox":
+            check_shard_prox_f32(got, want, f"[f32] launch {i}")
+            rel = 0.0
+        else:
+            g, w = (got[0], want[0]) if kernel == "bucket_glasso" else (got, want)
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            bound = {"tree_glasso": F32_TREE_RTOL, "bucket_glasso": F32_BUCKET_RTOL,
+                     "prox_l1": 0.0}[kernel]
+            if not rel <= bound:
+                raise AssertionError(f"[f32] {kernel} launch {i}: relative error {rel}")
+        out["rel_err"] = max(out["rel_err"], rel)
+        out["ms"] += cuda_ms(lambda: kern(*args, **kw), 10)
+        out["plain_ms"] += cuda_ms(lambda: plain(*args, **kw), 2)
+        out["shapes"].append([i] + list(args[0].shape))
+    return out
+
+
+def phase_f32(S: np.ndarray, lam: float, bcd_res) -> dict:
+    """The [main] workload at dtype="float32" with bcd, pg and admm (their
+    default tol 1e-7: F32_THETA_RTOL says why): labels and route mix equal
+    to the float64 run's, Theta against the float64 bcd solve within
+    F32_THETA_RTOL[solver] of max|Theta|; every float32 kernel instance's
+    recorded launches held to its float32 plain version.  Launch counters
+    zeroed just before each solve and read just after."""
+    scale = float(np.abs(bcd_res.Theta).max())
+    kernels = {"bcd": (("repro_torch.engine.executor", "glasso_forest_stack", "tree_glasso"),
+                       ("repro_torch.core.solvers.bcd", "fused_bcd_stack", "bucket_glasso")),
+               "pg": (("repro_torch.core.solvers.pg", "prox_step", "prox_l1"),),
+               "admm": (("repro_torch.core.solvers.admm", "fused_prox_residual", "shard_prox"),)}
+    timings = {}
+    for solver, wrapped in kernels.items():
+        opts = EngineOptions(solver=solver, dtype="float32")
+        with ExitStack() as stack:
+            kept = {kernel: stack.enter_context(record_prox_launches(module, name))
+                    for module, name, kernel in wrapped}
+            torch.cuda.synchronize()
+            instrument.reset("kernels.")
+            t0 = time.perf_counter()
+            res = glasso(S, lam, options=opts)
+            wall = time.perf_counter() - t0
+            launches = instrument.tail_counts("kernels.")
+        if res.Theta.dtype != np.float32:
+            raise AssertionError(f"[f32] {solver}: Theta is {res.Theta.dtype}")
+        if not np.array_equal(res.labels, bcd_res.labels) or res.route_mix != bcd_res.route_mix:
+            raise AssertionError(f"[f32] {solver}: plan differs from the float64 run's")
+        diff = float(np.abs(res.Theta.astype(np.float64) - bcd_res.Theta).max())
+        if not diff <= F32_THETA_RTOL[solver] * scale:
+            raise AssertionError(f"[f32] {solver}: max|Theta - Theta_f64| = {diff} > "
+                                 f"{F32_THETA_RTOL[solver]}*{scale}")
+        kkt = float(kkt_residual(torch.as_tensor(S, device=DEV),
+                                 torch.as_tensor(res.Theta.astype(np.float64), device=DEV), lam))
+        checked = {}
+        for _, _, kernel in wrapped:
+            if launches.get(f"{kernel}.launches", 0) <= 0:
+                raise AssertionError(f"{kernel} was not launched on the [f32] {solver} path")
+            if kept[kernel]["n"] != launches[f"{kernel}.launches"]:
+                raise AssertionError(f"[f32] {kernel}: {kept[kernel]['n']} recorded, {launches}")
+            r = f32_launches_on_path(kernel, first_middle_last(kept[kernel]))
+            checked[kernel] = r
+            timings[kernel] = r
+        stages = res.stages()
+        log("f32", solver=solver, dtype="float32", theta_vs_f64=diff, max_abs_theta=scale,
+            tol_rel=F32_THETA_RTOL[solver], kkt=kkt,
+            launches=json.dumps(launches, sort_keys=True),
+            kernels_checked=json.dumps({k: {"launches_checked": v["n"],
+                                            "rel_err": v["rel_err"],
+                                            "ms": round(v["ms"], 4),
+                                            "plain_ms": round(v["plain_ms"], 4),
+                                            "shapes": v["shapes"]}
+                                        for k, v in checked.items()}),
+            wall_s=f"{wall:.3f}", screen_s=f"{stages['screen']:.4f}",
+            plan_s=f"{span_seconds(res, 'engine.plan'):.4f}", solve_s=f"{stages['solve']:.4f}",
+            dispatch_s=f"{stages['dispatch']:.4f}", assemble_s=f"{stages['assemble']:.4f}")
+        del kept
+    return timings
+
+
+def phase_joint_prox_k20() -> None:
+    """joint_prox at K = 20 classes (the shared-memory shape) against its
+    plain version, float64 and float32, both penalties."""
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+
+    rng = np.random.default_rng(20)
+    n, K, b = JOINT_PROX_K20
+    for dtype in (torch.float64, torch.float32):
+        for penalty in ("group", "fused"):
+            ops = [torch.as_tensor(rng.standard_normal((n, K, b, b)), device=DEV).to(dtype)
+                   for _ in range(3)]
+            t = torch.as_tensor(np.stack([0.3 * rng.random(n) + 0.01, 0.3 * rng.random(n)],
+                                         axis=1), device=DEV).to(dtype)
+            got = joint_prox_step(*ops, t, penalty=penalty)
+            want = joint_prox_ref(*ops, t, penalty=penalty)
+            if dtype == torch.float64:
+                err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+                rel = max(float(((g - w).abs() / w.abs()).max()) for g, w in zip(got[2:], want[2:]))
+                if not (err <= JOINT_PROX_ATOL and rel <= JOINT_PROX_RTOL):
+                    raise AssertionError(f"joint_prox K={K} {penalty}: {err}, {rel}")
+            else:
+                err = check_joint_prox_f32(got, want, f"K={K} {penalty}")
+            ms = cuda_ms(lambda: joint_prox_step(*ops, t, penalty=penalty), 20)
+            plain_ms = cuda_ms(lambda: joint_prox_ref(*ops, t, penalty=penalty), 3)
+            log("joint_prox", path="k20", K=K, n=n, b=b, penalty=penalty,
+                dtype=str(dtype).removeprefix("torch."), max_abs_err=err, ms=f"{ms:.4f}",
+                plain_ms=f"{plain_ms:.4f}", bound_ms=f"{joint_prox_bound_ms(ops[0]):.6f}")
 
 
 def main() -> int:
@@ -1551,14 +2010,17 @@ def main() -> int:
     log("prox_l1", path="pg", launches_timed=pl["n"], shapes=json.dumps(pl["shapes"]),
         max_abs_err=pl["err"], ms=f"{pl['ms']:.4f}", device_ms=f"{pl['device_ms']:.4f}",
         plain_ms=f"{pl['plain_ms']:.4f}", softshrink_expression_ms=f"{pl['library_ms']:.4f}",
-        bound_ms=f"{pl['bound_ms']:.6f}")
+        bound_ms=f"{pl['bound_ms']:.6f}", ms_f32=f"{pl['ms_f32']:.4f}")
     del pg_kept
     X_fd = workload(FROM_DATA_P, load=0.9, noise=0.44)
     X_st = workload(STREAM_P, load=0.75, noise=0.66)
     phase_covgram_screen(X_fd, X_st)
     fd_launches, cov = phase_from_data(X_fd)
     phase_stream(X_st)
+    phase_from_data_sparse(X_st)
     del X_fd, X_st
+    cg = phase_covgram()
+    ls_launches, _ = phase_large_scale()
 
     joint_launches, joint_prox = phase_joint("joint", JOINT_CASE, "group", JOINT_ROUTES)
     _, fused_prox = phase_joint("joint_fused", JOINT_FUSED_CASE, "fused", JOINT_FUSED_ROUTES)
@@ -1572,11 +2034,14 @@ def main() -> int:
             shapes=json.dumps(r["shapes"]), max_abs_err_z=r["err_z"],
             max_abs_err_u=r["err_u"], rel_err_rp2=r["rel_rp2"], rel_err_rd2=r["rel_rd2"],
             ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
-            plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}")
+            plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}",
+            ms_f32=f"{r['ms_f32']:.4f}")
     oversize_launches, sp_kept = phase_oversize()
     sp = shard_prox_on_path(sp_kept)
     log_shard_prox("oversize", sp, oversize_launches)
     del sp_kept
+    phase_f32(S, lam, host_res)
+    phase_joint_prox_k20()
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -1638,6 +2103,15 @@ def main() -> int:
             "max_abs_err": max(sp["err"], sp_admm["err"]),
             "ms": sp["ms"], "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
             "bound_by": "bytes", "library_ms": sp["library_ms"],
+        },
+        {
+            "name": "covgram", "route": "cuda",
+            "source": "src/repro_torch/csrc/covgram.cu",
+            "replaces": "src/repro/kernels/covgram/covgram.py:29",
+            "launches": ls_launches["covgram.launches"],
+            "max_abs_err": cg["err"], "ms": cg["ms"], "plain_ms": cg["plain_ms"],
+            "bound_ms": cg["bound_ms"], "bound_by": cg["bound_by"],
+            "library_ms": cg["library_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

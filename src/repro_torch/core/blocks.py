@@ -233,3 +233,37 @@ def assemble_dense(
                 rows = np.stack([bucket.comps[i] for i in idxs])   # (n, b)
                 Theta[rows[:, :, None], rows[:, None, :]] = sols[idxs][:, :b, :b]
     return Theta
+
+
+def assemble_sparse(plan: Plan, bucket_solutions: list[np.ndarray], S):
+    """Assemble per-bucket solutions into a ``SparseTheta`` with no (p, p)
+    allocation: the bucket solution stacks become the result's block
+    storage as they are (no copy), and only the (p,) index maps and the
+    isolated closed-form diagonal are built on top.
+
+    The dense and sparse assemblers consume identical inputs, so
+    ``assemble_dense`` of the same ``bucket_solutions`` densifies to the
+    bitwise identical matrix."""
+    from repro_torch.core.sparse import SparseTheta, _build_index
+
+    stacks = [np.asarray(sols) for sols in bucket_solutions]
+    dtype = stacks[0].dtype if stacks else cov_dtype(S)
+    comps: list[np.ndarray] = []
+    loc: list[tuple[int, int]] = []
+    for s, bucket in enumerate(plan.buckets):
+        for r, comp in enumerate(bucket.comps):
+            comps.append(np.asarray(comp, dtype=np.int64))
+            loc.append((s, r))
+    isolated = np.asarray(plan.isolated, dtype=np.int64)
+    if isolated.size:
+        iso_vals = (
+            1.0 / (gather_diag(S, isolated) + plan.lam)
+        ).astype(dtype, copy=False)
+    else:
+        iso_vals = np.zeros(0, dtype=dtype)
+    comp_id, pos_in = _build_index(plan.p, comps, isolated)
+    Theta = SparseTheta(
+        plan.p, dtype, stacks, comps, loc, comp_id, pos_in, isolated, iso_vals
+    )
+    set_peak("result.bytes_peak", Theta.nbytes())
+    return Theta

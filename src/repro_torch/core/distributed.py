@@ -42,9 +42,19 @@ def pmax(x: torch.Tensor) -> torch.Tensor:
 
 
 def device_memory_budget_mb(device) -> float | None:
-    """Memory of ``device`` in MB, or None on the CPU, which reports none:
-    the planner's ``oversize_budget_mb="auto"`` hook."""
+    """The most device memory in MB that the caching allocator may hold on
+    ``device``, or None on the CPU, which reports none: the planner's
+    ``oversize_budget_mb="auto"`` hook.
+
+    The reference reads its allocator's ``bytes_limit``: what XLA's device
+    allocator may still hand out, not the card's total.  PyTorch's nearest
+    quantity is the memory the caching allocator can reach: the bytes
+    ``torch.cuda.mem_get_info`` reports free plus the bytes the allocator
+    already reserves, which it reuses without a new ``cudaMalloc``.
+    Other processes' memory and the CUDA context are not in it, as they are
+    not in ``bytes_limit``."""
     dev = torch.device(device)
     if dev.type != "cuda":
         return None
-    return float(torch.cuda.get_device_properties(dev).total_memory) / 2**20
+    free, _total = torch.cuda.mem_get_info(dev)
+    return float(free + torch.cuda.memory_reserved(dev)) / 2**20

@@ -41,7 +41,9 @@ def glasso(
     **engine_kwargs,
 ) -> GlassoResult:
     """Solve the graphical lasso at one lambda; returns a ``GlassoResult``
-    whose ``Theta`` is a dense (p, p) numpy array."""
+    whose ``Theta`` is a dense (p, p) numpy array, or a ``SparseTheta``
+    when ``options.output`` resolves to "sparse" (the default "auto" does
+    above ``AUTO_SPARSE_P`` = 8192)."""
     opts = normalize_options(options, engine_kwargs, warn=True, context="glasso")
     engine = Engine(options=opts)
     data = X if X is not None else (S if from_data else None)

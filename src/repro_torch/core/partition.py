@@ -29,20 +29,10 @@ def _sorted_edges(S: np.ndarray, *, lam_min: float | None = None):
     return iu[order], ju[order], w[order]
 
 
-def merge_profile(S: np.ndarray, *, max_edges: int | None = None) -> dict:
-    """Incremental-union merge profile.
-
-    One row per *distinct* edge value v (descending): ``value`` v,
-    ``n_components`` and ``max_comp`` of the graph with edges
-    {|S_ij| > lambda}, valid for lambda in [next smaller v, v).  Row 0 is
-    the all-isolated regime (value=+inf)."""
-    bump("partition.unionfind_passes")
-    S = np.asarray(S)
-    p = S.shape[0]
-    iu, ju, w = _sorted_edges(S)
-    if max_edges is not None:
-        iu, ju, w = iu[:max_edges], ju[:max_edges], w[:max_edges]
-
+def _profile(p: int, iu, ju, w, *, stop_above: int | None = None) -> dict:
+    """The merge profile of a pre-sorted edge list (iu, ju, w descending);
+    with ``stop_above`` it ends at the first row whose max_comp exceeds
+    that size."""
     parent = np.arange(p)
     size = np.ones(p, dtype=np.int64)
     values = [np.inf]
@@ -66,6 +56,8 @@ def merge_profile(S: np.ndarray, *, max_edges: int | None = None) -> dict:
         values.append(float(v))
         n_components.append(ncomp)
         max_comp.append(mx)
+        if stop_above is not None and mx > stop_above:
+            break
     return {
         "value": np.asarray(values),
         "n_components": np.asarray(n_components),
@@ -73,16 +65,67 @@ def merge_profile(S: np.ndarray, *, max_edges: int | None = None) -> dict:
     }
 
 
+def merge_profile(S: np.ndarray, *, max_edges: int | None = None) -> dict:
+    """Incremental-union merge profile.
+
+    One row per *distinct* edge value v (descending): ``value`` v,
+    ``n_components`` and ``max_comp`` of the graph with edges
+    {|S_ij| > lambda}, valid for lambda in [next smaller v, v).  Row 0 is
+    the all-isolated regime (value=+inf)."""
+    bump("partition.unionfind_passes")
+    S = np.asarray(S)
+    iu, ju, w = _sorted_edges(S)
+    if max_edges is not None:
+        iu, ju, w = iu[:max_edges], ju[:max_edges], w[:max_edges]
+    return _profile(S.shape[0], iu, ju, w)
+
+
+def _edges_above_floor(A: np.ndarray, k: int):
+    """The edges of the upper triangle ``A`` (|S| with the rest zeroed)
+    that lie strictly above its (k+1)-th largest value, sorted by
+    decreasing weight, and that value (the floor)."""
+    flat = A.reshape(-1)
+    at = flat.size - k - 1
+    floor = float(np.partition(flat, at)[at])
+    idx = np.flatnonzero(flat > floor)
+    w = flat[idx]
+    order = np.argsort(-w, kind="stable")
+    iu, ju = np.divmod(idx[order], A.shape[0])
+    return (iu, ju, w[order]), floor
+
+
 def lambda_for_max_component(S: np.ndarray, p_max: int) -> float:
     """Smallest lambda whose maximal thresholded component has size
     <= p_max (paper consequence 5): the largest edge value whose insertion
-    pushes max_comp beyond p_max (at lambda = v that edge is excluded)."""
-    prof = merge_profile(S)
-    vals, mx = prof["value"], prof["max_comp"]
-    bad = np.nonzero(mx > p_max)[0]
-    if bad.size == 0:
-        return 0.0
-    return float(vals[bad[0]])
+    pushes max_comp beyond p_max (at lambda = v that edge is excluded).
+
+    At large p the walk starts from the strongest edges: those above the
+    (k+1)-th largest |S_ij|, k from 16 p up by 4x.  Their profile is the
+    full profile's first rows, so once it exceeds p_max the answer is the
+    full profile's, exactly; only when no positive floor gets there is the
+    whole upper triangle walked."""
+    bump("partition.unionfind_passes")
+    S = np.asarray(S)
+    p = S.shape[0]
+    n_edges = p * (p - 1) // 2
+    k = 16 * p
+    if k < n_edges:
+        A = np.abs(S)
+        for i in range(p):  # keep the strict upper triangle, in place
+            A[i, : i + 1] = 0.0
+        while k < n_edges:
+            edges, floor = _edges_above_floor(A, k)
+            if floor <= 0.0:
+                break
+            prof = _profile(p, *edges, stop_above=p_max)
+            bad = np.nonzero(prof["max_comp"] > p_max)[0]
+            if bad.size:
+                return float(prof["value"][bad[0]])
+            k *= 4
+        del A
+    prof = _profile(p, *_sorted_edges(S), stop_above=p_max)
+    bad = np.nonzero(prof["max_comp"] > p_max)[0]
+    return float(prof["value"][bad[0]]) if bad.size else 0.0
 
 
 def labels_at_thresholds(S: np.ndarray, lambdas, *, edges=None) -> list[np.ndarray]:

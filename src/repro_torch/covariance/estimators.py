@@ -1,8 +1,9 @@
 """Sample covariance / correlation estimators in torch on the engine's
 device.
 
-Both take an (n, p) data matrix (numpy or a tensor) and return a (p, p)
-symmetric PSD tensor.  Accumulation is float32-or-wider whatever the input
+``sample_covariance``, ``sample_correlation`` and ``streaming_covariance``
+take an (n, p) data matrix (numpy or a tensor) and return a (p, p)
+symmetric PSD tensor; ``impute_missing`` mean-imputes the NaNs of one.  Accumulation is float32-or-wider whatever the input
 dtype: bf16/f16 inputs are upcast one row chunk at a time, so the
 full-precision copy of X never exists.  The reference computes these with
 plain matrix products outside any TPU kernel, so ``torch.matmul`` is their
@@ -69,3 +70,33 @@ def sample_correlation(X, *, ddof: int = 0, device=None) -> torch.Tensor:
     eye = torch.eye(S.shape[0], dtype=torch.bool, device=S.device)
     R = torch.where(eye, torch.ones((), dtype=R.dtype, device=R.device), R)
     return 0.5 * (R + R.T)
+
+
+def streaming_covariance(X, *, chunk: int = 4096, device=None) -> torch.Tensor:
+    """Covariance in one pass over row chunks of X, for n too large to
+    center at once: accumulate the Gram matrix and the column sums,
+    S = (X'X - n mu mu') / n, symmetrized.  bf16/f16 inputs accumulate in
+    float32, each chunk upcast on its own."""
+    X = _as_tensor(X, device)
+    n, p = X.shape
+    acc = torch.float32 if X.dtype in _LOW_PRECISION else X.dtype
+    gram = torch.zeros((p, p), dtype=acc, device=X.device)
+    ssum = torch.zeros(p, dtype=acc, device=X.device)
+    for r0 in range(0, n, chunk):
+        xc = X[r0 : r0 + chunk].to(acc)
+        gram += xc.T @ xc
+        ssum += xc.sum(dim=0)
+    mu = ssum / n
+    S = gram / n - torch.outer(mu, mu)
+    return 0.5 * (S + S.T)
+
+
+def impute_missing(X, *, device=None) -> torch.Tensor:
+    """Mean-impute NaNs per feature (paper Section 4.2: examples (B) and (C)
+    have few missing values, imputed by the mean of the observed
+    expressions); an all-NaN column becomes zeros."""
+    X = _as_tensor(X, device)
+    mask = torch.isnan(X)
+    cnt = torch.clamp((~mask).sum(dim=0), min=1)
+    mu = torch.where(mask, torch.zeros((), dtype=X.dtype, device=X.device), X).sum(dim=0) / cnt
+    return torch.where(mask, mu[None, :], X)

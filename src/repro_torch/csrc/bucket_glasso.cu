@@ -1,5 +1,6 @@
 // bucket_glasso: the whole BCD glasso solve of every lane of a (N, b, b)
-// float64 stack in one launch.
+// stack in one launch, with a float64 and a float32 instance of one template
+// body (every value, sum and threshold in the stack's own dtype).
 //
 // Replaces the TPU kernel src/repro/kernels/bucket_glasso/bucket_glasso.py
 // (`_make_kernel`, launched by `fused_bcd_pallas`), whose body is
@@ -11,7 +12,7 @@
 // Bound on the H100: neither bandwidth nor flops.  Inputs and outputs are
 // 4 (b, b) tiles per lane, read or written once; the flops are about
 // 2 b^2 per coordinate-descent sweep of one column plus 2 b^2 per column
-// matvec, far below the FP64 rate.  What bounds a lane is its serial chain:
+// matvec, far below the FP64 and FP32 rates.  What bounds a lane is its serial chain:
 // every coordinate update needs the dot product with the previous update's
 // result, so a lane runs sweeps x b x (cd sweeps) x b dependent steps, each
 // a length-b dot product and a reduction.
@@ -24,77 +25,88 @@
 // leaves its own sweep loop when it converges.  For b <= 84 (every
 // power-of-two bucket up to 64) the four (b, b) tiles S, W, B^T and W_old
 // live in shared memory with a row pitch of b + 1 (row-strided lane
-// accesses hit distinct banks); above that they live in per-lane device
-// scratch the wrapper allocates, and only the beta and result vectors stay
-// in shared memory.  B is kept transposed so beta_j is a contiguous row.
+// accesses hit distinct banks; float32 fits b <= 119); above that they live
+// in per-lane device scratch the wrapper allocates, and only the beta and
+// result vectors stay in shared memory.  B is kept transposed so beta_j is a
+// contiguous row.
 //
-// Scalar formulas round each product explicitly (__dmul_rn), as the plain
+// Scalar formulas round each product explicitly (mul_rn), as the plain
 // PyTorch version does; dot products and the reductions sum in another
 // order than the plain version, so results agree to rounding, not bitwise.
 
 #include <cuda_runtime.h>
 
+#include "precision.cuh"
+
 namespace {
+
+using namespace repro_torch;
 
 constexpr int kWarp = 32;
 // largest dynamic shared memory a block may opt in to on sm_90
 constexpr size_t kMaxSmem = 232448;
 
 // NaN-propagating max, as jnp.max / jnp.maximum
-__device__ __forceinline__ double pmax(double a, double b) {
+template <typename T>
+__device__ __forceinline__ T pmax(T a, T b) {
   return (b > a || b != b) ? b : a;
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
   for (int off = kWarp / 2; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-__device__ __forceinline__ double warp_max(double v) {
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
   for (int off = kWarp / 2; off > 0; off >>= 1)
     v = pmax(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
 // sign(x) * max(|x| - t, 0)
-__device__ __forceinline__ double soft(double x, double t) {
-  const double m = pmax(0.0, fabs(x) - t);
-  return x > 0.0 ? m : (x < 0.0 ? -m : 0.0 * m);
+template <typename T>
+__device__ __forceinline__ T soft(T x, T t) {
+  const T m = pmax(T(0), abs_t(x) - t);
+  return x > T(0) ? m : (x < T(0) ? -m : T(0) * m);
 }
 
+template <typename T>
 struct Lane {
-  const double* S;  // (b, b) input, pitch ld
-  double* W;        // covariance iterate, pitch ld
-  double* Bt;       // Bt[j, :] = beta of column j, pitch ld
-  double* Wold;     // W at the start of the sweep, pitch ld
-  double* beta;     // (b,) current column's coefficients
-  double* vec;      // (b,) matvec result / t22
+  const T* S;  // (b, b) input, pitch ld
+  T* W;        // covariance iterate, pitch ld
+  T* Bt;       // Bt[j, :] = beta of column j, pitch ld
+  T* Wold;     // W at the start of the sweep, pitch ld
+  T* beta;     // (b,) current column's coefficients
+  T* vec;      // (b,) matvec result / t22
   int b, ld, lane;
-  double lam, thr;
+  T lam, thr;
 };
 
 // Inner lasso (paper eq. (9)) on column j by cyclic coordinate descent,
 // starting from beta (beta[j] already 0): one sweep always, then more while
 // the sweep's largest update exceeds thr and fewer than n_cd ran.  Returns
 // the number of sweeps run.
-__device__ int lasso_cd(const Lane& L, int j, int n_cd) {
+template <typename T>
+__device__ int lasso_cd(const Lane<T>& L, int j, int n_cd) {
   const int b = L.b, ld = L.ld;
   int it = 0;
-  double delta;
+  T delta;
   do {
-    delta = 0.0;
+    delta = T(0);
     for (int k = 0; k < b; ++k) {
-      const double* wk = L.W + (size_t)k * ld;
-      double part = 0.0;
+      const T* wk = L.W + (size_t)k * ld;
+      T part = T(0);
       for (int m = L.lane; m < b; m += kWarp) part += wk[m] * L.beta[m];
-      const double dot = warp_sum(part);
-      const double bk = L.beta[k];
-      const double wkk = wk[k];
-      const double s12k = k == j ? 0.0 : L.S[(size_t)k * ld + j];
-      const double r = s12k - (dot - __dmul_rn(wkk, bk));
-      const double nw = k == j ? 0.0 : soft(r, L.lam) / wkk;
-      delta = pmax(delta, fabs(nw - bk));
+      const T dot = warp_sum(part);
+      const T bk = L.beta[k];
+      const T wkk = wk[k];
+      const T s12k = k == j ? T(0) : L.S[(size_t)k * ld + j];
+      const T r = s12k - (dot - mul_rn(wkk, bk));
+      const T nw = k == j ? T(0) : soft(r, L.lam) / wkk;
+      delta = pmax(delta, abs_t(nw - bk));
       __syncwarp();
       if (L.lane == 0) L.beta[k] = nw;
       __syncwarp();
@@ -106,27 +118,28 @@ __device__ int lasso_cd(const Lane& L, int j, int n_cd) {
 
 // One outer sweep over every column (Gauss-Seidel); returns max |W - W_old|
 // and adds the inner sweeps it ran to cd_total.
-__device__ double sweep(const Lane& L, int n_cd, bool node_screen,
-                        long long& cd_total) {
+template <typename T>
+__device__ T sweep(const Lane<T>& L, int n_cd, bool node_screen,
+                   long long& cd_total) {
   const int b = L.b, ld = L.ld, lane = L.lane;
   for (int i = 0; i < b; ++i)
     for (int m = lane; m < b; m += kWarp)
       L.Wold[(size_t)i * ld + m] = L.W[(size_t)i * ld + m];
   for (int j = 0; j < b; ++j) {
     // eq. (10) node screen: max_k!=j |S_kj| <= lam  =>  beta_j = 0
-    double mx = 0.0;
+    T mx = T(0);
     for (int k = lane; k < b; k += kWarp)
-      if (k != j) mx = pmax(mx, fabs(L.S[(size_t)k * ld + j]));
+      if (k != j) mx = pmax(mx, abs_t(L.S[(size_t)k * ld + j]));
     mx = warp_max(mx);
     const bool screened = node_screen && mx <= L.lam;
     for (int k = lane; k < b; k += kWarp)
-      L.beta[k] = (screened || k == j) ? 0.0 : L.Bt[(size_t)j * ld + k];
+      L.beta[k] = (screened || k == j) ? T(0) : L.Bt[(size_t)j * ld + k];
     __syncwarp();
     if (!screened) cd_total += lasso_cd(L, j, n_cd);
     // w12 = W beta with the W from before column j's update, one row a lane
     for (int i = lane; i < b; i += kWarp) {
-      const double* wi = L.W + (size_t)i * ld;
-      double acc = 0.0;
+      const T* wi = L.W + (size_t)i * ld;
+      T acc = T(0);
       for (int m = 0; m < b; ++m) acc += wi[m] * L.beta[m];
       L.vec[i] = acc;
     }
@@ -140,38 +153,40 @@ __device__ double sweep(const Lane& L, int n_cd, bool node_screen,
     }
     __syncwarp();
   }
-  double delta = 0.0;
+  T delta = T(0);
   for (int i = 0; i < b; ++i)
     for (int m = lane; m < b; m += kWarp)
-      delta = pmax(delta, fabs(L.W[(size_t)i * ld + m] -
-                               L.Wold[(size_t)i * ld + m]));
+      delta = pmax(delta, abs_t(L.W[(size_t)i * ld + m] -
+                                L.Wold[(size_t)i * ld + m]));
   return warp_max(delta);
 }
 
+template <typename T>
 __global__ void bucket_glasso_kernel(
-    const double* __restrict__ S_in, const double* __restrict__ lam_in,
-    const double* __restrict__ scale_in, const double* __restrict__ W0,
-    const double* __restrict__ T0, double* __restrict__ theta,
+    const T* __restrict__ S_in, const T* __restrict__ lam_in,
+    const T* __restrict__ scale_in, const T* __restrict__ W0,
+    const T* __restrict__ T0, T* __restrict__ theta,
     int* __restrict__ sweeps_out, long long* __restrict__ cd_out,
-    double* __restrict__ scratch, int b,
+    T* __restrict__ scratch, int b,
     int max_sweeps, int n_cd, double tol, int node_screen, int use_smem) {
-  extern __shared__ double smem[];
+  T* smem = dynamic_smem<T>();
   const int n = blockIdx.x;
   const int lane = threadIdx.x;
   const size_t bb = (size_t)b * b;
-  const double* Sg = S_in + n * bb;
-  const double* W0g = W0 + n * bb;
-  const double* T0g = T0 + n * bb;
+  const T* Sg = S_in + n * bb;
+  const T* W0g = W0 + n * bb;
+  const T* T0g = T0 + n * bb;
 
-  Lane L;
+  Lane<T> L;
   L.b = b;
   L.lane = lane;
   L.lam = lam_in[n];
-  L.thr = tol * scale_in[n];
+  // tol * scale in the stack's dtype, as the plain version computes it
+  L.thr = T(tol) * scale_in[n];
   if (use_smem) {
     L.ld = b + 1;
     const size_t tile = (size_t)b * L.ld;
-    double* S_s = smem;
+    T* S_s = smem;
     L.W = S_s + tile;
     L.Bt = L.W + tile;
     L.Wold = L.Bt + tile;
@@ -197,10 +212,10 @@ __global__ void bucket_glasso_kernel(
     const int i = (int)(e / b), j = (int)(e % b);
     if (i == j) {
       L.W[(size_t)i * ld + i] = Sg[e] + L.lam;
-      L.Bt[(size_t)i * ld + i] = 0.0;
+      L.Bt[(size_t)i * ld + i] = T(0);
     } else {
-      double dj = T0g[(size_t)j * b + j];
-      dj = dj > 0.0 ? dj : 1.0;
+      T dj = T0g[(size_t)j * b + j];
+      dj = dj > T(0) ? dj : T(1);
       L.W[(size_t)i * ld + j] = W0g[e];
       L.Bt[(size_t)j * ld + i] = -(T0g[e] / dj);
     }
@@ -209,7 +224,7 @@ __global__ void bucket_glasso_kernel(
 
   int it = 0;
   long long cd_total = 0;
-  double delta;
+  T delta;
   do {
     delta = sweep(L, n_cd, node_screen != 0, cd_total);
     ++it;
@@ -217,24 +232,24 @@ __global__ void bucket_glasso_kernel(
 
   // Theta column j: t22 = 1 / (W_jj - w12 . beta_j), col = -beta_j t22
   for (int j = 0; j < b; ++j) {
-    double part = 0.0;
+    T part = T(0);
     for (int m = lane; m < b; m += kWarp)
       if (m != j) part += L.W[(size_t)m * ld + j] * L.Bt[(size_t)j * ld + m];
-    const double dot = warp_sum(part);
-    if (lane == 0) L.vec[j] = 1.0 / (L.W[(size_t)j * ld + j] - dot);
+    const T dot = warp_sum(part);
+    if (lane == 0) L.vec[j] = T(1) / (L.W[(size_t)j * ld + j] - dot);
   }
   __syncwarp();
-  double* out = theta + n * bb;
+  T* out = theta + n * bb;
   for (size_t e = lane; e < bb; e += kWarp) {
     const int i = (int)(e / b), j = (int)(e % b);
-    double tij, tji;
+    T tij, tji;
     if (i == j) {
       tij = tji = L.vec[i];
     } else {
-      tij = __dmul_rn(-L.Bt[(size_t)j * ld + i], L.vec[j]);
-      tji = __dmul_rn(-L.Bt[(size_t)i * ld + j], L.vec[i]);
+      tij = mul_rn(-L.Bt[(size_t)j * ld + i], L.vec[j]);
+      tji = mul_rn(-L.Bt[(size_t)i * ld + j], L.vec[i]);
     }
-    out[e] = 0.5 * (tij + tji);
+    out[e] = T(0.5) * (tij + tji);
   }
   if (lane == 0) {
     sweeps_out[n] = it;
@@ -242,36 +257,64 @@ __global__ void bucket_glasso_kernel(
   }
 }
 
-}  // namespace
-
-// Shared-memory bytes of one lane, or 0 when its tiles go to device scratch.
-extern "C" size_t bucket_glasso_smem_bytes(int b) {
-  const size_t tiles = sizeof(double) * (4 * (size_t)b * (b + 1) + 2 * (size_t)b);
+size_t smem_bytes(int b, size_t itemsize) {
+  const size_t tiles = itemsize * (4 * (size_t)b * (b + 1) + 2 * (size_t)b);
   return tiles <= kMaxSmem ? tiles : 0;
 }
 
-// scratch: 3 N b^2 doubles, used only when bucket_glasso_smem_bytes(b) == 0.
-// cd_sweeps: null, or (N,) int64 receiving each lane's count of inner sweeps.
-extern "C" int bucket_glasso_launch(const void* S, const void* lam,
-                                    const void* scale, const void* W0,
-                                    const void* T0, void* theta, void* sweeps,
-                                    void* cd_sweeps, void* scratch, int N, int b,
-                                    int max_sweeps, int n_cd, double tol,
-                                    int node_screen, void* stream) {
+template <typename T>
+int launch(const void* S, const void* lam, const void* scale, const void* W0,
+           const void* T0, void* theta, void* sweeps, void* cd_sweeps,
+           void* scratch, int N, int b, int max_sweeps, int n_cd, double tol,
+           int node_screen, void* stream) {
   if (N <= 0 || b <= 0) return 0;
-  size_t smem = bucket_glasso_smem_bytes(b);
+  size_t smem = smem_bytes(b, sizeof(T));
   const int use_smem = smem > 0;
-  if (!use_smem) smem = sizeof(double) * 2 * (size_t)b;
+  if (!use_smem) smem = sizeof(T) * 2 * (size_t)b;
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        bucket_glasso_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bucket_glasso_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bucket_glasso_kernel<<<N, kWarp, smem, (cudaStream_t)stream>>>(
-      (const double*)S, (const double*)lam, (const double*)scale,
-      (const double*)W0, (const double*)T0, (double*)theta, (int*)sweeps,
-      (long long*)cd_sweeps, (double*)scratch, b, max_sweeps, n_cd, tol, node_screen, use_smem);
+  bucket_glasso_kernel<T><<<N, kWarp, smem, (cudaStream_t)stream>>>(
+      (const T*)S, (const T*)lam, (const T*)scale, (const T*)W0,
+      (const T*)T0, (T*)theta, (int*)sweeps, (long long*)cd_sweeps,
+      (T*)scratch, b, max_sweeps, n_cd, tol, node_screen, use_smem);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared-memory bytes of one lane of `itemsize`-byte values, or 0 when its
+// tiles go to device scratch.
+extern "C" size_t bucket_glasso_smem_bytes(int b, int itemsize) {
+  return smem_bytes(b, (size_t)itemsize);
+}
+
+// scratch: 3 N b^2 values, used only when bucket_glasso_smem_bytes is 0.
+// cd_sweeps: null, or (N,) int64 receiving each lane's count of inner sweeps.
+extern "C" int bucket_glasso_launch_f64(const void* S, const void* lam,
+                                        const void* scale, const void* W0,
+                                        const void* T0, void* theta,
+                                        void* sweeps, void* cd_sweeps,
+                                        void* scratch, int N, int b,
+                                        int max_sweeps, int n_cd, double tol,
+                                        int node_screen, void* stream) {
+  return launch<double>(S, lam, scale, W0, T0, theta, sweeps, cd_sweeps,
+                        scratch, N, b, max_sweeps, n_cd, tol, node_screen,
+                        stream);
+}
+
+extern "C" int bucket_glasso_launch_f32(const void* S, const void* lam,
+                                        const void* scale, const void* W0,
+                                        const void* T0, void* theta,
+                                        void* sweeps, void* cd_sweeps,
+                                        void* scratch, int N, int b,
+                                        int max_sweeps, int n_cd, double tol,
+                                        int node_screen, void* stream) {
+  return launch<float>(S, lam, scale, W0, T0, theta, sweeps, cd_sweeps,
+                       scratch, N, b, max_sweeps, n_cd, tol, node_screen,
+                       stream);
 }

@@ -1,5 +1,6 @@
 // joint_prox: the fused K-way prox step of the joint multi-class ADMM over a
-// bucket of lanes, float64.
+// bucket of lanes, with a float64 and a float32 instance of one template
+// body (every value and sum in the operands' dtype).
 //
 // Replaces the TPU kernel src/repro/kernels/joint_prox/joint_prox.py
 // (`_kernel`, launched by `joint_prox_pallas`), which handled one (K, b, b)
@@ -18,58 +19,84 @@
 // prefix sums, segment means num / length and the minimax isotonic fit
 // y_r = max_{j<=r} min_{l>=r} mean(b_j..b_l), gathered back by rank.  Every
 // product that the plain version rounds before an add is an explicitly
-// rounded __dmul_rn here, so nothing contracts into a fused multiply-add.
+// rounded mul_rn here, so nothing contracts into a fused multiply-add.
 //
 // Bound on the H100: memory.  The work is O(K^2) flops per entry for
-// K <= 16, so the least time is one read of theta, u, z_old and one write
-// of z_new, u_new: 40 n K b^2 bytes at 3.35 TB/s.  Design: one thread per
-// (lane, i, j) entry holds its K class values in registers (K is a template
-// parameter, 1..16, so every per-class loop unrolls and no array index is
-// dynamic); a block covers 256 consecutive entries of one lane, so each
-// class plane is read and written coalesced along j.  Both residual
-// partials are reduced per block with warp shuffles and shared memory into a
-// per-(lane, block) buffer, and a second kernel sums each lane's partials in
-// a fixed order: no atomics, so the sums, which decide convergence, are
-// the same from run to run.
+// moderate K, so the least time is one read of theta, u, z_old and one write
+// of z_new, u_new: 5 n K b^2 itemsize bytes at 3.35 TB/s.
+//
+// Two shapes.  The register shape (K <= 16): one thread per (lane, i, j)
+// entry holds its K class values in registers (K is a template parameter,
+// 1..16, so every per-class loop unrolls and no array index is dynamic); a
+// block covers 256 consecutive entries of one lane, so each class plane is
+// read and written coalesced along j.  The shared-memory shape (any K, the
+// wrapper picks it above 16): K is a runtime value, and each thread keeps
+// its entry's class values, order statistics and prefix sums in shared
+// memory, laid out slot-major ([slot][thread]) so a warp's accesses to one
+// slot hit consecutive banks; a block covers 64 entries.  When even that
+// does not fit a block's shared memory (K above 113 in float64, 226 in
+// float32), the same layout lives in a per-block region of device scratch
+// the wrapper allocates.  Both shapes run the same per-entry arithmetic in
+// the same order, so their z_new and u_new agree bit for bit; only the
+// residual sums group differently.  Both residual partials are reduced per
+// block with warp shuffles and shared memory into a per-(lane, block)
+// buffer, and a second kernel sums each lane's partials in a fixed order: no
+// atomics, so the sums, which decide convergence, are the same from run to
+// run.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "precision.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxClasses = 16;
+using namespace repro_torch;
 
-__device__ __forceinline__ double soft(double x, double t) {
-  double m = fabs(x) - t;
-  m = m > 0.0 ? m : 0.0;
-  return x > 0.0 ? m : (x < 0.0 ? -m : 0.0);
+constexpr int kThreads = 256;      // register shape: entries per block
+constexpr int kSmemThreads = 64;   // shared-memory shape: entries per block
+constexpr int kMaxClasses = 16;    // register shape: largest K
+// largest dynamic shared memory a block may opt in to on sm_90
+constexpr size_t kMaxSmem = 232448;
+
+template <typename T>
+__device__ __forceinline__ T inf_t();
+template <>
+__device__ __forceinline__ double inf_t<double>() { return CUDART_INF; }
+template <>
+__device__ __forceinline__ float inf_t<float>() { return CUDART_INF_F; }
+
+template <typename T>
+__device__ __forceinline__ T soft(T x, T t) {
+  T m = abs_t(x) - t;
+  m = m > T(0) ? m : T(0);
+  return x > T(0) ? m : (x < T(0) ? -m : T(0));
 }
 
 // z = prox of t1*l1 + t2*l2 over the class vector a
-template <int K>
-__device__ __forceinline__ void group_prox(const double (&a)[K], double t1,
-                                           double t2, double (&z)[K]) {
-  double ss = 0.0;
+template <typename T, int K>
+__device__ __forceinline__ void group_prox(const T (&a)[K], T t1, T t2,
+                                           T (&z)[K]) {
+  T ss = T(0);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     z[k] = soft(a[k], t1);
-    ss = __dadd_rn(ss, __dmul_rn(z[k], z[k]));
+    ss = add_rn(ss, mul_rn(z[k], z[k]));
   }
-  const double nrm = sqrt(ss);
-  double scale = 0.0;
-  if (nrm > 0.0) {
-    scale = 1.0 - t2 / nrm;
-    scale = scale > 0.0 ? scale : 0.0;
+  const T nrm = sqrt_t(ss);
+  T scale = T(0);
+  if (nrm > T(0)) {
+    scale = T(1) - t2 / nrm;
+    scale = scale > T(0) ? scale : T(0);
   }
 #pragma unroll
   for (int k = 0; k < K; ++k) z[k] = z[k] * scale;
 }
 
 // z = soft(prox of t2 * TV_complete, t1) over the class vector a
-template <int K>
-__device__ __forceinline__ void fused_prox(const double (&a)[K], double t1,
-                                           double t2, double (&z)[K]) {
+template <typename T, int K>
+__device__ __forceinline__ void fused_prox(const T (&a)[K], T t1, T t2,
+                                           T (&z)[K]) {
   if (K == 1) {
     z[0] = soft(a[0], t1);
     return;
@@ -85,28 +112,28 @@ __device__ __forceinline__ void fused_prox(const double (&a)[K], double t1,
     rank[k] = r;
   }
   // s[r] = a_(r) - t2 (2r - K + 1): the order statistics, shifted
-  double s[K];
+  T s[K];
 #pragma unroll
   for (int r = 0; r < K; ++r) {
-    double v = 0.0;
+    T v = T(0);
 #pragma unroll
     for (int k = 0; k < K; ++k) v = rank[k] == r ? a[k] : v;
-    s[r] = v - __dmul_rn(t2, (double)(2 * r - (K - 1)));
+    s[r] = v - mul_rn(t2, (T)(2 * r - (K - 1)));
   }
-  double prefix[K + 1];
-  prefix[0] = 0.0;
+  T prefix[K + 1];
+  prefix[0] = T(0);
 #pragma unroll
   for (int r = 0; r < K; ++r) prefix[r + 1] = prefix[r] + s[r];
   // isotonic fit: y_r = max_{j<=r} min_{l>=r} (P[l+1] - P[j]) / (l - j + 1);
   // for each j, a running min over l from the top serves every r >= j
 #pragma unroll
-  for (int r = 0; r < K; ++r) s[r] = -CUDART_INF;
+  for (int r = 0; r < K; ++r) s[r] = -inf_t<T>();
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    double run = CUDART_INF;
+    T run = inf_t<T>();
 #pragma unroll
     for (int r = K - 1; r >= j; --r) {
-      const double m = (prefix[r + 1] - prefix[j]) / (double)(r - j + 1);
+      const T m = (prefix[r + 1] - prefix[j]) / (T)(r - j + 1);
       run = m < run ? m : run;
       s[r] = run > s[r] ? run : s[r];
     }
@@ -114,59 +141,22 @@ __device__ __forceinline__ void fused_prox(const double (&a)[K], double t1,
   // gather back by rank, then the l1 piece
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    double y = 0.0;
+    T y = T(0);
 #pragma unroll
     for (int r = 0; r < K; ++r) y = rank[k] == r ? s[r] : y;
     z[k] = soft(y, t1);
   }
 }
 
-template <int K, bool kFused>
-__global__ void __launch_bounds__(kThreads)
-    joint_prox_kernel(const double* __restrict__ theta,
-                      const double* __restrict__ u,
-                      const double* __restrict__ z_old,
-                      const double* __restrict__ t,
-                      double* __restrict__ z_new, double* __restrict__ u_new,
-                      double* __restrict__ partial, int b, int tiles) {
-  const int lane = blockIdx.x / tiles;
-  const int tile = blockIdx.x - lane * tiles;
-  const long long bb = (long long)b * b;
-  const long long e = (long long)tile * kThreads + threadIdx.x;
-  double rp = 0.0, rd = 0.0;
-  if (e < bb) {
-    const double t1 = t[2 * lane];
-    const double t2 = t[2 * lane + 1];
-    const long long base = (long long)lane * K * bb + e;
-    double a[K], z[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) a[k] = theta[base + k * bb] + u[base + k * bb];
-    const long long i = e / b;
-    if (i == e - i * b) {  // diagonal: the l1 piece only
-#pragma unroll
-      for (int k = 0; k < K; ++k) z[k] = soft(a[k], t1);
-    } else if (kFused) {
-      fused_prox<K>(a, t1, t2, z);
-    } else {
-      group_prox<K>(a, t1, t2, z);
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const long long at = base + k * bb;
-      z_new[at] = z[k];
-      u_new[at] = a[k] - z[k];
-      const double dp = theta[at] - z[k];
-      const double dd = z[k] - z_old[at];
-      rp = __dadd_rn(rp, __dmul_rn(dp, dp));
-      rd = __dadd_rn(rd, __dmul_rn(dd, dd));
-    }
-  }
-  // block partials: shuffles within each warp, then the warps in order
+// a block's two partial sums, warps in order, into partial[blockIdx.x]
+template <typename T, int NT>
+__device__ __forceinline__ void block_partials(T rp, T rd,
+                                               T* __restrict__ partial) {
   for (int off = 16; off > 0; off >>= 1) {
     rp += __shfl_down_sync(0xffffffffu, rp, off);
     rd += __shfl_down_sync(0xffffffffu, rd, off);
   }
-  __shared__ double warp_sums[kThreads / 32][2];
+  __shared__ T warp_sums[NT / 32][2];
   const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) {
     warp_sums[warp][0] = rp;
@@ -174,8 +164,8 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    double p = 0.0, d = 0.0;
-    for (int w = 0; w < kThreads / 32; ++w) {
+    T p = T(0), d = T(0);
+    for (int w = 0; w < NT / 32; ++w) {
       p += warp_sums[w][0];
       d += warp_sums[w][1];
     }
@@ -184,14 +174,153 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T, int K, bool kFused>
+__global__ void __launch_bounds__(kThreads)
+    joint_prox_kernel(const T* __restrict__ theta, const T* __restrict__ u,
+                      const T* __restrict__ z_old, const T* __restrict__ t,
+                      T* __restrict__ z_new, T* __restrict__ u_new,
+                      T* __restrict__ partial, int b, int tiles) {
+  const int lane = blockIdx.x / tiles;
+  const int tile = blockIdx.x - lane * tiles;
+  const long long bb = (long long)b * b;
+  const long long e = (long long)tile * kThreads + threadIdx.x;
+  T rp = T(0), rd = T(0);
+  if (e < bb) {
+    const T t1 = t[2 * lane];
+    const T t2 = t[2 * lane + 1];
+    const long long base = (long long)lane * K * bb + e;
+    T a[K], z[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) a[k] = theta[base + k * bb] + u[base + k * bb];
+    const long long i = e / b;
+    if (i == e - i * b) {  // diagonal: the l1 piece only
+#pragma unroll
+      for (int k = 0; k < K; ++k) z[k] = soft(a[k], t1);
+    } else if (kFused) {
+      fused_prox<T, K>(a, t1, t2, z);
+    } else {
+      group_prox<T, K>(a, t1, t2, z);
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const long long at = base + k * bb;
+      z_new[at] = z[k];
+      u_new[at] = a[k] - z[k];
+      const T dp = theta[at] - z[k];
+      const T dd = z[k] - z_old[at];
+      rp = add_rn(rp, mul_rn(dp, dp));
+      rd = add_rn(rd, mul_rn(dd, dd));
+    }
+  }
+  block_partials<T, kThreads>(rp, rd, partial);
+}
+
+// values a thread of the shared-memory shape keeps: a[K], s[K] (the order
+// statistics, then the isotonic fit), prefix[K + 1] and rank[K]
+__host__ __device__ __forceinline__ long long work_slots(int K) {
+  return 4LL * K + 1;
+}
+
+// The shared-memory shape: the arithmetic of joint_prox_kernel with K a
+// runtime value and the per-entry arrays in `work` (slot-major).
+template <typename T, bool kFused>
+__global__ void __launch_bounds__(kSmemThreads)
+    joint_prox_smem_kernel(const T* __restrict__ theta,
+                           const T* __restrict__ u,
+                           const T* __restrict__ z_old,
+                           const T* __restrict__ t, T* __restrict__ z_new,
+                           T* __restrict__ u_new, T* __restrict__ partial,
+                           T* __restrict__ scratch, int K, int b, int tiles,
+                           int use_smem) {
+  constexpr int nt = kSmemThreads;
+  T* work = use_smem ? dynamic_smem<T>()
+                     : scratch + (long long)blockIdx.x * nt * work_slots(K);
+  const int tid = threadIdx.x;
+  T* a = work + tid;                     // a[k]      = a[k * nt]
+  T* s = a + (long long)K * nt;          // s[r]      = s[r * nt]
+  T* prefix = s + (long long)K * nt;     // prefix[r] = prefix[r * nt]
+  T* rank = prefix + (long long)(K + 1) * nt;  // integer ranks, exact in T
+  const int lane = blockIdx.x / tiles;
+  const int tile = blockIdx.x - lane * tiles;
+  const long long bb = (long long)b * b;
+  const long long e = (long long)tile * nt + tid;
+  T rp = T(0), rd = T(0);
+  if (e < bb) {
+    const T t1 = t[2 * lane];
+    const T t2 = t[2 * lane + 1];
+    const long long base = (long long)lane * K * bb + e;
+    for (int k = 0; k < K; ++k)
+      a[k * nt] = theta[base + k * bb] + u[base + k * bb];
+    const long long i = e / b;
+    const bool diag = i == e - i * b;
+    T scale = T(0);
+    if (diag || K == 1) {
+      // the l1 piece only (K == 1: the fused prox is the identity first)
+    } else if (kFused) {
+      for (int k = 0; k < K; ++k) {
+        const T ak = a[k * nt];
+        int r = 0;
+        for (int q = 0; q < K; ++q) {
+          const T aq = a[q * nt];
+          r += (aq < ak) || (aq == ak && q < k);
+        }
+        rank[k * nt] = (T)r;
+        s[r * nt] = ak - mul_rn(t2, (T)(2 * r - (K - 1)));
+      }
+      prefix[0] = T(0);
+      for (int r = 0; r < K; ++r)
+        prefix[(r + 1) * nt] = prefix[r * nt] + s[r * nt];
+      for (int r = 0; r < K; ++r) s[r * nt] = -inf_t<T>();
+      for (int j = 0; j < K; ++j) {
+        T run = inf_t<T>();
+        const T pj = prefix[j * nt];
+        for (int r = K - 1; r >= j; --r) {
+          const T m = (prefix[(r + 1) * nt] - pj) / (T)(r - j + 1);
+          run = m < run ? m : run;
+          s[r * nt] = run > s[r * nt] ? run : s[r * nt];
+        }
+      }
+    } else {
+      T ss = T(0);
+      for (int k = 0; k < K; ++k) {
+        const T v = soft(a[k * nt], t1);
+        ss = add_rn(ss, mul_rn(v, v));
+      }
+      const T nrm = sqrt_t(ss);
+      if (nrm > T(0)) {
+        scale = T(1) - t2 / nrm;
+        scale = scale > T(0) ? scale : T(0);
+      }
+    }
+    for (int k = 0; k < K; ++k) {
+      const T ak = a[k * nt];
+      T z;
+      if (diag || K == 1)
+        z = soft(ak, t1);
+      else if (kFused)
+        z = soft(s[(int)rank[k * nt] * nt], t1);
+      else
+        z = soft(ak, t1) * scale;
+      const long long at = base + k * bb;
+      z_new[at] = z;
+      u_new[at] = ak - z;
+      const T dp = theta[at] - z;
+      const T dd = z - z_old[at];
+      rp = add_rn(rp, mul_rn(dp, dp));
+      rd = add_rn(rd, mul_rn(dd, dd));
+    }
+  }
+  block_partials<T, nt>(rp, rd, partial);
+}
+
 // acc[lane] = [rp2, rd2]: each lane's block partials summed in block order
-__global__ void joint_prox_sum_kernel(const double* __restrict__ partial,
-                                      double* __restrict__ acc, int n,
-                                      int tiles) {
+template <typename T>
+__global__ void joint_prox_sum_kernel(const T* __restrict__ partial,
+                                      T* __restrict__ acc, int n, int tiles) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  const double* pl = partial + 2 * (long long)lane * tiles;
-  double p = 0.0, d = 0.0;
+  const T* pl = partial + 2 * (long long)lane * tiles;
+  T p = T(0), d = T(0);
   for (int k = 0; k < tiles; ++k) {
     p += pl[2 * k];
     d += pl[2 * k + 1];
@@ -200,68 +329,125 @@ __global__ void joint_prox_sum_kernel(const double* __restrict__ partial,
   acc[2 * lane + 1] = d;
 }
 
-template <int K>
-void launch_k(bool fused, unsigned grid, cudaStream_t stream,
-              const double* theta, const double* u, const double* z_old,
-              const double* t, double* z_new, double* u_new, double* partial,
-              int b, int tiles) {
+template <typename T, int K>
+void launch_k(bool fused, unsigned grid, cudaStream_t stream, const T* theta,
+              const T* u, const T* z_old, const T* t, T* z_new, T* u_new,
+              T* partial, int b, int tiles) {
   if (fused)
-    joint_prox_kernel<K, true><<<grid, kThreads, 0, stream>>>(
+    joint_prox_kernel<T, K, true><<<grid, kThreads, 0, stream>>>(
         theta, u, z_old, t, z_new, u_new, partial, b, tiles);
   else
-    joint_prox_kernel<K, false><<<grid, kThreads, 0, stream>>>(
+    joint_prox_kernel<T, K, false><<<grid, kThreads, 0, stream>>>(
         theta, u, z_old, t, z_new, u_new, partial, b, tiles);
 }
 
-int tiles_for(int b) {
+int tiles_for(int b, int per_block) {
   const long long bb = (long long)b * b;
-  return (int)((bb + kThreads - 1) / kThreads);
+  return (int)((bb + per_block - 1) / per_block);
+}
+
+size_t smem_bytes(int K, size_t itemsize) {
+  return itemsize * (size_t)kSmemThreads * (size_t)work_slots(K);
+}
+
+// scratch values: the (n, tiles, 2) partials, then, for the shared-memory
+// shape whose work arrays do not fit shared memory, one work region a block
+long long scratch_values(int n, int K, int b, int smem_shape, size_t itemsize) {
+  if (!smem_shape) return 2LL * n * tiles_for(b, kThreads);
+  const long long tiles = tiles_for(b, kSmemThreads);
+  long long v = 2LL * n * tiles;
+  if (smem_bytes(K, itemsize) > kMaxSmem)
+    v += (long long)n * tiles * kSmemThreads * work_slots(K);
+  return v;
+}
+
+template <typename T>
+int launch(const void* theta, const void* u, const void* z_old, const void* t,
+           void* z_new, void* u_new, void* scratch, void* acc, int n, int K,
+           int b, int fused, int smem_shape, void* stream) {
+  if (n <= 0 || b <= 0 || K <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const T* th = (const T*)theta;
+  const T* uu = (const T*)u;
+  const T* zo = (const T*)z_old;
+  const T* tt = (const T*)t;
+  T* zn = (T*)z_new;
+  T* un = (T*)u_new;
+  T* pt = (T*)scratch;
+  const bool f = fused != 0;
+  int tiles;
+  if (smem_shape) {
+    tiles = tiles_for(b, kSmemThreads);
+    const long long grid = (long long)n * tiles;
+    if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
+    size_t smem = smem_bytes(K, sizeof(T));
+    const int use_smem = smem <= kMaxSmem;
+    if (!use_smem) smem = 0;
+    T* work = pt + 2LL * n * tiles;
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          f ? joint_prox_smem_kernel<T, true> : joint_prox_smem_kernel<T, false>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    if (f)
+      joint_prox_smem_kernel<T, true><<<(unsigned)grid, kSmemThreads, smem, s>>>(
+          th, uu, zo, tt, zn, un, pt, work, K, b, tiles, use_smem);
+    else
+      joint_prox_smem_kernel<T, false><<<(unsigned)grid, kSmemThreads, smem, s>>>(
+          th, uu, zo, tt, zn, un, pt, work, K, b, tiles, use_smem);
+  } else {
+    if (K > kMaxClasses) return (int)cudaErrorInvalidValue;
+    tiles = tiles_for(b, kThreads);
+    const long long grid = (long long)n * tiles;
+    if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
+    const unsigned g = (unsigned)grid;
+    switch (K) {
+#define JOINT_PROX_CASE(KK) \
+  case KK:                  \
+    launch_k<T, KK>(f, g, s, th, uu, zo, tt, zn, un, pt, b, tiles); \
+    break;
+      JOINT_PROX_CASE(1) JOINT_PROX_CASE(2) JOINT_PROX_CASE(3)
+      JOINT_PROX_CASE(4) JOINT_PROX_CASE(5) JOINT_PROX_CASE(6)
+      JOINT_PROX_CASE(7) JOINT_PROX_CASE(8) JOINT_PROX_CASE(9)
+      JOINT_PROX_CASE(10) JOINT_PROX_CASE(11) JOINT_PROX_CASE(12)
+      JOINT_PROX_CASE(13) JOINT_PROX_CASE(14) JOINT_PROX_CASE(15)
+      JOINT_PROX_CASE(16)
+#undef JOINT_PROX_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  joint_prox_sum_kernel<T><<<(n + 127) / 128, 128, 0, s>>>(pt, (T*)acc, n,
+                                                           tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// doubles of scratch the launcher needs for n lanes of (b, b)
-extern "C" long long joint_prox_scratch_doubles(int n, int b) {
-  return 2LL * n * tiles_for(b);
+// values of scratch (of the operands' dtype) the launcher needs for n lanes
+// of (K, b, b) in the register (smem_shape 0) or shared-memory shape
+extern "C" long long joint_prox_scratch_values(int n, int K, int b,
+                                               int smem_shape, int itemsize) {
+  return scratch_values(n, K, b, smem_shape, (size_t)itemsize);
 }
 
-extern "C" int joint_prox_launch(const void* theta, const void* u,
-                                 const void* z_old, const void* t, void* z_new,
-                                 void* u_new, void* partial, void* acc, int n,
-                                 int K, int b, int fused, void* stream) {
-  if (n <= 0 || b <= 0) return 0;
-  if (K < 1 || K > kMaxClasses) return (int)cudaErrorInvalidValue;
-  const int tiles = tiles_for(b);
-  const long long grid = (long long)n * tiles;
-  if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const double* th = (const double*)theta;
-  const double* uu = (const double*)u;
-  const double* zo = (const double*)z_old;
-  const double* tt = (const double*)t;
-  double* zn = (double*)z_new;
-  double* un = (double*)u_new;
-  double* pt = (double*)partial;
-  const bool f = fused != 0;
-  const unsigned g = (unsigned)grid;
-  switch (K) {
-#define JOINT_PROX_CASE(KK) \
-  case KK:                  \
-    launch_k<KK>(f, g, s, th, uu, zo, tt, zn, un, pt, b, tiles); \
-    break;
-    JOINT_PROX_CASE(1) JOINT_PROX_CASE(2) JOINT_PROX_CASE(3)
-    JOINT_PROX_CASE(4) JOINT_PROX_CASE(5) JOINT_PROX_CASE(6)
-    JOINT_PROX_CASE(7) JOINT_PROX_CASE(8) JOINT_PROX_CASE(9)
-    JOINT_PROX_CASE(10) JOINT_PROX_CASE(11) JOINT_PROX_CASE(12)
-    JOINT_PROX_CASE(13) JOINT_PROX_CASE(14) JOINT_PROX_CASE(15)
-    JOINT_PROX_CASE(16)
-#undef JOINT_PROX_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  joint_prox_sum_kernel<<<(n + 127) / 128, 128, 0, s>>>(
-      pt, (double*)acc, n, tiles);
-  return (int)cudaGetLastError();
+extern "C" int joint_prox_launch_f64(const void* theta, const void* u,
+                                     const void* z_old, const void* t,
+                                     void* z_new, void* u_new, void* scratch,
+                                     void* acc, int n, int K, int b, int fused,
+                                     int smem_shape, void* stream) {
+  return launch<double>(theta, u, z_old, t, z_new, u_new, scratch, acc, n, K,
+                        b, fused, smem_shape, stream);
+}
+
+extern "C" int joint_prox_launch_f32(const void* theta, const void* u,
+                                     const void* z_old, const void* t,
+                                     void* z_new, void* u_new, void* scratch,
+                                     void* acc, int n, int K, int b, int fused,
+                                     int smem_shape, void* stream) {
+  return launch<float>(theta, u, z_old, t, z_new, u_new, scratch, acc, n, K,
+                       b, fused, smem_shape, stream);
 }

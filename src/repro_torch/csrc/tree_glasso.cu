@@ -1,4 +1,5 @@
-// tree_glasso: batched closed-form forest glasso over a (B, b, b) float64 stack.
+// tree_glasso: batched closed-form forest glasso over a (B, b, b) stack, with
+// a float64 and a float32 instance of one template body.
 //
 // Replaces the TPU kernel src/repro/kernels/tree_glasso/tree_glasso.py
 // (`_kernel`, launched by `glasso_forest_pallas`).
@@ -11,7 +12,7 @@
 // and Theta_ij = 0 off the support.
 //
 // Bound on the H100: memory.  The work is a few flops per element, so the
-// least time is one read of S and one write of Theta, 2 B b^2 8 bytes at
+// least time is one read of S and one write of Theta, 2 B b^2 itemsize bytes at
 // 3.35 TB/s.  Design: one program per (block, row tile) — for b <= 32 a
 // program takes several whole blocks, above that a 32-row tile of one
 // block.  The program loads the diagonal vector d of its blocks into shared
@@ -19,13 +20,18 @@
 // reduced by a group of G = min(32, next_pow2(b)) lanes with warp shuffles,
 // so neighbouring lanes read neighbouring elements of a row.
 //
-// The elementwise formulas use explicitly rounded products (__dmul_rn) so
-// that no multiply-add is contracted: each element then rounds exactly as
-// the plain PyTorch version does; only the row sum's order differs.
+// The elementwise formulas use explicitly rounded products (mul_rn:
+// __dmul_rn / __fmul_rn) so that no multiply-add is contracted: each element
+// then rounds exactly as the plain PyTorch version does in the same dtype;
+// only the row sum's order differs.
 
 #include <cuda_runtime.h>
 
+#include "precision.cuh"
+
 namespace {
+
+using namespace repro_torch;
 
 constexpr int kThreads = 256;
 // b <= kSmallB: a program covers whole blocks; above, a kRowTile-row tile.
@@ -34,18 +40,20 @@ constexpr int kRowTile = 32;
 // element count a small-b program aims for
 constexpr int kSmallElems = 2048;
 
-__device__ __forceinline__ double group_sum(double v, int width) {
+template <typename T>
+__device__ __forceinline__ T group_sum(T v, int width) {
   for (int off = width >> 1; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off, width);
   return v;
 }
 
-__global__ void tree_glasso_kernel(const double* __restrict__ S,
-                                   const double* __restrict__ lam,
-                                   double* __restrict__ out, int B, int b,
+template <typename T>
+__global__ void tree_glasso_kernel(const T* __restrict__ S,
+                                   const T* __restrict__ lam,
+                                   T* __restrict__ out, int B, int b,
                                    int blocks_per_prog, int tiles_per_block,
                                    int G) {
-  extern __shared__ double d_s[];
+  T* d_s = dynamic_smem<T>();
   const long long bb = (long long)b * b;
 
   // which blocks [n0, n1) and rows [r0, r1) this program covers
@@ -81,45 +89,44 @@ __global__ void tree_glasso_kernel(const double* __restrict__ S,
   for (int t0 = 0; t0 < total; t0 += n_groups) {
     const int t = t0 + group;
     const bool valid = t < total;
-    double part = 0.0;
+    T part = T(0);
     int nn = 0, i = 0;
     if (valid) {
       const int k = t / rows;
       nn = n0 + k;
       i = r0 + t % rows;
-      const double lm = lam[nn];
-      const double* dk = d_s + k * b;
-      const double di = dk[i];
-      const double* srow = S + nn * bb + (long long)i * b;
-      double* orow = out + nn * bb + (long long)i * b;
+      const T lm = lam[nn];
+      const T* dk = d_s + k * b;
+      const T di = dk[i];
+      const T* srow = S + nn * bb + (long long)i * b;
+      T* orow = out + nn * bb + (long long)i * b;
       for (int j = lg; j < b; j += G) {
         if (j == i) continue;
-        const double s = srow[j];
-        const double abss = fabs(s);
-        double theta = 0.0;
+        const T s = srow[j];
+        const T abss = abs_t(s);
+        T theta = T(0);
         if (abss > lm) {
-          const double m = abss - lm;
-          const double a = s > 0.0 ? m : -m;
-          const double aa = __dmul_rn(a, a);
-          const double den = __dsub_rn(__dmul_rn(di, dk[j]), aa);
+          const T m = abss - lm;
+          const T a = s > T(0) ? m : -m;
+          const T aa = mul_rn(a, a);
+          const T den = sub_rn(mul_rn(di, dk[j]), aa);
           theta = -a / den;
-          part += aa / __dmul_rn(di, den);
+          part += aa / mul_rn(di, den);
         }
         orow[j] = theta;
       }
     }
-    const double sum = group_sum(part, G);
+    const T sum = group_sum(part, G);
     if (valid && lg == 0) {
-      const double di = d_s[(nn - n0) * b + i];
-      out[nn * bb + (long long)i * b + i] = 1.0 / di + sum;
+      const T di = d_s[(nn - n0) * b + i];
+      out[nn * bb + (long long)i * b + i] = T(1) / di + sum;
     }
   }
 }
 
-}  // namespace
-
-extern "C" int tree_glasso_launch(const void* S, const void* lam, void* out,
-                                  int B, int b, void* stream) {
+template <typename T>
+int launch(const void* S, const void* lam, void* out, int B, int b,
+           void* stream) {
   if (B <= 0 || b <= 0) return 0;
   int blocks_per_prog = 1, tiles_per_block = 1, G = 32;
   long long grid;
@@ -130,21 +137,33 @@ extern "C" int tree_glasso_launch(const void* S, const void* lam, void* out,
     G = 1;
     while (G < b) G <<= 1;
     grid = (B + blocks_per_prog - 1) / blocks_per_prog;
-    smem = sizeof(double) * (size_t)blocks_per_prog * b;
+    smem = sizeof(T) * (size_t)blocks_per_prog * b;
   } else {
     tiles_per_block = (b + kRowTile - 1) / kRowTile;
     grid = (long long)B * tiles_per_block;
-    smem = sizeof(double) * (size_t)b;
+    smem = sizeof(T) * (size_t)b;
   }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_glasso_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tree_glasso_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  tree_glasso_kernel<<<(unsigned)grid, kThreads, smem,
-                       (cudaStream_t)stream>>>(
-      (const double*)S, (const double*)lam, (double*)out, B, b,
-      blocks_per_prog, tiles_per_block, G);
+  tree_glasso_kernel<T><<<(unsigned)grid, kThreads, smem,
+                          (cudaStream_t)stream>>>(
+      (const T*)S, (const T*)lam, (T*)out, B, b, blocks_per_prog,
+      tiles_per_block, G);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tree_glasso_launch_f64(const void* S, const void* lam, void* out,
+                                      int B, int b, void* stream) {
+  return launch<double>(S, lam, out, B, b, stream);
+}
+
+extern "C" int tree_glasso_launch_f32(const void* S, const void* lam, void* out,
+                                      int B, int b, void* stream) {
+  return launch<float>(S, lam, out, B, b, stream);
 }

@@ -8,7 +8,9 @@ names (``"cuda"`` by default); ``Engine.run_from_data`` screens straight
 from the (n, p) data matrix through ``repro_torch.stream`` and solves over
 the materialized component blocks.  ``repro_torch.glasso`` is a thin
 wrapper over both.  Inputs and results are numpy arrays, as in the
-reference package.
+reference package: a dense (p, p) Theta, or, when ``output`` resolves to
+"sparse" (``"auto"`` above ``AUTO_SPARSE_P``), a ``SparseTheta`` built on
+the executor's solution stacks with no (p, p) allocation.
 """
 
 from __future__ import annotations
@@ -19,13 +21,14 @@ from contextlib import nullcontext
 import numpy as np
 
 from repro_torch.core import schedule as schedule_mod
+from repro_torch.core.components import component_lists
 from repro_torch.core.instrument import bump
 from repro_torch.core.screening import (
     ScreenStats,
     screen_stats_from_labels,
     thresholded_components,
 )
-from repro_torch.core.sparse import resolve_output
+from repro_torch.core.sparse import SparseTheta, resolve_output, result_nbytes
 from repro_torch.engine.executor import BucketExecutor
 from repro_torch.engine.options import EngineOptions, normalize_options
 from repro_torch.engine.planner import build_plan_incremental
@@ -42,18 +45,20 @@ def _as_cov_operand(S):
 class GlassoResult:
     """One solve's answer + attribution.
 
-    ``Theta`` is the dense (p, p) numpy precision matrix; ``labels`` the
-    canonical screening partition; ``route_mix`` the number of blocks per
-    structure class; ``oversize`` the sharded route's accounting
-    ({dispatched, inner_iters, fallbacks}, empty when no block took it).
-    Timing lives in the ``stages()`` view (seconds per
-    canonical stage); ``trace`` carries the request's span tree when the
-    solve ran traced."""
+    ``Theta`` is the dense (p, p) numpy precision matrix, or a
+    ``SparseTheta`` when the output resolved to "sparse" (``output`` says
+    which); ``labels`` the canonical screening partition; ``route_mix`` the
+    number of blocks per structure class; ``oversize`` the sharded route's
+    accounting ({dispatched, inner_iters, fallbacks}, empty when no block
+    took it); ``bytes_peak`` the resident bytes of Theta as assembled.
+    Timing lives in the ``stages()`` view (seconds per canonical stage) and
+    the ``*_seconds`` properties over it; ``trace`` carries the request's
+    span tree when the solve ran traced."""
 
     def __init__(
         self,
         lam: float,
-        Theta: np.ndarray,
+        Theta,
         labels: np.ndarray,
         screen: ScreenStats | None,
         solve_seconds: float,
@@ -65,6 +70,9 @@ class GlassoResult:
         device: str = "cpu",
         trace: Trace | None = None,
         oversize: dict | None = None,
+        block_sizes: list[int] | None = None,
+        bytes_peak: int = 0,
+        output: str = "dense",
     ):
         self.lam = lam
         self.Theta = Theta
@@ -79,6 +87,9 @@ class GlassoResult:
         # fallbacks}, empty when no block took the route; the process-wide
         # view is instrument counts("solver.oversize.")
         self.oversize = dict(oversize) if oversize is not None else {}
+        self.block_sizes = list(block_sizes) if block_sizes is not None else []
+        self.bytes_peak = int(bytes_peak)
+        self.output = output
         self._stage_seconds = {
             "screen": float(screen.seconds) if screen is not None else 0.0,
             "solve": float(solve_seconds),
@@ -89,7 +100,7 @@ class GlassoResult:
     def __repr__(self) -> str:
         return (
             f"GlassoResult(lam={self.lam!r}, p={len(self.labels)}, "
-            f"solver={self.solver!r}, device={self.device!r})"
+            f"solver={self.solver!r}, output={self.output!r}, device={self.device!r})"
         )
 
     def stages(self) -> dict[str, float]:
@@ -97,6 +108,44 @@ class GlassoResult:
         and verification, dispatch and assembly excluded) / ``dispatch``
         (host time issuing launches) / ``assemble``."""
         return dict(self._stage_seconds)
+
+    @property
+    def solve_seconds(self) -> float:
+        return self._stage_seconds["solve"]
+
+    @property
+    def assemble_seconds(self) -> float:
+        return self._stage_seconds["assemble"]
+
+    @property
+    def dispatch_seconds(self) -> float:
+        return self._stage_seconds["dispatch"]
+
+    @property
+    def screen_seconds(self) -> float:
+        """Screening-stage seconds (0.0 when screening was skipped or the
+        labels were precomputed)."""
+        return self._stage_seconds["screen"]
+
+    @property
+    def support(self):
+        """Estimated concentration-graph adjacency (eq. (2)).  A sparse
+        result derives it from per-block nonzeros (dense bool up to the
+        densify cap, scipy bool CSR above it), never from a (p, p) Theta."""
+        if isinstance(self.Theta, SparseTheta):
+            return self.Theta.support()
+        A = np.abs(self.Theta) > 0
+        np.fill_diagonal(A, False)
+        return A
+
+    def support_edges(self) -> np.ndarray:
+        """(E, 2) off-diagonal upper-triangular support edges."""
+        if isinstance(self.Theta, SparseTheta):
+            return self.Theta.support_edges()
+        r, c = np.nonzero(np.triu(self.support, k=1))
+        return np.stack([r, c], axis=1).astype(np.int64) if r.size else np.zeros(
+            (0, 2), dtype=np.int64
+        )
 
     @property
     def noniterative_fraction(self) -> float:
@@ -149,6 +198,55 @@ def resolve_oversize(
     return _threshold_from_budget(float(budget_mb), np_dtype)
 
 
+def blockwise_inverse(
+    labels: np.ndarray, Theta, needed: np.ndarray | None = None
+):
+    """W = inv(Theta) computed block by block over ``labels``' components
+    (Theta is block-diagonal over them by Theorem 1).
+
+    ``needed`` (bool mask over vertices) restricts the work to components
+    that intersect it.  A dense Theta gives a dense W; a ``SparseTheta``
+    gives a block-sparse W over the same components (inverses per block,
+    reciprocal isolated diagonal), with no (p, p) buffer anywhere."""
+    if isinstance(Theta, SparseTheta):
+        return _blockwise_inverse_sparse(Theta, needed)
+    W = np.zeros_like(Theta)
+    for comp in component_lists(labels):
+        if needed is not None and not needed[comp].any():
+            continue
+        W[np.ix_(comp, comp)] = np.linalg.inv(Theta[np.ix_(comp, comp)])
+    return W
+
+
+def _blockwise_inverse_sparse(
+    Theta: SparseTheta, needed: np.ndarray | None
+) -> SparseTheta:
+    """Block-diagonal W = inv(Theta) of a sparse result, as another
+    ``SparseTheta`` (one single-row stack per needed component)."""
+    from repro_torch.core.sparse import _build_index
+
+    stacks: list[np.ndarray] = []
+    comps: list[np.ndarray] = []
+    loc: list[tuple[int, int]] = []
+    for c, blk in Theta.blocks():
+        if needed is not None and not needed[c].any():
+            continue
+        comps.append(c)
+        loc.append((len(stacks), 0))
+        stacks.append(np.linalg.inv(blk)[None])
+    iso = Theta.isolated
+    vals = Theta.isolated_values
+    if needed is not None and iso.size:
+        keep = needed[iso]
+        iso, vals = iso[keep], vals[keep]
+    comp_id, pos_in = _build_index(Theta.p, comps, iso)
+    return SparseTheta(
+        Theta.p, Theta.dtype, stacks, comps, loc, comp_id, pos_in,
+        iso, (1.0 / vals).astype(Theta.dtype, copy=False),
+        densify_max=Theta.densify_max,
+    )
+
+
 def _result(
     plan, labels, screen_stats, Theta, seconds, solver, lam, *,
     routed: bool, assemble_seconds: float, dispatch_seconds: float, device: str,
@@ -175,6 +273,11 @@ def _result(
         dispatch_seconds=dispatch_seconds,
         device=device,
         oversize=oversize,
+        block_sizes=sorted(
+            (len(c) for b in plan.buckets for c in b.comps), reverse=True
+        ),
+        bytes_peak=result_nbytes(Theta),
+        output="sparse" if isinstance(Theta, SparseTheta) else "dense",
     )
 
 
@@ -222,13 +325,6 @@ class Engine:
                 S, lam, backend=self.cc_backend, device=self.device
             )
 
-    def _check_output(self, p: int) -> None:
-        if resolve_output(self.output, p) == "sparse":
-            raise NotImplementedError(
-                "output='sparse' (and output='auto' above AUTO_SPARSE_P) is "
-                "not ported yet (slice 3)"
-            )
-
     def run(
         self,
         S: np.ndarray,
@@ -239,6 +335,7 @@ class Engine:
         warm_W: np.ndarray | None = None,
         labels: np.ndarray | None = None,
         screen_stats: ScreenStats | None = None,
+        output: str | None = None,
     ) -> GlassoResult:
         """One solve.  ``screen=False`` is the paper's unscreened baseline
         (one global block); ``warm_W`` is a (p, p) covariance iterate whose
@@ -247,10 +344,10 @@ class Engine:
         partition, and ``screen_stats`` rides along (the streaming
         screener's stats carry tile counters a dense recount would lose).
         ``S`` may be a materialized streamed covariance (gather protocol) —
-        then ``labels`` is required, since dense screening needs dense S."""
+        then ``labels`` is required, since dense screening needs dense S.
+        ``output`` overrides ``options.output`` for this call."""
         S = _as_cov_operand(S)
         p = S.shape[0]
-        self._check_output(p)
         with self._trace_ctx("engine.run", lam=float(lam), p=int(p)):
             screened = True
             if labels is not None:
@@ -277,9 +374,12 @@ class Engine:
             schedule_mod.check_capacity(
                 [len(c) for b in plan.buckets for c in b.comps] or [1], p_max
             )
+            out_mode = resolve_output(self.output if output is None else output, p)
             t0 = time.perf_counter()
             with span("engine.solve", lam=float(lam)):
-                Theta = self.executor.solve_plan(plan, float(lam), S, warm_W=warm_W)
+                Theta = self.executor.solve_plan(
+                    plan, float(lam), S, warm_W=warm_W, output=out_mode
+                )
             seconds = time.perf_counter() - t0
             return _result(
                 plan, labels, screen_stats, Theta, seconds, self.solver, lam,
@@ -298,6 +398,7 @@ class Engine:
         stream=None,
         p_max: int | None = None,
         warm_W: np.ndarray | None = None,
+        output: str | None = None,
     ) -> GlassoResult:
         """One solve screened straight from the (n, p) data matrix.
 
@@ -311,7 +412,6 @@ class Engine:
         if stream is None:
             stream = self.stream
         p = int(np.shape(X)[1])
-        self._check_output(p)
         with self._trace_ctx("engine.run", lam=float(lam), p=p, source="data"):
             with span("engine.screen", backend="stream"):
                 sc = stream_screen(
@@ -324,4 +424,5 @@ class Engine:
                 screen_stats=sc.stats[0],
                 p_max=p_max,
                 warm_W=warm_W,
+                output=output,
             )

@@ -267,9 +267,14 @@ class BucketExecutor:
         S: np.ndarray,
         *,
         warm_W: np.ndarray | None = None,
-    ) -> np.ndarray:
-        """Dispatch all buckets, wait once, verify, then assemble a dense
-        (p, p) Theta."""
+        output: str = "dense",
+    ):
+        """Dispatch all buckets, wait once, verify, then assemble Theta.
+
+        ``output="dense"`` scatters into a (p, p) array; ``"sparse"`` hands
+        the per-bucket solution stacks, as they came back from the device,
+        to ``blocks.assemble_sparse``: a ``SparseTheta`` whose blocks are
+        those arrays (no further copy), and no (p, p) buffer is allocated."""
         if self.route and len(plan.isolated):
             bump("router.route.singleton", int(len(plan.isolated)))
         self.last_dispatch_seconds = 0.0
@@ -345,12 +350,15 @@ class BucketExecutor:
         self._verify_and_fallback(pending, lam)
 
         t0 = time.perf_counter()
-        with span("engine.assemble", output="dense"):
+        with span("engine.assemble", output=output):
             sols = [
                 p.out.cpu().numpy() if isinstance(p.out, torch.Tensor) else p.out
                 for p in pending
             ]
-            Theta = blocks_mod.assemble_dense(plan, sols, S)
+            if output == "sparse":
+                Theta = blocks_mod.assemble_sparse(plan, sols, S)
+            else:
+                Theta = blocks_mod.assemble_dense(plan, sols, S)
         self.last_assemble_seconds = time.perf_counter() - t0
         bump("engine.assemble_us", int(self.last_assemble_seconds * 1e6))
         return Theta

@@ -14,7 +14,8 @@
 entry) or "fused" (pairwise l1 between classes).  ``lam2=0`` decouples the
 problem exactly into K independent ``glasso`` solves.  The solve runs on
 ``EngineOptions.device`` ("cuda" by default).  Results are dense (K, p, p)
-numpy stacks; ``output="sparse"`` is not ported yet.
+numpy stacks, or a ``JointSparseTheta`` when ``options.output`` resolves to
+"sparse" ("auto" does above ``AUTO_SPARSE_P``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core.instrument import bump
+from repro_torch.core.sparse import JointSparseTheta, result_nbytes
 from repro_torch.joint.screen import JointScreenStats
 
 __all__ = ["JointGlassoResult", "joint_glasso"]
@@ -34,7 +36,8 @@ class JointGlassoResult:
     lam1: float
     lam2: float
     penalty: str
-    Theta: np.ndarray              # (K, p, p)
+    Theta: np.ndarray              # (K, p, p) — or a JointSparseTheta when
+                                   # output resolved to "sparse"
     labels: np.ndarray             # union-graph partition (canonical)
     screen: JointScreenStats | None
     solve_seconds: float           # dispatch + verify (assembly EXCLUDED)
@@ -67,18 +70,26 @@ class JointGlassoResult:
 
     @property
     def support(self) -> np.ndarray:
-        """Union concentration-graph adjacency (an edge in ANY class)."""
+        """Union concentration-graph adjacency (an edge in ANY class).
+        Sparse results derive it from per-block nonzeros (dense bool up to
+        the densify cap, scipy bool CSR above) — no (p, p) densify."""
+        if isinstance(self.Theta, JointSparseTheta):
+            return self.Theta.support()
         A = (np.abs(self.Theta) > 0).any(axis=0)
         np.fill_diagonal(A, False)
         return A
 
     def class_support(self, k: int) -> np.ndarray:
+        if isinstance(self.Theta, JointSparseTheta):
+            return self.Theta.class_view(k).support()
         A = np.abs(self.Theta[k]) > 0
         np.fill_diagonal(A, False)
         return A
 
     def support_edges(self) -> np.ndarray:
         """(E, 2) union support edges (upper-triangular, sorted)."""
+        if isinstance(self.Theta, JointSparseTheta):
+            return self.Theta.support_edges()
         r, c = np.nonzero(np.triu(self.support, k=1))
         return np.stack([r, c], axis=1).astype(np.int64) if r.size else np.zeros(
             (0, 2), dtype=np.int64
@@ -113,8 +124,8 @@ def _joint_result(
         routed=routed,
         fallbacks=fallbacks,
         assemble_seconds=float(assemble_seconds),
-        bytes_peak=int(Theta.nbytes),
-        output="dense",
+        bytes_peak=result_nbytes(Theta),
+        output="sparse" if isinstance(Theta, JointSparseTheta) else "dense",
     )
 
 

@@ -155,9 +155,40 @@ def assemble_joint(
     return out
 
 
-def assemble_joint_sparse(*_args, **_kwargs):
-    """The block-sparse joint result (``JointSparseTheta``) is not ported
-    yet."""
-    raise NotImplementedError(
-        "assemble_joint_sparse (sparse joint results) is not ported yet (slice 3)"
+def assemble_joint_sparse(
+    plan: JointPlan, bucket_solutions: list[np.ndarray], Ss
+):
+    """Assemble per-component joint solutions into a ``JointSparseTheta``
+    with no (K, p, p) allocation — the joint sibling of ``core.blocks.
+    assemble_sparse``: the (n, K, size, size) bucket stacks become the block
+    storage as they are, one shared component index serves every class, and
+    isolated vertices keep their per-class closed form 1/(S_ii + lam1)."""
+    from repro_torch.core.sparse import JointSparseTheta, _build_index
+
+    stacks = [np.asarray(sols) for sols in bucket_solutions]
+    dtype = stacks[0].dtype if stacks else blocks_mod.cov_dtype(Ss[0])
+    comps: list[np.ndarray] = []
+    loc: list[tuple[int, int]] = []
+    for s, bucket in enumerate(plan.buckets):
+        for r, comp in enumerate(bucket.comps):
+            comps.append(np.asarray(comp, dtype=np.int64))
+            loc.append((s, r))
+    isolated = np.asarray(plan.isolated, dtype=np.int64)
+    if isolated.size:
+        iso_vals = np.stack(
+            [
+                (1.0 / (blocks_mod.gather_diag(S, isolated) + plan.lam1)).astype(
+                    dtype, copy=False
+                )
+                for S in Ss
+            ]
+        )
+    else:
+        iso_vals = np.zeros((plan.K, 0), dtype=dtype)
+    comp_id, pos_in = _build_index(plan.p, comps, isolated)
+    Theta = JointSparseTheta(
+        plan.K, plan.p, dtype, stacks, comps, loc, comp_id, pos_in,
+        isolated, iso_vals,
     )
+    set_peak("result.bytes_peak", Theta.nbytes())
+    return Theta

@@ -58,7 +58,12 @@ from repro_torch.core.solvers.closed_form import kkt_ok_stack
 from repro_torch.core.solvers.protocol import solver_spec
 from repro_torch.core.sparse import resolve_output
 from repro_torch.engine.options import EngineOptions, normalize_options
-from repro_torch.joint.blocks import JointPlan, assemble_joint, build_joint_plan
+from repro_torch.joint.blocks import (
+    JointPlan,
+    assemble_joint,
+    assemble_joint_sparse,
+    build_joint_plan,
+)
 from repro_torch.joint.kkt import joint_kkt_residual
 from repro_torch.joint.screen import (
     JointScreenStats,
@@ -261,11 +266,6 @@ class JointEngine:
             raise ValueError("all class covariances must share one shape")
         p = Ss[0].shape[0]
         out_mode = resolve_output(self.output if output is None else output, p)
-        if out_mode == "sparse":
-            raise NotImplementedError(
-                "output='sparse' (and output='auto' above AUTO_SPARSE_P) for joint "
-                "solves is not ported yet (slice 3)"
-            )
         with self._trace_ctx(
             "engine.joint", lam1=float(lam1), lam2=float(lam2),
             K=len(Ss), p=int(p),
@@ -292,7 +292,7 @@ class JointEngine:
             )
             t0 = time.perf_counter()
             with span("engine.solve", kind="joint"):
-                Theta, fallbacks = self.solve_plan(plan, Ss)
+                Theta, fallbacks = self.solve_plan(plan, Ss, output=out_mode)
             seconds = time.perf_counter() - t0
             return _joint_result(
                 plan, labels, screen_stats, Theta, seconds, self.solver,
@@ -331,10 +331,14 @@ class JointEngine:
                 labels=sc.labels, screen_stats=sc.stats, output=output,
             )
 
-    def solve_plan(self, plan: JointPlan, Ss) -> tuple[np.ndarray, int]:
+    def solve_plan(
+        self, plan: JointPlan, Ss, *, output: str = "dense"
+    ) -> tuple[np.ndarray, int]:
         """Dispatch every bucket, verify, repair, assemble.
 
-        Returns (the dense (K, p, p) Theta, fallbacks for THIS solve)."""
+        Returns (Theta, fallbacks for THIS solve): Theta is the dense
+        (K, p, p) stack, or a ``JointSparseTheta`` over the bucket solution
+        stacks when ``output="sparse"`` (no (K, p, p) allocation)."""
         from repro_torch.engine.registry import route_for
 
         if self.route and len(plan.isolated):
@@ -422,8 +426,11 @@ class JointEngine:
         for pos, idx, fixed in repairs:
             solutions[pos][idx] = fixed.cpu().numpy()
         t0 = time.perf_counter()
-        with span("engine.assemble", output="dense"):
-            Theta = assemble_joint(plan, solutions, Ss)
+        with span("engine.assemble", output=output):
+            if output == "sparse":
+                Theta = assemble_joint_sparse(plan, solutions, Ss)
+            else:
+                Theta = assemble_joint(plan, solutions, Ss)
         self.last_assemble_seconds = time.perf_counter() - t0
         bump("engine.assemble_us", int(self.last_assemble_seconds * 1e6))
         return Theta, fallbacks

@@ -7,7 +7,7 @@ import torch
 
 from repro_torch.core.instrument import bump
 from repro_torch.kernels.bucket_glasso.ref import fused_bcd_ref_stack
-from repro_torch.kernels.build import check, check_operands, library
+from repro_torch.kernels.build import check, check_operands, instance, library
 
 
 def fused_bcd_stack(
@@ -30,8 +30,8 @@ def fused_bcd_stack(
 
     ``lams``/``scales`` are per lane, shape (N,); every lane carries its
     (W0, T0) warm pair (cold lanes: S + lam*I and I).  A CPU stack runs the
-    plain version; a CUDA stack launches ``csrc/bucket_glasso.cu`` (float64,
-    any b) or raises.  Each launch bumps ``kernels.bucket_glasso.launches``."""
+    plain version; a CUDA stack launches ``csrc/bucket_glasso.cu`` (its
+    float64 or float32 instance, any b) or raises.  Each launch bumps ``kernels.bucket_glasso.launches``."""
     opts = dict(max_sweeps=max_sweeps, n_cd=n_cd, tol=tol, node_screen=node_screen)
     if blocks.device.type == "cpu":
         return fused_bcd_ref_stack(
@@ -45,6 +45,10 @@ def fused_bcd_stack(
         )
     check_operands("bucket_glasso", W0)
     check_operands("bucket_glasso", T0)
+    if W0.dtype != blocks.dtype or T0.dtype != blocks.dtype:
+        raise TypeError(
+            f"bucket_glasso: W0 {W0.dtype} and T0 {T0.dtype} must match blocks {blocks.dtype}"
+        )
     if cd_sweeps is not None and (
         cd_sweeps.shape != (N,) or cd_sweeps.dtype != torch.int64
         or cd_sweeps.device != blocks.device or not cd_sweeps.is_contiguous()
@@ -62,11 +66,12 @@ def fused_bcd_stack(
     lib = library()
     scratch = (
         torch.empty(3 * N * b * b, dtype=blocks.dtype, device=blocks.device)
-        if lib.bucket_glasso_smem_bytes(b) == 0
+        if lib.bucket_glasso_smem_bytes(b, blocks.element_size()) == 0
         else theta  # unused by the kernel when the tiles fit shared memory
     )
     with torch.cuda.device(blocks.device):
-        status = lib.bucket_glasso_launch(
+        launch = getattr(lib, f"bucket_glasso_launch_{instance('bucket_glasso', blocks.dtype)}")
+        status = launch(
             blocks.data_ptr(), lams.data_ptr(), scales.data_ptr(),
             W0.data_ptr(), T0.data_ptr(), theta.data_ptr(), sweeps.data_ptr(),
             None if cd_sweeps is None else cd_sweeps.data_ptr(),

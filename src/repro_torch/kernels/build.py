@@ -40,28 +40,46 @@ _LIB: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "tree_glasso_launch": (_I, [_P, _P, _P, _I, _I, _P]),
-    "bucket_glasso_launch": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_double, _I, _P],
-    ),
-    "bucket_glasso_smem_bytes": (ctypes.c_size_t, [_I]),
+    **{
+        f"tree_glasso_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f64", "f32")
+    },
+    **{
+        f"bucket_glasso_launch_{t}": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_double, _I, _P],
+        )
+        for t in ("f64", "f32")
+    },
+    "bucket_glasso_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "threshold_cc_step_launch": (
         _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _I, _P],
     ),
     "covgram_screen_launch": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     ),
-    "joint_prox_launch": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    ),
-    "joint_prox_scratch_doubles": (ctypes.c_longlong, [_I, _I]),
-    "prox_l1_launch": (_I, [_P, _P, _P, _P, _P, _I, _I, _P]),
-    "shard_prox_launch": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
-    ),
-    "shard_prox_scratch_doubles": (ctypes.c_longlong, [_I, ctypes.c_longlong]),
+    **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
+    **{
+        f"joint_prox_launch_{t}": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        )
+        for t in ("f64", "f32")
+    },
+    "joint_prox_scratch_values": (ctypes.c_longlong, [_I, _I, _I, _I, _I]),
+    **{
+        f"prox_l1_launch_{t}": (_I, [_P, _P, _P, _P, _P, _I, _I, _P]) for t in ("f64", "f32")
+    },
+    **{
+        f"shard_prox_launch_{t}": (
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
+        )
+        for t in ("f64", "f32")
+    },
+    "shard_prox_scratch_values": (ctypes.c_longlong, [_I, ctypes.c_longlong]),
     "repro_torch_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
+
+#: the dtypes the solve kernels have an instance for, and the suffix of
+#: each instance's entry point
+SOLVE_DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 
 
 def nvcc() -> str:
@@ -173,13 +191,23 @@ def lane_vector(kernel: str, x, n: int, like) -> "torch.Tensor":
     return x.contiguous()
 
 
+def instance(kernel: str, dtype: torch.dtype) -> str:
+    """Suffix of the solve kernel's entry point for ``dtype`` ("f64" or
+    "f32"); any other dtype raises ``TypeError``."""
+    try:
+        return SOLVE_DTYPES[dtype]
+    except KeyError:
+        raise TypeError(
+            f"{kernel}: the CUDA kernel takes float64 or float32, got {dtype}"
+        ) from None
+
+
 def check_operands(kernel: str, blocks, *per_block) -> tuple[int, int]:
-    """Validate a (N, b, b) float64 CUDA stack and its (N,) per-block
-    vectors of the same dtype and device; returns (N, b)."""
+    """Validate a (N, b, b) float64 or float32 CUDA stack and its (N,)
+    per-block vectors of the same dtype and device; returns (N, b)."""
     if blocks.device.type != "cuda":
         raise ValueError(f"{kernel}: no kernel for device {blocks.device}")
-    if blocks.dtype != torch.float64:
-        raise TypeError(f"{kernel}: the CUDA kernel takes float64, got {blocks.dtype}")
+    instance(kernel, blocks.dtype)
     if blocks.ndim != 3 or blocks.shape[1] != blocks.shape[2]:
         raise ValueError(f"{kernel}: blocks must be (N, b, b), got {tuple(blocks.shape)}")
     n = blocks.shape[0]

@@ -11,11 +11,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.instrument import bump
-from repro_torch.kernels.build import check, library
+from repro_torch.kernels.build import check, instance, library
 from repro_torch.kernels.joint_prox.ref import PENALTIES, joint_prox_ref
 
-#: the kernel keeps a lane's K class values in registers, one template
-#: instance per K; more classes than this have no kernel
+#: the register shape keeps a lane's K class values in registers, one
+#: template instance per K up to this; above it the wrapper picks the
+#: shared-memory shape, which takes any K
 MAX_CLASSES = 16
 
 
@@ -30,8 +31,9 @@ def joint_prox_step(
     """(Z_new, U_new, rp2, rd2) for a bucket of lanes.
 
     theta/u/z_old: (n, K, b, b); t: (n, 2).  A CPU stack runs the plain
-    version; a CUDA stack launches ``csrc/joint_prox.cu`` (float64,
-    K <= ``MAX_CLASSES``) or raises.  Each launch bumps
+    version; a CUDA stack launches ``csrc/joint_prox.cu`` (its float64 or
+    float32 instance; the register shape for K <= ``MAX_CLASSES``, the
+    shared-memory shape above) or raises.  Each launch bumps
     ``kernels.joint_prox.launches``."""
     if penalty not in PENALTIES:
         raise ValueError(f"unknown joint penalty {penalty!r}; available: {PENALTIES}")
@@ -41,9 +43,10 @@ def joint_prox_step(
     if dev.type != "cuda":
         raise ValueError(f"joint_prox: no kernel for device {dev}")
     ops = (theta, u, z_old, t)
-    if any(x.dtype != torch.float64 for x in ops):
+    suffix = instance("joint_prox", theta.dtype)
+    if any(x.dtype != theta.dtype for x in ops):
         raise TypeError(
-            "joint_prox: the CUDA kernel takes float64, got "
+            "joint_prox: the operands must share one dtype, got "
             f"{[str(x.dtype) for x in ops]}"
         )
     if theta.ndim != 4 or theta.shape[2] != theta.shape[3]:
@@ -56,10 +59,6 @@ def joint_prox_step(
         )
     if any(x.device != dev for x in ops):
         raise ValueError(f"joint_prox: every operand must lie on {dev}")
-    if K > MAX_CLASSES:
-        raise ValueError(
-            f"joint_prox: the CUDA kernel takes at most {MAX_CLASSES} classes, got K={K}"
-        )
     theta, u, z_old, t = (x.contiguous() for x in ops)
     z_new = torch.empty_like(theta)
     u_new = torch.empty_like(theta)
@@ -67,14 +66,17 @@ def joint_prox_step(
     if n == 0 or K == 0 or b == 0:
         return z_new, u_new, acc[:, 0], acc[:, 1]
     lib = library()
-    partial = torch.empty(
-        int(lib.joint_prox_scratch_doubles(n, b)), dtype=theta.dtype, device=dev
+    smem_shape = int(K > MAX_CLASSES)
+    scratch = torch.empty(
+        int(lib.joint_prox_scratch_values(n, K, b, smem_shape, theta.element_size())),
+        dtype=theta.dtype, device=dev,
     )
     with torch.cuda.device(dev):
-        status = lib.joint_prox_launch(
+        status = getattr(lib, f"joint_prox_launch_{suffix}")(
             theta.data_ptr(), u.data_ptr(), z_old.data_ptr(), t.data_ptr(),
-            z_new.data_ptr(), u_new.data_ptr(), partial.data_ptr(), acc.data_ptr(),
-            n, K, b, int(penalty == "fused"), torch.cuda.current_stream().cuda_stream,
+            z_new.data_ptr(), u_new.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
+            n, K, b, int(penalty == "fused"), smem_shape,
+            torch.cuda.current_stream().cuda_stream,
         )
     check(status, "joint_prox")
     bump("kernels.joint_prox.launches")

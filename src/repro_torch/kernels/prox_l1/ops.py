@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.instrument import bump
-from repro_torch.kernels.build import check, lane_vector, library
+from repro_torch.kernels.build import check, instance, lane_vector, library
 from repro_torch.kernels.prox_l1.ref import prox_step_ref
 
 
@@ -15,17 +15,16 @@ def prox_step(theta: torch.Tensor, grad: torch.Tensor, t, lam) -> torch.Tensor:
     block; ``t`` and ``lam`` are scalars or (B,) per-lane values.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/prox_l1.cu`` (float64) or raises.  Each launch bumps
+    ``csrc/prox_l1.cu`` (its float64 or float32 instance) or raises.  Each launch bumps
     ``kernels.prox_l1.launches``."""
     if theta.device.type == "cpu":
         return prox_step_ref(theta, grad, t, lam)
     dev = theta.device
     if dev.type != "cuda":
         raise ValueError(f"prox_l1: no kernel for device {dev}")
-    if theta.dtype != torch.float64 or grad.dtype != torch.float64:
-        raise TypeError(
-            f"prox_l1: the CUDA kernel takes float64, got {theta.dtype} and {grad.dtype}"
-        )
+    suffix = instance("prox_l1", theta.dtype)
+    if grad.dtype != theta.dtype:
+        raise TypeError(f"prox_l1: grad must be {theta.dtype}, got {grad.dtype}")
     if grad.shape != theta.shape or grad.device != dev:
         raise ValueError(
             f"prox_l1: grad must match theta {tuple(theta.shape)} on {dev}, "
@@ -43,7 +42,7 @@ def prox_step(theta: torch.Tensor, grad: torch.Tensor, t, lam) -> torch.Tensor:
     out = torch.empty_like(th)
     if B and b:
         with torch.cuda.device(dev):
-            status = library().prox_l1_launch(
+            status = getattr(library(), f"prox_l1_launch_{suffix}")(
                 th.data_ptr(), gr.data_ptr(), t_v.data_ptr(), lam_v.data_ptr(),
                 out.data_ptr(), B, b, torch.cuda.current_stream().cuda_stream,
             )

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.instrument import bump
-from repro_torch.kernels.build import check, lane_vector, library
+from repro_torch.kernels.build import check, instance, lane_vector, library
 from repro_torch.kernels.shard_prox.ref import fused_prox_ref
 
 
@@ -24,7 +24,7 @@ def fused_prox_residual(
     rd2 stay on the device: 0-d for a shard, (N,) for a stack.
 
     A CPU tensor runs the plain version; a CUDA tensor launches
-    ``csrc/shard_prox.cu`` (float64) or raises.  Each launch bumps
+    ``csrc/shard_prox.cu`` (its float64 or float32 instance) or raises.  Each launch bumps
     ``kernels.shard_prox.launches``."""
     if x_new.device.type == "cpu":
         return fused_prox_ref(x_new, u, z_old, t)
@@ -32,9 +32,10 @@ def fused_prox_residual(
     if dev.type != "cuda":
         raise ValueError(f"shard_prox: no kernel for device {dev}")
     ops = (x_new, u, z_old)
-    if any(x.dtype != torch.float64 for x in ops):
+    suffix = instance("shard_prox", x_new.dtype)
+    if any(x.dtype != x_new.dtype for x in ops):
         raise TypeError(
-            "shard_prox: the CUDA kernel takes float64, got "
+            "shard_prox: the operands must share one dtype, got "
             f"{[str(x.dtype) for x in ops]}"
         )
     if x_new.ndim not in (2, 3):
@@ -53,15 +54,15 @@ def fused_prox_residual(
     x, uu, zo = (v.contiguous() for v in xs)
     z_new = torch.empty_like(x)
     u_new = torch.empty_like(x)
-    acc = torch.zeros((n, 2), dtype=torch.float64, device=dev)
+    acc = torch.zeros((n, 2), dtype=x.dtype, device=dev)
     entries = rl * b
     if n and entries:
         lib = library()
         partial = torch.empty(
-            int(lib.shard_prox_scratch_doubles(n, entries)), dtype=torch.float64, device=dev
+            int(lib.shard_prox_scratch_values(n, entries)), dtype=x.dtype, device=dev
         )
         with torch.cuda.device(dev):
-            status = lib.shard_prox_launch(
+            status = getattr(lib, f"shard_prox_launch_{suffix}")(
                 x.data_ptr(), uu.data_ptr(), zo.data_ptr(), t_v.data_ptr(),
                 z_new.data_ptr(), u_new.data_ptr(), partial.data_ptr(), acc.data_ptr(),
                 n, entries, torch.cuda.current_stream().cuda_stream,

@@ -93,16 +93,124 @@ def test_bucket_glasso_matches_plain(cuda_device, b, N):
         assert (got[:, live:, :live] == 0).all()
 
 
-def test_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
-    S = torch.eye(4, device=cuda_device, dtype=torch.float32)[None]
-    lm = torch.ones(1, device=cuda_device, dtype=torch.float32)
-    with pytest.raises(TypeError, match="float64"):
-        glasso_forest_stack(S, lm)
-    S64 = S.double()
+# float32 instances of the five solve kernels against their float32 plain
+# versions.  prox_l1 and shard_prox's Z'/U' round every operation as the
+# plain version does: bit-equal.  tree_glasso sums rows in another order:
+# 6e-5 of max|Theta| (~500 float32 epsilons, the float64 check's 1e-13 is
+# ~450 float64 epsilons).  bucket_glasso carries the dot products' order
+# through the sweeps and may stop a sweep earlier or later: 1e-5 of
+# max|Theta| (float32 against float64 plain versions differ by ~1e-7 on
+# these lanes).  shard_prox's and joint_prox's residual sums: 1e-5
+# relative; joint_prox's Z/U (the group norm sums K squares in another
+# order): 1e-5 absolute on values of O(1).
+F32_TREE_RTOL = 6e-5
+F32_BUCKET_RTOL = 1e-5
+F32_SUM_RTOL = 1e-5
+F32_JOINT_ATOL = 1e-5
+
+
+def _f32(*xs):
+    return [x.to(torch.float32) for x in xs]
+
+
+def test_float32_tree_and_bucket_instances_match_plain(cuda_device):
+    rng = np.random.default_rng(32)
+    B, b = 29, 40
+    blocks = rng.standard_normal((B, b, b))
+    blocks = 0.5 * (blocks + blocks.transpose(0, 2, 1))
+    blocks += np.abs(blocks).sum(axis=2).max(axis=1)[:, None, None] * np.eye(b)
+    S, lm = _f32(torch.as_tensor(blocks, device=cuda_device),
+                 torch.as_tensor(rng.uniform(0.1, 0.6, size=B), device=cuda_device))
+    instrument.reset("kernels.")
+    got = glasso_forest_stack(S, lm)
+    want = glasso_forest_ref(S, lm)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert instrument.count("kernels.tree_glasso.launches") == 1
+    assert float((got - want).abs().max()) <= F32_TREE_RTOL * float(want.abs().max())
+    for bb, N in ((16, 20), (96, 3), (128, 2)):  # shared memory, then scratch
+        rng = np.random.default_rng(bb)
+        live = bb - bb // 4
+        covs = [_covariance(rng, live) for _ in range(N)]
+        S = torch.as_tensor(np.stack([pad_block(c, bb) for c in covs]), device=cuda_device)
+        lm = torch.as_tensor([_lam(c, 0.6) for c in covs], device=cuda_device)
+        S, lm = _f32(S, lm)
+        eye = torch.eye(bb, dtype=torch.float32, device=cuda_device)
+        W0, T0 = S + lm[:, None, None] * eye, eye.expand(N, bb, bb).contiguous()
+        scales = convergence_scale(S)
+        got, _ = fused_bcd_stack(S, lm, scales, W0, T0)
+        want, _ = fused_bcd_ref_stack(S, lm, scales, W0, T0)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= F32_BUCKET_RTOL * float(want.abs().max())
+        assert (got[:, live:, :live] == 0).all()
+
+
+def test_float32_prox_instances_match_plain(cuda_device):
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+    from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
+    from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
+
+    rng = np.random.default_rng(33)
+    theta, grad = _f32(*(torch.as_tensor(rng.standard_normal((5, 33, 33)), device=cuda_device)
+                         for _ in range(2)))
+    t_lane, lam_lane = _f32(torch.as_tensor(rng.uniform(0.05, 1.5, 5), device=cuda_device),
+                            torch.as_tensor(rng.uniform(0.0, 1.0, 5), device=cuda_device))
+    got = prox_step(theta, grad, t_lane, lam_lane)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, prox_step_ref(theta, grad, t_lane, lam_lane))
+    x, u, z = _f32(*(torch.as_tensor(rng.standard_normal((3, 300, 257)), device=cuda_device)
+                     for _ in range(3)))
+    t = _f32(torch.as_tensor(rng.uniform(0.05, 1.0, 3), device=cuda_device))[0]
+    got, want = fused_prox_residual(x, u, z, t), fused_prox_ref(x, u, z, t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=F32_SUM_RTOL)
+    for penalty in ("group", "fused"):
+        for K in (4, 20):
+            ops = _f32(*(torch.as_tensor(rng.standard_normal((3, K, 9, 9)), device=cuda_device)
+                         for _ in range(3)))
+            tt = _f32(torch.as_tensor(np.stack([0.3 * rng.random(3) + 0.01, 0.3 * rng.random(3)],
+                                               axis=1), device=cuda_device))[0]
+            got = joint_prox_step(*ops, tt, penalty=penalty)
+            want = joint_prox_ref(*ops, tt, penalty=penalty)
+            for g, w in zip(got[:2], want[:2]):
+                assert g.dtype == torch.float32
+                assert float((g - w).abs().max()) <= F32_JOINT_ATOL
+            for g, w in zip(got[2:], want[2:]):
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=F32_SUM_RTOL)
+    instrument.reset("kernels.")
+
+
+def test_wrappers_reject_float16_and_int(cuda_device):
+    from repro_torch.kernels.joint_prox import joint_prox_step
+    from repro_torch.kernels.prox_l1 import prox_step
+    from repro_torch.kernels.shard_prox import fused_prox_residual
+
+    for dtype in (torch.float16, torch.int32):
+        S = torch.eye(4, device=cuda_device).to(dtype)[None]
+        lm = torch.ones(1, device=cuda_device).to(dtype)
+        with pytest.raises(TypeError, match="float64 or float32"):
+            glasso_forest_stack(S, lm)
+        with pytest.raises(TypeError, match="float64 or float32"):
+            fused_bcd_stack(S, lm, lm, S, S)
+        with pytest.raises(TypeError, match="float64 or float32"):
+            prox_step(S, S, 0.5, 0.5)
+        with pytest.raises(TypeError, match="float64 or float32"):
+            fused_prox_residual(S, S, S, 0.5)
+        ops = [torch.zeros((2, 3, 4, 4), device=cuda_device).to(dtype) for _ in range(3)]
+        with pytest.raises(TypeError, match="float64 or float32"):
+            joint_prox_step(*ops, torch.zeros((2, 2), device=cuda_device).to(dtype),
+                            penalty="group")
+    S64 = torch.eye(4, device=cuda_device, dtype=torch.float64)[None]
     with pytest.raises(ValueError, match="per-block"):
         glasso_forest_stack(S64, torch.ones(2, device=cuda_device, dtype=torch.float64))
+    lm = torch.ones(1, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="must match"):
-        fused_bcd_stack(S64, lm.double(), lm.double(), S64[:, :2, :2], S64)
+        fused_bcd_stack(S64, lm, lm, S64[:, :2, :2], S64)
+    with pytest.raises(TypeError, match="must match blocks"):
+        fused_bcd_stack(S64, lm, lm, S64.float(), S64)
 
 
 def test_glasso_on_the_card_matches_the_cpu_path(cuda_device):
@@ -314,15 +422,48 @@ def test_joint_prox_matches_plain(cuda_device, K, b, penalty):
 
 
 def test_joint_prox_rejects_what_the_kernel_does_not_take(cuda_device):
+    """Any K and float64 or float32 run; float16, int and mixed dtypes raise."""
     from repro_torch.kernels.joint_prox import joint_prox_step
 
     ops = [torch.zeros((2, 17, 4, 4), dtype=torch.float64, device=cuda_device) for _ in range(3)]
     t = torch.zeros((2, 2), dtype=torch.float64, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 16 classes"):
-        joint_prox_step(*ops, t, penalty="group")
-    ops32 = [x[:, :3].float() for x in ops]
-    with pytest.raises(TypeError, match="float64"):
-        joint_prox_step(*ops32, t.float(), penalty="fused")
+    z, _, rp2, _ = joint_prox_step(*ops, t, penalty="group")
+    assert z.shape == ops[0].shape and float(rp2.abs().max()) == 0.0
+    with pytest.raises(TypeError, match="float64 or float32"):
+        joint_prox_step(*(x.half() for x in ops), t.half(), penalty="fused")
+    with pytest.raises(TypeError, match="share one dtype"):
+        joint_prox_step(*ops, t.float(), penalty="fused")
+
+
+@pytest.mark.parametrize("penalty", ["group", "fused"])
+@pytest.mark.parametrize("K,b", [(17, 5), (20, 16), (40, 3), (130, 3)])
+def test_joint_prox_shared_memory_shape_matches_plain(cuda_device, K, b, penalty):
+    """K above 16 takes the shared-memory shape (K = 130: its work arrays in
+    device scratch): the plain version's arithmetic with the register
+    shape's tolerances, ties included."""
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+
+    rng = np.random.default_rng(7 * K + b)
+    n = 3
+    theta, u, z_old = (
+        torch.as_tensor(rng.standard_normal((n, K, b, b)), device=cuda_device)
+        for _ in range(3)
+    )
+    theta[:, 1, :2] = theta[:, 0, :2]
+    u[:, 1, :2] = u[:, 0, :2]
+    t = torch.as_tensor(
+        np.stack([0.3 * rng.random(n) + 0.01, 0.3 * rng.random(n)], axis=1), device=cuda_device
+    )
+    instrument.reset("kernels.")
+    got = joint_prox_step(theta, u, z_old, t, penalty=penalty)
+    want = joint_prox_ref(theta, u, z_old, t, penalty=penalty)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.joint_prox.launches") == 1
+    for g, w in zip(got[:2], want[:2]):
+        assert float((g - w).abs().max()) <= 1e-12
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-9)
+    assert torch.equal(got[0][:, 1, :2], got[0][:, 0, :2])
 
 
 def test_joint_glasso_on_the_card_matches_the_cpu_path(cuda_device):
@@ -491,3 +632,40 @@ def test_glasso_from_data_oversize_on_the_card_matches_the_cpu(cuda_device):
     assert np.array_equal(got.labels, want.labels) and got.route_mix == want.route_mix
     assert got.oversize == want.oversize and got.oversize["fallbacks"] == 0
     np.testing.assert_allclose(got.Theta, want.Theta, rtol=0, atol=1e-8)
+
+
+# ---------------------------------------------------------------- slice 5
+# covgram sums n float32 products in another order than the plain version's
+# float32 matrix product: each entry within n float32 epsilons of max|S|
+# (the first-order bound on both sums' rounding).  bf16 X is upcast exactly
+# by both.
+
+
+@pytest.mark.parametrize("n,p,dtype", [
+    (80, 300, torch.float32), (37, 129, torch.float32), (64, 65, torch.bfloat16),
+    (200, 64, torch.float64), (1, 5, torch.float32),
+])
+def test_covgram_matches_plain(cuda_device, n, p, dtype):
+    from repro_torch.kernels.covgram import covgram, covgram_ref
+
+    rng = np.random.default_rng(n + p)
+    X = torch.as_tensor(rng.standard_normal((n, p)) * (0.1 + rng.random(p)) + 3.0,
+                        device=cuda_device).to(dtype)
+    instrument.reset("kernels.")
+    got = covgram(X)
+    want = covgram_ref(X)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.covgram.launches") == 1
+    assert got.dtype == torch.float32 and got.shape == (p, p)
+    tol = max(n, 1) * float(torch.finfo(torch.float32).eps) * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, got.T)
+
+
+def test_covgram_rejects_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels.covgram import covgram
+
+    with pytest.raises(TypeError, match="floating"):
+        covgram(torch.zeros((4, 3), dtype=torch.int32, device=cuda_device))
+    with pytest.raises(ValueError, match=r"\(n, p\)"):
+        covgram(torch.zeros(4, device=cuda_device))

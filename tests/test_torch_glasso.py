@@ -186,15 +186,16 @@ def test_names_and_unported_features_raise():
         repro_torch.glasso(S, lam, options=CPU.replace(cc_backend="nope"))
     with pytest.raises(ValueError, match="p_max"):
         repro_torch.glasso(S, lam, p_max=3, options=CPU)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        repro_torch.glasso(S, lam, options=CPU.replace(output="sparse"))
     with pytest.raises(NotImplementedError, match="slice 2"):
         repro_torch.glasso_path(S, [lam])
     with pytest.raises(NotImplementedError, match="slice 2"):
         repro_torch.glasso_path(X=S, lambdas=[lam], from_data=True)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        repro_torch.glasso(X=S, lam=lam, options=CPU.replace(output="sparse"))
-    from repro_torch.core.sparse import AUTO_SPARSE_P, resolve_output
+    # sparse results are ported: both entry points return a SparseTheta
+    from repro_torch.core.sparse import AUTO_SPARSE_P, SparseTheta, resolve_output
+
+    for kw in (dict(S=S), dict(X=S)):
+        r = repro_torch.glasso(lam=lam, options=CPU.replace(output="sparse"), **kw)
+        assert isinstance(r.Theta, SparseTheta) and r.output == "sparse"
 
     assert resolve_output("auto", AUTO_SPARSE_P) == "dense"
     assert resolve_output("auto", AUTO_SPARSE_P + 1) == "sparse"

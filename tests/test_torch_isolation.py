@@ -24,6 +24,8 @@ import repro_torch.kernels.covgram_screen
 import repro_torch.joint, repro_torch.kernels.joint_prox, repro_torch.stream.unionfind
 import repro_torch.kernels.prox_l1, repro_torch.kernels.shard_prox, repro_torch.core.distributed
 import repro_torch.core.solvers.pg, repro_torch.core.solvers.admm, repro_torch.core.solvers.sharded
+import repro_torch.kernels.covgram, repro_torch.core.sparse, repro_torch.core.solvers.kkt
+import repro_torch.covariance.estimators, repro_torch.covariance.synthetic, repro_torch.joint.blocks
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))

@@ -38,6 +38,7 @@ from repro.stream.unionfind import StreamingUnionFind as JaxUnionFind
 from repro_torch import EngineOptions, glasso
 from repro_torch.core import instrument
 from repro_torch.core.components import component_lists, partitions_equal
+from repro_torch.core.sparse import JointSparseTheta
 from repro_torch.covariance import structured_synthetic
 from repro_torch.engine.registry import route_for
 from repro_torch.joint import (
@@ -513,12 +514,22 @@ def test_joint_glasso_input_validation():
 
 
 def test_sparse_joint_output_is_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        joint_glasso([np.eye(3)] * 2, 0.5, options=EngineOptions(device="cpu", output="sparse"))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        assemble_joint_sparse(None, [], [])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        joint_kkt_residual_sparse([], None, 0.1, 0.1)
+    """Sparse joint results are ported now: the all-isolated case assembles
+    a JointSparseTheta with no blocks, equal to the dense stack, and its
+    sparse KKT residual is the closed form's."""
+    res = joint_glasso([np.eye(3)] * 2, 0.5, options=EngineOptions(device="cpu", output="sparse"))
+    assert isinstance(res.Theta, JointSparseTheta) and res.output == "sparse"
+    np.testing.assert_array_equal(res.Theta.toarray(), np.stack([np.eye(3) / 1.5] * 2))
+    assert joint_kkt_residual_sparse([np.eye(3)] * 2, res.Theta, 0.5, 0.0) == 0.0
+    empty = assemble_joint_sparse(_all_isolated_plan(), [], [np.eye(3)] * 2)
+    assert empty.n_components == 3 and empty.nnz == 6
+
+
+def _all_isolated_plan():
+    from repro_torch.joint.blocks import JointPlan
+
+    return JointPlan(p=3, K=2, lam1=0.5, lam2=0.0, penalty="group",
+                     labels=np.arange(3), isolated=np.arange(3), buckets=[])
 
 
 def test_joint_glasso_runs_on_the_card_by_default(monkeypatch):

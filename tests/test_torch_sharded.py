@@ -221,6 +221,26 @@ def test_resolve_oversize():
         resolve_oversize(123, None, np.float64, route=False)
 
 
+def test_auto_budget_reads_what_the_allocator_can_hold(monkeypatch):
+    """oversize_budget_mb="auto" on a card: the free bytes CUDA reports
+    plus what the caching allocator already reserves (the
+    counterpart of the reference's ``bytes_limit``), not the card's total;
+    the CUDA queries are stood in for here."""
+    from repro_torch.core.distributed import device_memory_budget_mb
+
+    free, total, reserved = 70 * 2**30, 80 * 2**30, 3 * 2**30
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (free, total))
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev=None: reserved)
+    budget = device_memory_budget_mb("cuda")
+    assert budget == (free + reserved) / 2**20 == 73 * 1024
+    assert device_memory_budget_mb(CPU) is None
+    want = blocks_mod.oversize_threshold(budget, np.float64)
+    assert want == jax_blocks.oversize_threshold(budget, np.float64) == int(np.sqrt(73 * 2**30 / 64))
+    assert resolve_oversize(None, "auto", np.float64, device="cuda") == want
+    assert resolve_oversize(None, "auto", np.float32, device="cuda") == int(
+        np.sqrt(73 * 2**30 / 32))
+
+
 def test_oversize_bucket_has_no_host_blocks():
     S, lam = _case(24, 0, 0.2)
     plan = build_plan_incremental(S, lam, np.zeros(24, dtype=np.int64), oversize=10)
