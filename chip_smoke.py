@@ -82,8 +82,11 @@ Phases, each printing a line:
              one outer iteration;
              [oversize_budget] logs the budget that
              oversize_budget_mb="auto" reads, the threshold it derives, and
-             whether the dense admm solve fits in the budget at that
-             threshold, from the dense solve's measured bytes per entry;
+             the dense admm solve's measured peak bytes per padded entry
+             beside the model's SINGLE_DEVICE_BUFFERS * 8 (whether the
+             solve fits the budget at that threshold) and the solve's
+             floor (four buffers plus eigh's own workspace, measured
+             alone), which the peak must not exceed;
              the [pg], [admm], [oversize] and joint paths' checked launches
              also run through the kernels' float32 instances (float32
              copies of the same inputs, held to the float32 plain versions)
@@ -111,7 +114,20 @@ Phases, each printing a line:
              version;
 22. joint_prox k20  joint_prox at K = 20 classes (the shared-memory shape),
              float64 and float32, against its plain version;
-23. kernels  one JSON line: every ported kernel with its launches on its
+23. serve    the LM serving path, ``repro_torch.launch.serve.run_serving``
+             on qwen2.5-3b at full width (float32, batch 4, a 2048-token
+             prompt, 16 new tokens, seed 0): the parameter count, one
+             flash_attention launch a layer in the prefill (counters zeroed
+             just before the run, read just after), init / prefill / decode
+             times, tokens/s and peak memory; the kernel's prefill logits
+             against the dense path's on the card, and two decode steps
+             against fresh prefills of the extended prompt;
+             [serve_profile] the device-busy share of one decode step;
+24. flash_attention  the kernel against its plain version at the prefill's
+             shape in float32 and bf16, a ragged length, full MHA, MQA and
+             a long causal case (against the plain chunked form), timed
+             beside its bound, the plain version and SDPA;
+25. kernels  one JSON line: every ported kernel with its launches on its
              path and, summed over its recorded launches, its error, times
              and bound;
 
@@ -188,11 +204,13 @@ from repro_torch.stream.tiler import (  # noqa: E402
 )
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth, the FP64
-# tensor-core rate (the highest FP64 rate the card has) and the FP32 rate
-# outside the tensor cores (covgram's float32 FMAs)
+# tensor-core rate (the highest FP64 rate the card has), the FP32 rate
+# outside the tensor cores (covgram's and float32 attention's FMAs) and the
+# dense bf16 tensor-core rate (bf16 attention's bound)
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 67e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense bf16 on the tensor cores
 EPS32 = float(torch.finfo(torch.float32).eps)
 
 DEV = torch.device("cuda")
@@ -306,6 +324,37 @@ F32_TREE_RTOL, F32_BUCKET_RTOL = 6e-5, 1e-5
 F32_SUM_RTOL, F32_JOINT_ATOL = 1e-5, 1e-5
 # joint_prox above 16 classes (the shared-memory shape): (n, K, b)
 JOINT_PROX_K20 = (56, 20, 16)
+# [serve]: the LM serving path (repro_torch.launch.serve's run_serving) at
+# the full width of qwen2.5-3b (src/repro_torch/configs/qwen2_5_3b.py: 36
+# layers, d_model 2048, 16 query heads over 2 KV heads of 128, d_ff 11008,
+# QKV bias, vocab 151936 padded to 152064), float32 as the reference's
+# serving entry point forces, random parameters from seed 0, batch 4, a
+# 2048-token prompt and 16 new tokens.  SERVE_PARAMS is the reference's
+# count_params_abstract of that config
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "qwen2_5_3b", 4, 2048, 16
+SERVE_PARAMS = 3_397_627_904
+# the serving checks' logits (the kernel's prefill against the dense path's
+# on the card; each decode step against a fresh prefill of the extended
+# prompt), within this share of max|logits|: every product is float32 (TF32
+# off), and the paths differ only in sum order — the attention's, ~1e-6 of
+# its outputs, carried through 36 layers
+SERVE_LOGITS_RTOL = 1e-3
+# [flash_attention]: the kernel against its plain version within the
+# reference's own tolerances for its kernel (tests/test_kernels.py): float32
+# 2e-5, bf16 3e-2.  Cases (label, B, Hq, Hkv, Sq, Skv, d, causal, dtype): the
+# serving prefill's shape in float32 and bf16, a ragged length, full
+# (non-causal) MHA, MQA, and one long causal case held against the plain
+# chunked form (``_sdpa_chunked``, the reference's own path above
+# ATTN_CHUNK_THRESHOLD = 4096 query rows)
+FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+FLASH_CASES = (
+    ("full_width", 4, 16, 2, 2048, 2048, 128, True, torch.float32),
+    ("full_width", 4, 16, 2, 2048, 2048, 128, True, torch.bfloat16),
+    ("ragged", 4, 16, 2, 1000, 1000, 128, True, torch.float32),
+    ("mha_full", 4, 16, 16, 1024, 1024, 128, False, torch.float32),
+    ("mqa", 4, 16, 1, 2048, 2048, 128, True, torch.float32),
+    ("long", 1, 16, 2, 8192, 8192, 128, True, torch.float32),
+)
 
 
 T_START = time.perf_counter()
@@ -1006,6 +1055,34 @@ def record_results(module: str, name: str):
 
 
 @contextmanager
+def record_peaks(module: str, name: str):
+    """``record_results`` that also measures each call's peak device bytes:
+    the most allocated during the call beyond what was allocated when it
+    began, plus the bytes of its first argument (the (N, b, b) stack it
+    solves, one of the memory model's buffers).  It resets the allocator's
+    peak counter at each call."""
+    mod = importlib.import_module(module)
+    inner = getattr(mod, name)
+    calls: list[tuple[tuple, dict, object, int]] = []
+
+    def recording(*args, **kwargs):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base + args[0].numel() * args[0].element_size()
+        calls.append((args, kwargs, out, peak))
+        return out
+
+    setattr(mod, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, inner)
+
+
+@contextmanager
 def record_prox_launches(module: str = "repro_torch.joint.admm",
                          name: str = "joint_prox_step"):
     """Keep the inputs of the first, every power-of-two-th and the last call
@@ -1539,18 +1616,50 @@ def oversize_budget() -> dict:
                 model_bytes=need)
 
 
-def budget_fit(budget: dict, peak_bytes: int, padded: int) -> dict:
+def eigh_workspace_bytes(b: int) -> int:
+    """Device bytes torch.linalg.eigh allocates beyond its operand and
+    eigenvalues for one (1, b, b) float64 matrix, run in place as the admm
+    solve runs it: the library's own workspace."""
+    a = torch.rand((1, b, b), dtype=torch.float64, device=DEV)
+    a = (a + a.mT).mT  # symmetric, column-major
+    d = torch.empty((1, b), dtype=torch.float64, device=DEV)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.linalg.eigh(a, out=(d, a))
+    torch.cuda.synchronize()
+    ws = torch.cuda.max_memory_allocated() - base
+    del a, d
+    return ws
+
+
+def budget_fit(budget: dict, peak_bytes: int, padded: int, with_check_bytes: int,
+               eigh_ws: int) -> dict:
     """Does the dense solve fit in the budget at the derived threshold?
-    Its measured peak bytes per padded entry, scaled to b = threshold,
-    against the budget; and the largest b whose scaled peak fits."""
+    The admm solve's measured peak bytes per padded entry (its block stack,
+    Z/U, the eigh buffer and eigh's workspace, or Q diag(.) and the
+    product) against the memory model's SINGLE_DEVICE_BUFFERS * 8, and the
+    largest b whose scaled peak fits the budget.  Its floor: the larger of
+    four (b, b) buffers plus eigh's own workspace (``eigh_ws``, measured on
+    its own) and six buffers.  ``with_check_bytes`` is the peak of the whole
+    checked solve (the engine run and the KKT check of the full Theta on
+    the card, the scope measured before), logged
+    beside it."""
     per_entry = peak_bytes / padded ** 2
+    model = SINGLE_DEVICE_BUFFERS * 8
+    floor = max(4 * 8 * padded ** 2 + eigh_ws, 6 * 8 * padded ** 2)
     fit_b = int(math.sqrt(budget["budget_mb"] * 2**20 / per_entry))
     return dict(budget_mb=f"{budget['budget_mb']:.1f}", total_mb=f"{budget['total_mb']:.1f}",
                 threshold=budget["threshold"], model_bytes=budget["model_bytes"],
-                model_bytes_per_entry=SINGLE_DEVICE_BUFFERS * 8,
+                model_bytes_per_entry=model,
                 dense_admm_peak_bytes=peak_bytes, dense_admm_padded=padded,
-                dense_admm_bytes_per_entry=f"{per_entry:.1f}", dense_admm_fit_b=fit_b,
-                threshold_fits_dense_solve=budget["threshold"] <= fit_b)
+                dense_admm_bytes_per_entry=f"{per_entry:.2f}", dense_admm_fit_b=fit_b,
+                eigh_workspace_bytes_per_entry=f"{eigh_ws / padded ** 2:.2f}",
+                floor_bytes_per_entry=f"{floor / padded ** 2:.2f}",
+                at_floor=peak_bytes <= 1.01 * floor,
+                gap_bytes_per_entry=f"{per_entry - model:.2f}",
+                with_check_bytes_per_entry=f"{with_check_bytes / padded ** 2:.2f}",
+                threshold_fits_dense_solve=per_entry <= model)
 
 
 def phase_oversize() -> tuple[dict, dict]:
@@ -1597,10 +1706,10 @@ def phase_oversize() -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    with record_results("repro_torch.core.solvers.admm", "glasso_admm_info") as dense_calls:
+    with record_peaks("repro_torch.core.solvers.admm", "glasso_admm_info") as dense_calls:
         _, dense = solve_on_card(case + " dense admm", S, lam, phase="oversize_dense",
                                  options=EngineOptions(solver="admm", solver_opts=ORACLE_OPTS))
-    dense_peak = torch.cuda.max_memory_allocated() - base
+    with_check_peak = torch.cuda.max_memory_allocated() - base
     diff = float(np.abs(res.Theta - dense.Theta).max())
     theta_bound = ROUTE_CHECK_TOL * max(1.0, smax)
     if not diff <= theta_bound:
@@ -1615,8 +1724,18 @@ def phase_oversize() -> tuple[dict, dict]:
         fallbacks=json.dumps(fallbacks, sort_keys=True),
         device_bytes=sol.device_bytes, max_memory_allocated=peak,
         solve_s_per_iteration=f"{res.stages()['solve'] / sol.iters:.6f}")
-    padded = max(c[0][0].shape[-1] for c in dense_calls)
-    log("oversize_budget", **budget_fit(budget, dense_peak, padded))
+    (args, _, _, dense_peak), = (c for c in dense_calls if c[0][0].shape[-1] >= b_giant)
+    padded = args[0].shape[-1]
+    fit = budget_fit(budget, dense_peak, padded, with_check_peak, eigh_workspace_bytes(padded))
+    log("oversize_budget", **fit)
+    # the solve holds nothing beyond its floor; whether that floor fits the
+    # model's 64 bytes an entry is logged (threshold_fits_dense_solve), and
+    # PERF.md states the gap
+    if not fit["at_floor"]:
+        raise AssertionError(
+            f"[oversize_budget] the dense admm solve peaks at {fit['dense_admm_bytes_per_entry']} "
+            f"bytes an entry, above its floor {fit['floor_bytes_per_entry']}")
+    del args
     _, mid_args, _ = first_middle_last(kept)[len(first_middle_last(kept)) // 2]
     split = sharded_iteration_split(S_pad, mid_args, lam,
                                     ns_steps=sol.inner_iters / max(sol.iters, 1))
@@ -1964,6 +2083,165 @@ def phase_joint_prox_k20() -> None:
                 plain_ms=f"{plain_ms:.4f}", bound_ms=f"{joint_prox_bound_ms(ops[0]):.6f}")
 
 
+def flash_bound(B: int, Hq: int, Hkv: int, Sq: int, Skv: int, d: int, causal: bool,
+                dtype: torch.dtype) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one attention: q, k, v read and o
+    written once; 4 B Hq Sq Skv d flops (the two products), halved when
+    causal, at the FP32 rate for float32 and the bf16 tensor-core rate for
+    bf16."""
+    itemsize = torch.finfo(dtype).bits // 8
+    t_bytes = 2 * B * d * (Hq * Sq + Hkv * Skv) * itemsize / HBM_BYTES_PER_S * 1e3
+    flops = 4.0 * B * Hq * Sq * Skv * d / (2 if causal else 1)
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    return t_bytes, flops / peak * 1e3
+
+
+def sdpa(q, k, v, *, causal: bool, scale: float):
+    """The library call for the same function: PyTorch's
+    scaled_dot_product_attention, K/V grouped by ``enable_gqa`` (a yardstick;
+    the port never calls it)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal, scale=scale,
+                                          enable_gqa=q.shape[1] != k.shape[1])
+
+
+def phase_flash_attention() -> dict:
+    """The flash_attention kernel against its plain version on FLASH_CASES;
+    CUDA-event times beside the bound, the plain version and SDPA.  Returns
+    the serving shape's float32 numbers (the main path's launches)."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.models.attention import _sdpa_chunked
+
+    rng = np.random.default_rng(17)
+    out = {}
+    for label, B, Hq, Hkv, Sq, Skv, d, causal, dtype in FLASH_CASES:
+        q, k, v = (torch.as_tensor(rng.standard_normal(sh, dtype=np.float32), device=DEV)
+                   .to(dtype) for sh in ((B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d)))
+        scale = d ** -0.5
+        if label == "long":
+            def plain():
+                return _sdpa_chunked(q, k, v, scale=scale, causal=causal)
+        else:
+            def plain():
+                return attention_ref(q, k, v, causal=causal, scale=scale)
+        got, want = flash_attention(q, k, v, causal=causal), plain()
+        if got.dtype != dtype or got.shape != q.shape:
+            raise AssertionError(f"flash_attention {label}: {got.dtype} {tuple(got.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= FLASH_ATOL[dtype]:
+            raise AssertionError(f"flash_attention {label} {dtype}: max|diff| {err} > "
+                                 f"{FLASH_ATOL[dtype]}")
+        lib_err = float((sdpa(q, k, v, causal=causal, scale=scale).float()
+                         - want.float()).abs().max())
+        del got, want
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        plain_ms = cuda_ms(plain, 3)
+        library_ms = cuda_ms(lambda: sdpa(q, k, v, causal=causal, scale=scale), 10)
+        t_bytes, t_ops = flash_bound(B, Hq, Hkv, Sq, Skv, d, causal, dtype)
+        bound = max(t_bytes, t_ops)
+        log("flash_attention", case=label, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, d=d,
+            causal=causal, dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
+            tol=FLASH_ATOL[dtype], plain="chunked" if label == "long" else "attention_ref",
+            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{library_ms:.4f}",
+            sdpa_max_abs_err=lib_err, bytes_ms=f"{t_bytes:.4f}", ops_ms=f"{t_ops:.4f}",
+            bound_ms=f"{bound:.4f}", share_of_bound=f"{bound / ms:.3f}",
+            sdpa_over_kernel=f"{library_ms / ms:.3f}")
+        if label == "full_width" and dtype == torch.float32:
+            out = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound, bound_by="operations" if t_ops > t_bytes else "bytes")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
+
+
+def max_abs(x: torch.Tensor) -> float:
+    return float(x.abs().max())
+
+
+def phase_serve() -> dict:
+    """The LM serving path at full width through launch/serve.py's
+    run_serving: the parameter count, flash launches per prefill (one a
+    layer), init / prefill / decode times and peak memory; then the
+    kernel's prefill logits against the dense path's on the card, and two
+    decode steps against fresh prefills of the extended prompt; one decode
+    step under the profiler.  Returns the serving run's launches."""
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models.transformer import padded_vocab
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    instrument.reset("kernels.")
+    run = run_serving(arch=SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      new_tokens=SERVE_NEW, reduced=False, seed=0, device="cuda",
+                      log=lambda msg: None)
+    launches = instrument.tail_counts("kernels.")
+    peak = torch.cuda.max_memory_allocated() - base
+    model, batch, cfg = run.model, run.batch, run.model.cfg
+    n_flash = launches.get("flash_attention.launches", 0)
+    if run.n_params != SERVE_PARAMS:
+        raise AssertionError(f"[serve] {run.n_params:,} parameters, expected {SERVE_PARAMS:,}")
+    if n_flash != cfg.n_layers:
+        raise AssertionError(f"[serve] {n_flash} flash launches for {cfg.n_layers} layers")
+    toks = run.tokens
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= padded_vocab(cfg):
+        raise AssertionError(f"[serve] tokens {tuple(toks.shape)} out of range")
+    with torch.inference_mode():
+        instrument.reset("kernels.")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(batch, capacity=SERVE_PROMPT + 2)
+        torch.cuda.synchronize()
+        flash_s = time.perf_counter() - t0
+        if instrument.count("kernels.flash_attention.launches") != cfg.n_layers:
+            raise AssertionError("[serve] the check's prefill did not launch flash_attention")
+        t0 = time.perf_counter()
+        dense, _ = model.prefill(batch, use_flash=False)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        if not (torch.isfinite(logits).all() and torch.isfinite(dense).all()):
+            raise AssertionError("[serve] non-finite prefill logits")
+        scale = max_abs(dense)
+        err = max_abs(logits - dense)
+        if not err <= SERVE_LOGITS_RTOL * scale:
+            raise AssertionError(f"[serve] flash prefill vs dense: {err} > "
+                                 f"{SERVE_LOGITS_RTOL} * {scale}")
+        argmax_equal = bool(torch.equal(logits.argmax(-1), dense.argmax(-1)))
+        del dense
+        tokens = batch["tokens"]
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        step_errs = []
+        for step in range(2):
+            dec, caches = model.decode_step(tok, caches, SERVE_PROMPT + step)
+            tokens = torch.cat([tokens, tok], dim=1)
+            fresh, _ = model.prefill({"tokens": tokens})
+            e, bound = max_abs(dec - fresh), SERVE_LOGITS_RTOL * max_abs(fresh)
+            if not e <= bound:
+                raise AssertionError(f"[serve] decode step {step} vs fresh prefill: {e} > {bound}")
+            step_errs.append(e)
+            tok = torch.argmax(dec, dim=-1)[:, None].to(torch.int32)
+            del fresh
+        device_busy("serve", f"{cfg.name} decode step B={SERVE_BATCH} pos={SERVE_PROMPT + 1}",
+                    lambda: model.decode_step(tok, caches, SERVE_PROMPT + 1))
+    log("serve", arch=cfg.name, dtype=cfg.dtype, params=run.n_params, batch=SERVE_BATCH,
+        prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        flash_launches_per_prefill=n_flash, launches=json.dumps(launches, sort_keys=True),
+        init_s=f"{run.init_s:.3f}", prefill_s=f"{run.prefill_s:.3f}",
+        decode_s=f"{run.decode_s:.3f}",
+        decode_ms_per_step=f"{run.decode_s / run.decode_steps * 1e3:.3f}",
+        decode_tokens_per_s=f"{SERVE_BATCH * run.decode_steps / run.decode_s:.1f}",
+        tokens_per_s=f"{run.tokens_per_s:.1f}", peak_bytes=peak,
+        check_prefill_flash_s=f"{flash_s:.3f}", check_prefill_dense_s=f"{dense_s:.3f}",
+        logits_vs_dense=err, max_abs_logits=scale, logits_tol_rel=SERVE_LOGITS_RTOL,
+        argmax_equal=argmax_equal, decode_vs_fresh_prefill=json.dumps(step_errs),
+        tokens_row0=json.dumps(toks[0].tolist()))
+    del run, model, batch, caches, logits, tokens
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2042,6 +2320,8 @@ def main() -> int:
     del sp_kept
     phase_f32(S, lam, host_res)
     phase_joint_prox_k20()
+    serve_launches = phase_serve()
+    fa = phase_flash_attention()
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -2112,6 +2392,15 @@ def main() -> int:
             "max_abs_err": cg["err"], "ms": cg["ms"], "plain_ms": cg["plain_ms"],
             "bound_ms": cg["bound_ms"], "bound_by": cg["bound_by"],
             "library_ms": cg["library_ms"],
+        },
+        {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/flash_attention.py:32",
+            "launches": serve_launches["flash_attention.launches"],
+            "max_abs_err": fa["err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+            "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+            "library_ms": fa["library_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,16 @@
+"""Qwen2.5-3B: dense GQA decoder with QKV bias [hf:Qwen/Qwen2.5].
+36L d_model=2048 16H GQA(kv=2) d_ff=11008 vocab=151936."""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-3b",
+    family="dense",
+    n_layers=36,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=2,
+    d_ff=11008,
+    vocab=151936,
+    qkv_bias=True,
+)

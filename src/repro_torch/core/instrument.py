@@ -13,6 +13,8 @@ read:
     kernels.joint_prox.launches     CUDA launches of the joint prox kernel
     kernels.prox_l1.launches        CUDA launches of the pg step kernel
     kernels.shard_prox.launches     CUDA launches of the ADMM prox-tail kernel
+    kernels.covgram.launches        CUDA launches of the centered Gram kernel
+    kernels.flash_attention.launches  CUDA launches of the prefill attention kernel
     structure.classified.oversize   components the planner classed oversize
     solver.oversize.dispatched / .cg_iters / .fallbacks
                                     sharded solves, their inner steps, and

@@ -47,13 +47,35 @@ def theta_update(
     S: torch.Tensor, Z: torch.Tensor, U: torch.Tensor, rho: torch.Tensor
 ) -> torch.Tensor:
     """Theta = Q diag((d + sqrt(d^2 + 4 rho)) / (2 rho)) Q' for the
-    eigendecomposition Q diag(d) Q' of rho*(Z - U) - S, per lane."""
-    r = rho[:, None, None]
-    rhs = r * (Z - U) - S
-    d, Q = torch.linalg.eigh(0.5 * (rhs + rhs.mT))
+    eigendecomposition Q diag(d) Q' of rho*(Z - U) - S, per lane.
+
+    Memory: the right-hand side is built and symmetrized in one buffer, and
+    eigh runs in place on it: the symmetric buffer's column-major view
+    holds the values of the column-major copy eigh would otherwise make, so
+    handing that view as both input and output skips the copy — the same
+    library call on the same values, the same bits.  During eigh only S,
+    Z, U, that buffer and eigh's workspace are live."""
+    rhs = (Z - U).mul_(rho[:, None, None]).sub_(S)
+    V = _symmetrize_(rhs).mT
+    d = torch.empty(V.shape[:-1], dtype=V.dtype, device=V.device)
+    d, Q = torch.linalg.eigh(V, out=(d, V))
     r1 = rho[:, None]
     theta_d = (d + torch.sqrt(d * d + 4.0 * r1)) / (2.0 * r1)
     return (Q * theta_d[:, None, :]) @ Q.mT
+
+
+def _symmetrize_(a: torch.Tensor) -> torch.Tensor:
+    """a <- 0.5 * (a + a') in place, 256 rows at a time: each step writes
+    rows [i0, i1) up to column i1 and the mirror columns, reading only
+    entries no earlier step has written, so every entry gets exactly
+    0.5 * (a_ij + a_ji).  The scratch is (N, 256, b), not (N, b, b)."""
+    b = a.shape[-1]
+    for i0 in range(0, b, 256):
+        i1 = min(i0 + 256, b)
+        sym = (a[:, i0:i1, :i1] + a[:, :i1, i0:i1].mT).mul_(0.5)
+        a[:, i0:i1, :i1] = sym
+        a[:, :i1, i0:i1] = sym.mT
+    return a
 
 
 def advance_lanes(state, new, active: torch.Tensor, eps: float, max_iter: int):
@@ -61,7 +83,11 @@ def advance_lanes(state, new, active: torch.Tensor, eps: float, max_iter: int):
     the freeze of finished lanes.  ``state`` is (Z, U, rho, r_prim, r_dual,
     it) with Z/U stacks of any trailing shape over (n,) lanes, ``new`` the
     prox step's (Z_new, U_new, rp2, rd2); returns the next (state, active).
-    Shared with the joint ADMM, whose lanes are (K, b, b) stacks."""
+    Shared with the joint ADMM, whose lanes are (K, b, b) stacks.
+
+    ``new``'s Z/U stacks become the next state's in place (a finished
+    lane's old values copied back into them), so no third pair of stacks
+    is allocated; the caller drops the old pair."""
     Z, U, rho, r_prim, r_dual, it = state
     Z_new, U_new, rp2, rd2 = new
     rp_new = torch.sqrt(rp2)
@@ -74,8 +100,8 @@ def advance_lanes(state, new, active: torch.Tensor, eps: float, max_iter: int):
     lanes = (-1,) + (1,) * (Z.ndim - 1)
     a = active.reshape(lanes)
     state = (
-        torch.where(a, Z_new, Z),
-        torch.where(a, U_new / factor.reshape(lanes), U),
+        torch.where(a, Z_new, Z, out=Z_new),
+        torch.where(a, U_new.div_(factor.reshape(lanes)), U, out=U_new),
         torch.where(active, rho * factor, rho),
         torch.where(active, rp_new, r_prim),
         torch.where(active, rd_new, r_dual),
@@ -117,6 +143,8 @@ def glasso_admm_info(
         usable = (usable & torch.isfinite(Z0c).all(dim=(1, 2)))[:, None, None]
         Z = torch.where(usable, Z0c, cold_Z)
         U = torch.where(usable, (W0 - S) / rho0[:, None, None], torch.zeros_like(S))
+        del Z0c
+    del cold_Z  # the loop holds one (Z, U) pair at a time
 
     eps = tol * b
     inf = torch.full((N,), math.inf, dtype=dtype, device=dev)
@@ -124,15 +152,18 @@ def glasso_admm_info(
     active = torch.full((N,), max_iter > 0, dtype=torch.bool, device=dev)
     # every lane starts active and counts each iteration it runs, so no
     # lane is still active after max_iter iterations of the bucket
+    del Z, U
     for step in range(max_iter):
         Z, U, rho = state[:3]
-        Theta = theta_update(S, Z, U, rho)
-        new = fused_prox_residual(Theta, U, Z, lam / rho)
+        new = fused_prox_residual(theta_update(S, Z, U, rho), U, Z, lam / rho)
+        del Z, U
         state, active = advance_lanes(state, new, active, eps, max_iter)
+        del new
         if (step + 1) % CHECK_EVERY == 0 and not bool(active.any()):
             break
     Z, it = state[0], state[5]
-    return 0.5 * (Z + Z.mT), it
+    del state
+    return (Z + Z.mT).mul_(0.5), it
 
 
 def glasso_admm_stack(

@@ -58,6 +58,12 @@ _SIGNATURES = {
     ),
     **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
     **{
+        f"flash_attention_launch_{t}": (
+            _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+        )
+        for t in ("f32", "bf16")
+    },
+    **{
         f"joint_prox_launch_{t}": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         )

@@ -669,3 +669,76 @@ def test_covgram_rejects_what_the_kernel_does_not_take(cuda_device):
         covgram(torch.zeros((4, 3), dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError, match=r"\(n, p\)"):
         covgram(torch.zeros(4, device=cuda_device))
+
+
+# flash_attention: the kernel sums the same float32 products as its plain
+# version in another order and normalises at the end (an online softmax)
+# instead of first: float32 within 2e-5 and bf16 within 3e-2, the
+# reference's own tolerances for its kernel (tests/test_kernels.py); the
+# bf16 output rounds once from float32 in both.
+_FLASH_SHAPES = [
+    (1, 4, 4, 64, 64, 16),     # MHA square
+    (2, 8, 2, 32, 32, 8),      # GQA 4:1
+    (1, 4, 1, 40, 72, 16),     # MQA, ragged and cross lengths
+    (2, 4, 2, 100, 100, 4),    # head_dim 4, ragged past one tile
+    (1, 16, 2, 300, 300, 128), # the full width's heads, ragged
+    (1, 2, 1, 129, 65, 64),    # Skv below Sq, a one-key last tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d", _FLASH_SHAPES)
+def test_flash_attention_matches_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d, causal, dtype):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    rng = np.random.default_rng(B * 1000 + Sq + d)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), device=cuda_device).to(dtype)
+               for s in ((B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d)))
+    instrument.reset("kernels.")
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.flash_attention.launches") == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros((1, 4, 8, 16), device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="head_dim 12"):
+        z = torch.zeros((1, 4, 8, 12), device=cuda_device)
+        flash_attention(z, z, z)
+    with pytest.raises(AssertionError, match="multiple of Hkv"):
+        flash_attention(q, q[:, :3], q[:, :3])
+
+
+def test_prefill_launches_flash_once_a_layer(cuda_device):
+    """Prefill on the card runs every layer's self-attention through the
+    kernel, and its logits agree with the reference's dense path on the
+    card; decode launches it never."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.specs import make_batch
+    from repro_torch.models.zoo import build_model
+
+    cfg = dataclasses.replace(get_arch("qwen2_5_3b").reduced(), dtype="float32")
+    model = build_model(cfg, device=cuda_device)
+    model.init(0)
+    batch = make_batch(cfg, ShapeConfig("s", 70, 2, "prefill"), seed=1, device=cuda_device)
+    instrument.reset("kernels.")
+    logits, caches = model.prefill(batch, capacity=72)
+    assert instrument.count("kernels.flash_attention.launches") == cfg.n_layers
+    dense, _ = model.prefill(batch, use_flash=False)
+    assert float((logits - dense).abs().max()) <= 1e-4 * float(dense.abs().max())
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    model.decode_step(tok, caches, 70)
+    assert instrument.count("kernels.flash_attention.launches") == cfg.n_layers

@@ -26,6 +26,12 @@ import repro_torch.kernels.prox_l1, repro_torch.kernels.shard_prox, repro_torch.
 import repro_torch.core.solvers.pg, repro_torch.core.solvers.admm, repro_torch.core.solvers.sharded
 import repro_torch.kernels.covgram, repro_torch.core.sparse, repro_torch.core.solvers.kkt
 import repro_torch.covariance.estimators, repro_torch.covariance.synthetic, repro_torch.joint.blocks
+import repro_torch.kernels.flash_attention, repro_torch.configs, repro_torch.configs.base
+import repro_torch.models.layers, repro_torch.models.attention, repro_torch.models.transformer
+import repro_torch.models.zoo, repro_torch.models.convert, repro_torch.data.specs
+import repro_torch.train.serving, repro_torch.launch.serve
+for arch in repro_torch.configs.list_archs():
+    repro_torch.configs.get_arch(arch)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -52,6 +58,17 @@ def test_cuda_is_the_default_and_never_falls_back(monkeypatch):
         repro_torch.Engine()
     r = repro_torch.glasso(S, 0.1, options=repro_torch.EngineOptions(device="cpu"))
     assert r.device == "cpu" and np.isfinite(r.Theta).all()
+
+
+def test_serving_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    from repro_torch.launch.serve import run_serving
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_serving(arch="qwen2_5_3b", batch=1, prompt_len=4, new_tokens=1)
+    run = run_serving(arch="qwen2_5_3b", batch=1, prompt_len=4, new_tokens=1,
+                      device="cpu", log=lambda _: None)
+    assert run.tokens.shape == (1, 1) and run.model.device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
