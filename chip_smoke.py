@@ -6,6 +6,13 @@ Phases, each printing a line:
 
 1. build     compile the CUDA kernels from ``src/repro_torch/csrc`` and
              print the build seconds and the card's name and power limit;
+1b. flash_attention  the kernel against its plain version at the
+             prefill's shape in float32 and bf16, a ragged length and full
+             MHA in both, MQA and a long causal case (against the plain
+             chunked form), timed beside its bound, the plain version and
+             SDPA, with the profiler's device time of each case (run
+             first, while the profiler is fresh: after sessions of
+             thousands of events it records short ones only in part);
 2. tree      ``tree_glasso`` against its plain PyTorch version on float64
              stacks at b in {2, 8, 64, 384}, sized to fill the card;
 3. bucket    ``bucket_glasso`` against its plain version, cold and warm
@@ -92,7 +99,10 @@ Phases, each printing a line:
              copies of the same inputs, held to the float32 plain versions)
              and are timed (ms_f32);
 17. shard_prox  the first, a middle and the last shard_prox launch of the
-             [oversize] solve, held against the plain version and timed;
+             [admm] and [oversize] solves, held against the plain version
+             (rp2/rd2 also against a second call, bit for bit) and timed;
+             the profiler's device events of one call, which must be the
+             one shard_prox kernel and nothing else;
 18. from_data_sparse  ``glasso(X=X, lam=0.30)`` with default options at
              bench_stream's p = 16000 workload: a SparseTheta whose
              partition equals the dense screen's on the card, its sparse
@@ -123,10 +133,13 @@ Phases, each printing a line:
              against the dense path's on the card, and two decode steps
              against fresh prefills of the extended prompt;
              [serve_profile] the device-busy share of one decode step;
-24. flash_attention  the kernel against its plain version at the prefill's
-             shape in float32 and bf16, a ragged length, full MHA, MQA and
-             a long causal case (against the plain chunked form), timed
-             beside its bound, the plain version and SDPA;
+24. prefill_bf16  qwen2.5-3b at full width in its config's own bfloat16
+             (random weights from seed 0), ``Model.prefill`` of a batch of
+             4 prompts of 2048 tokens: 36 launches of flash_attention's
+             wgmma body a prefill (counters zeroed just before, read just
+             after), the prefill's time, the kernel's device share of it,
+             the dense path's prefill time and peak bytes, and the logits
+             against the dense path's on the card (argmax agreement too);
 25. kernels  one JSON line: every ported kernel with its launches on its
              path and, summed over its recorded launches, its error, times
              and bound;
@@ -339,19 +352,29 @@ SERVE_PARAMS = 3_397_627_904
 # off), and the paths differ only in sum order — the attention's, ~1e-6 of
 # its outputs, carried through 36 layers
 SERVE_LOGITS_RTOL = 1e-3
+# [prefill_bf16]: the same model at its config's own bfloat16, one prefill
+# of SERVE_BATCH prompts of SERVE_PROMPT tokens.  Its logits against the
+# dense path's (use_flash=False) on the card, within this share of
+# max|logits|: both paths round to bf16 after every layer's products and
+# norms, and differ only in the attention's output (the kernel rounds p to
+# bf16 before p v and sums in another order: ~1 bf16 ulp of the output,
+# 2^-8 relative), which the residual stream carries through 36 layers
+PREFILL_BF16_RTOL = 5e-2
 # [flash_attention]: the kernel against its plain version within the
 # reference's own tolerances for its kernel (tests/test_kernels.py): float32
 # 2e-5, bf16 3e-2.  Cases (label, B, Hq, Hkv, Sq, Skv, d, causal, dtype): the
-# serving prefill's shape in float32 and bf16, a ragged length, full
-# (non-causal) MHA, MQA, and one long causal case held against the plain
-# chunked form (``_sdpa_chunked``, the reference's own path above
-# ATTN_CHUNK_THRESHOLD = 4096 query rows)
+# serving prefill's shape, a ragged length and full (non-causal) MHA in
+# float32 and bf16 (bf16 at d = 128 runs the wgmma body), MQA, and one long
+# causal case held against the plain chunked form (``_sdpa_chunked``, the
+# reference's own path above ATTN_CHUNK_THRESHOLD = 4096 query rows)
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 FLASH_CASES = (
     ("full_width", 4, 16, 2, 2048, 2048, 128, True, torch.float32),
     ("full_width", 4, 16, 2, 2048, 2048, 128, True, torch.bfloat16),
     ("ragged", 4, 16, 2, 1000, 1000, 128, True, torch.float32),
+    ("ragged", 4, 16, 2, 1000, 1000, 128, True, torch.bfloat16),
     ("mha_full", 4, 16, 16, 1024, 1024, 128, False, torch.float32),
+    ("mha_full", 4, 16, 16, 1024, 1024, 128, False, torch.bfloat16),
     ("mqa", 4, 16, 1, 2048, 2048, 128, True, torch.float32),
     ("long", 1, 16, 2, 8192, 8192, 128, True, torch.float32),
 )
@@ -379,6 +402,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host milliseconds to issue ``fn()`` (no synchronisation inside
+    the window: the enqueue cost, which bounds a launch-bound loop)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds * 1e3 / reps
 
 
 @contextmanager
@@ -1227,11 +1263,14 @@ def admm_iteration_split(S, lam1, lam2, args: tuple, *, penalty: str, iters: int
     return out
 
 
-def kernel_device_ms(fn, name: str, reps: int) -> float:
+def kernel_device_ms(fn, name: str, reps: int, per_call: int = 1) -> float:
     """Mean device milliseconds per call of the kernels whose names hold
-    ``name``, from torch.profiler's device events over ``reps`` calls (the
-    CUDA-event time of a call also holds the host's launch cost when the
-    host is the slower side); 0.0 where the profiler records none."""
+    ``name`` (``per_call`` such launches a call), from torch.profiler's
+    device events over ``reps`` calls: the mean duration of the events it
+    recorded, times ``per_call`` (the profiler may miss some of a window's
+    events, so their sum over ``reps`` would undercount); 0.0 where it
+    records none.  Unlike a call's CUDA-event time, it leaves out the
+    host's launch cost when the host is the slower side."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1241,9 +1280,9 @@ def kernel_device_ms(fn, name: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name)
-    return us / 1e3 / reps
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    return sum(us) / len(us) * per_call / 1e3 if us else 0.0
 
 
 def joint_prox_bound_ms(theta: torch.Tensor) -> float:
@@ -1486,20 +1525,53 @@ def prox_l1_on_path(kept: dict) -> dict:
     return out
 
 
+def device_events(fn, reps: int) -> dict[str, float]:
+    """The profiler's device events of ``fn()`` by name (without "void",
+    namespaces and arguments), each with its count a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ").strip()
+            counts[name] = counts.get(name, 0) + 1
+    return {name: n / reps for name, n in counts.items()}
+
+
 def shard_prox_on_path(kept: dict) -> dict:
     """The first, a middle and the last shard_prox launch of a solve: Z' and
-    U' bit-equal to the plain version, rp2/rd2 within SHARD_PROX_RTOL;
-    CUDA-event and device times, the plain version, and the nearest PyTorch
-    expression softshrink(x_new + u, t) (Z' only, no residuals)."""
+    U' bit-equal to the plain version, rp2/rd2 within SHARD_PROX_RTOL and
+    bit-equal to a second call's; one device event a call (the kernel, no
+    fill or copy beside it); CUDA-event and device times, the plain
+    version, and the nearest PyTorch expression softshrink(x_new + u, t)
+    (Z' only, no residuals)."""
     from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
 
     out = dict(n=0, err=0.0, rel_sums=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0,
-               library_ms=0.0, bound_ms=0.0, ms_f32=0.0, shapes=[])
+               library_ms=0.0, bound_ms=0.0, ms_f32=0.0, host_ms=0.0, library_host_ms=0.0,
+               shapes=[], events={})
     for i, args, kw in first_middle_last(kept):
         x, u, _, t = args
         got, want = fused_prox_residual(*args, **kw), fused_prox_ref(*args, **kw)
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             raise AssertionError(f"shard_prox launch {i}: Z'/U' differ from the plain version")
+        again = fused_prox_residual(*args, **kw)
+        if not (torch.equal(got[2], again[2]) and torch.equal(got[3], again[3])):
+            raise AssertionError(f"shard_prox launch {i}: rp2/rd2 differ from call to call")
+        # the profiler may miss a few microsecond-short events, never add one
+        events = device_events(lambda: fused_prox_residual(*args, **kw), 20)
+        if len(events) != 1 or "shard_prox" not in next(iter(events)) \
+                or not 0.0 < next(iter(events.values())) <= 1.0:
+            raise AssertionError(f"shard_prox launch {i}: device events a call {events}")
+        out["events"] = events
         a32 = as_f32(args)
         check_shard_prox_f32(fused_prox_residual(*a32, **kw), fused_prox_ref(*a32, **kw),
                              f"launch {i} in float32")
@@ -1518,6 +1590,9 @@ def shard_prox_on_path(kept: dict) -> dict:
                                              "shard_prox", 20)
         out["plain_ms"] += cuda_ms(lambda: fused_prox_ref(*args, **kw), 5)
         out["library_ms"] += cuda_ms(lambda: torch.nn.functional.softshrink(x + u, t0), 20)
+        out["host_ms"] += host_ms(lambda: fused_prox_residual(*args, **kw), 200)
+        out["library_host_ms"] += host_ms(
+            lambda: torch.nn.functional.softshrink(x + u, t0), 200)
         out["bound_ms"] += elementwise_bound_ms(x, 5)
         out["shapes"].append([i] + list(x.shape))
     return out
@@ -1529,7 +1604,10 @@ def log_shard_prox(path: str, sp: dict, launches: dict) -> None:
         launches_timed=sp["n"], shapes=json.dumps(sp["shapes"]), max_abs_err=sp["err"],
         rel_err_sums=sp["rel_sums"], ms=f"{sp['ms']:.4f}", device_ms=f"{sp['device_ms']:.4f}",
         plain_ms=f"{sp['plain_ms']:.4f}", softshrink_expression_ms=f"{sp['library_ms']:.4f}",
-        bound_ms=f"{sp['bound_ms']:.6f}", ms_f32=f"{sp['ms_f32']:.4f}")
+        bound_ms=f"{sp['bound_ms']:.6f}", ms_f32=f"{sp['ms_f32']:.4f}",
+        ms_over_expression=f"{sp['ms'] / sp['library_ms']:.3f}",
+        host_ms=f"{sp['host_ms']:.4f}", expression_host_ms=f"{sp['library_host_ms']:.4f}",
+        device_events_per_call=json.dumps(sp["events"]))
 
 
 def giant_workload(p: int, seed: int = 0) -> np.ndarray:
@@ -2108,8 +2186,10 @@ def sdpa(q, k, v, *, causal: bool, scale: float):
 
 def phase_flash_attention() -> dict:
     """The flash_attention kernel against its plain version on FLASH_CASES;
-    CUDA-event times beside the bound, the plain version and SDPA.  Returns
-    the serving shape's float32 numbers (the main path's launches)."""
+    CUDA-event and profiler device times beside the bound, the plain
+    version and SDPA.  Returns the serving shape's float32 numbers (the
+    [serve] path's launches) and, under "bf16", its bf16 numbers (the
+    [prefill_bf16] path's, the wgmma body)."""
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.models.attention import _sdpa_chunked
 
@@ -2125,9 +2205,13 @@ def phase_flash_attention() -> dict:
         else:
             def plain():
                 return attention_ref(q, k, v, causal=causal, scale=scale)
+        instrument.reset("kernels.")
         got, want = flash_attention(q, k, v, causal=causal), plain()
         if got.dtype != dtype or got.shape != q.shape:
             raise AssertionError(f"flash_attention {label}: {got.dtype} {tuple(got.shape)}")
+        body = "wgmma" if instrument.count("kernels.flash_attention.wgmma_launches") else "simt"
+        if body != ("wgmma" if dtype == torch.bfloat16 else "simt"):
+            raise AssertionError(f"flash_attention {label} {dtype} ran the {body} body")
         err = float((got.float() - want.float()).abs().max())
         if not err <= FLASH_ATOL[dtype]:
             raise AssertionError(f"flash_attention {label} {dtype}: max|diff| {err} > "
@@ -2136,20 +2220,29 @@ def phase_flash_attention() -> dict:
                          - want.float()).abs().max())
         del got, want
         ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 10)
+        device_ms = kernel_device_ms(lambda: flash_attention(q, k, v, causal=causal),
+                                     "flash_attention", 3 if label == "long" else 10)
         plain_ms = cuda_ms(plain, 3)
         library_ms = cuda_ms(lambda: sdpa(q, k, v, causal=causal, scale=scale), 10)
         t_bytes, t_ops = flash_bound(B, Hq, Hkv, Sq, Skv, d, causal, dtype)
         bound = max(t_bytes, t_ops)
         log("flash_attention", case=label, B=B, Hq=Hq, Hkv=Hkv, Sq=Sq, Skv=Skv, d=d,
-            causal=causal, dtype=str(dtype).removeprefix("torch."), max_abs_err=err,
-            tol=FLASH_ATOL[dtype], plain="chunked" if label == "long" else "attention_ref",
-            ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{library_ms:.4f}",
+            causal=causal, dtype=str(dtype).removeprefix("torch."), body=body,
+            max_abs_err=err, tol=FLASH_ATOL[dtype],
+            plain="chunked" if label == "long" else "attention_ref", ms=f"{ms:.4f}",
+            device_ms=f"{device_ms:.4f}" if device_ms else "not_measured",
+            plain_ms=f"{plain_ms:.4f}", sdpa_ms=f"{library_ms:.4f}",
             sdpa_max_abs_err=lib_err, bytes_ms=f"{t_bytes:.4f}", ops_ms=f"{t_ops:.4f}",
             bound_ms=f"{bound:.4f}", share_of_bound=f"{bound / ms:.3f}",
             sdpa_over_kernel=f"{library_ms / ms:.3f}")
-        if label == "full_width" and dtype == torch.float32:
-            out = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                       bound_ms=bound, bound_by="operations" if t_ops > t_bytes else "bytes")
+        if label == "full_width":
+            row = dict(err=err, ms=ms, device_ms=device_ms or None, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound,
+                       bound_by="operations" if t_ops > t_bytes else "bytes")
+            if dtype == torch.float32:
+                out.update(row)
+            else:
+                out["bf16"] = row
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -2242,6 +2335,78 @@ def phase_serve() -> dict:
     return launches
 
 
+def phase_prefill_bf16() -> dict:
+    """qwen2.5-3b at full width in its config's own bfloat16: one prefill of
+    SERVE_BATCH prompts of SERVE_PROMPT tokens through Model.prefill, whose
+    36 self-attentions run flash_attention's wgmma body (counters zeroed
+    just before the timed prefill, read just after); the kernel's device
+    share of the prefill from the profiler; the dense path's prefill time;
+    the logits against the dense path's within PREFILL_BF16_RTOL of
+    max|logits| and their argmax agreement; peak bytes of each."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.specs import make_batch
+    from repro_torch.models.zoo import build_model, count_params
+
+    cfg = get_arch(SERVE_ARCH)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"[prefill_bf16] {cfg.name}'s config dtype is {cfg.dtype}")
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg, device="cuda")
+    model.init(0)
+    n_params = count_params(model)
+    if n_params != SERVE_PARAMS:
+        raise AssertionError(
+            f"[prefill_bf16] {n_params:,} parameters, expected {SERVE_PARAMS:,}")
+    batch = make_batch(cfg, ShapeConfig("prefill_bf16", SERVE_PROMPT, SERVE_BATCH, "prefill"),
+                       seed=0, device="cuda")
+    with torch.inference_mode():
+        model.prefill(batch)  # warm-up: cuBLAS's bf16 kernels and workspaces
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        instrument.reset("kernels.")
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = instrument.tail_counts("kernels.")
+        peak = torch.cuda.max_memory_allocated() - base
+        del caches
+        n_wgmma = launches.get("flash_attention.wgmma_launches", 0)
+        if n_wgmma != cfg.n_layers or launches.get("flash_attention.launches") != cfg.n_layers:
+            raise AssertionError(f"[prefill_bf16] {launches} for {cfg.n_layers} layers")
+        flash_ms = kernel_device_ms(lambda: model.prefill(batch), "flash_attention", 2,
+                                    per_call=cfg.n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense, _ = model.prefill(batch, use_flash=False)
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        dense_peak = torch.cuda.max_memory_allocated() - base
+        if logits.dtype != torch.bfloat16 or logits.shape != dense.shape:
+            raise AssertionError(f"[prefill_bf16] logits {logits.dtype} {tuple(logits.shape)}")
+        if not (torch.isfinite(logits).all() and torch.isfinite(dense).all()):
+            raise AssertionError("[prefill_bf16] non-finite prefill logits")
+        scale = max_abs(dense.float())
+        err = max_abs(logits.float() - dense.float())
+        if not err <= PREFILL_BF16_RTOL * scale:
+            raise AssertionError(f"[prefill_bf16] flash prefill vs dense: {err} > "
+                                 f"{PREFILL_BF16_RTOL} * {scale}")
+        argmax_rows = int((logits.argmax(-1) == dense.argmax(-1)).sum())
+    log("prefill_bf16", arch=cfg.name, dtype=cfg.dtype, params=n_params, batch=SERVE_BATCH,
+        prompt_len=SERVE_PROMPT, launches=json.dumps(launches, sort_keys=True),
+        wgmma_launches_per_prefill=n_wgmma, prefill_s=f"{prefill_s:.4f}",
+        flash_device_ms=f"{flash_ms:.3f}",
+        flash_share_of_prefill=f"{flash_ms / (prefill_s * 1e3):.4f}",
+        dense_prefill_s=f"{dense_s:.4f}", peak_bytes=peak, dense_peak_bytes=dense_peak,
+        logits_vs_dense=err, max_abs_logits=scale, logits_tol_rel=PREFILL_BF16_RTOL,
+        argmax_equal_rows=f"{argmax_rows}/{SERVE_BATCH}")
+    del model, batch, logits, dense
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2250,6 +2415,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_build()
+    fa = phase_flash_attention()
     phase_tree()
     phase_bucket()
 
@@ -2321,7 +2487,7 @@ def main() -> int:
     phase_f32(S, lam, host_res)
     phase_joint_prox_k20()
     serve_launches = phase_serve()
-    fa = phase_flash_attention()
+    bf16_launches = phase_prefill_bf16()
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -2400,7 +2566,14 @@ def main() -> int:
             "launches": serve_launches["flash_attention.launches"],
             "max_abs_err": fa["err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
             "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
-            "library_ms": fa["library_ms"],
+            "library_ms": fa["library_ms"], "device_ms": fa["device_ms"],
+            # the bf16 instance (the wgmma body) on [prefill_bf16]'s path
+            "bf16": {
+                "launches": bf16_launches["flash_attention.wgmma_launches"],
+                **{key: fa["bf16"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")},
+                "max_abs_err": fa["bf16"]["err"],
+            },
         },
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

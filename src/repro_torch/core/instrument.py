@@ -15,6 +15,7 @@ read:
     kernels.shard_prox.launches     CUDA launches of the ADMM prox-tail kernel
     kernels.covgram.launches        CUDA launches of the centered Gram kernel
     kernels.flash_attention.launches  CUDA launches of the prefill attention kernel
+    kernels.flash_attention.wgmma_launches  those of them on its bf16 wgmma body
     structure.classified.oversize   components the planner classed oversize
     solver.oversize.dispatched / .cg_iters / .fallbacks
                                     sharded solves, their inner steps, and

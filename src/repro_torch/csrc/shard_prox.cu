@@ -21,15 +21,26 @@
 //
 // Bound on the H100: memory.  A few flops an entry against 5 itemsize bytes
 // (read x_new, u, z_old; write z_new, u_new), so the least time is
-// 5 N entries itemsize bytes at 3.35 TB/s.  Design: one thread per entry, a block of 256
-// consecutive entries of one lane, so every operand is read and written
-// coalesced.  Hopper's blocks run in parallel and in no order, so the
-// TPU's carried (1, 2) accumulator becomes per-block partials: warp
-// shuffles, then the block's warps in order, into a per-(lane, block)
-// buffer; a second kernel, one block per lane, has each thread sum a fixed
-// stride of that lane's partials in order and then reduces the threads in
-// a fixed tree.  No atomics: the sums decide the ADMM's convergence and are
-// the same from run to run.
+// 5 N entries itemsize bytes at 3.35 TB/s.  Design: one thread per entry;
+// 256 consecutive entries of one lane make a tile, so every operand is read
+// and written coalesced.  Hopper's blocks run in parallel and in no order,
+// so the TPU's carried (1, 2) accumulator becomes per-tile partials: warp
+// shuffles, then the tile's 8 warps in order, into a per-(lane, tile)
+// buffer.  One launch a call: just enough 256-thread blocks to fill the
+// card once (the occupancy calculator's count: 8 an SM), each walking the
+// tiles of its lane with a stride.  After writing its partials and a
+// __threadfence(), a block takes a ticket from its lane's counter — one
+// fence and one atomic a block, not a tile — and the block that takes the
+// lane's last ticket sums that lane's partials (thread k takes partials k,
+// k + 256, ... in order, then the same fixed tree), writes its rp2/rd2 and
+// resets the counter to 0 for the next call.  The atomic only counts; no
+// value is added atomically, so the sums are the same from run to run, and
+// bit-identical to a 256-thread block a tile and a second kernel over the
+// partials.  The threshold t is read through a pointer and a lane stride
+// (0 for one value, 1 for per-lane values), or passed by value when the
+// pointer is null, so the wrapper copies nothing; the partials and
+// counters are the wrapper's cached scratch (the counters zeroed once, when
+// allocated).
 
 #include <cuda_runtime.h>
 
@@ -39,8 +50,11 @@ namespace {
 
 using namespace repro_torch;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // a block, and the entries of a tile
+constexpr int kBlocksPerSM = 8;    // 2048 threads an SM: 32 registers a thread
 
+// the block's (p, d) summed in a fixed tree: warp shuffles, then the warps
+// in order; thread 0 holds the sum
 template <typename T>
 __device__ __forceinline__ void block_sum2(T& p, T& d, T (*warp_sums)[2]) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -64,104 +78,134 @@ __device__ __forceinline__ void block_sum2(T& p, T& d, T (*warp_sums)[2]) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
     shard_prox_kernel(const T* __restrict__ x, const T* __restrict__ u,
                       const T* __restrict__ z_old, const T* __restrict__ t,
-                      T* __restrict__ z_new, T* __restrict__ u_new,
-                      T* __restrict__ partial, long long entries, int tiles) {
-  const int lane = blockIdx.x / tiles;
-  const int tile = blockIdx.x - lane * tiles;
-  const long long e = (long long)tile * kThreads + threadIdx.x;
-  T rp = T(0), rd = T(0);
-  if (e < entries) {
-    const long long at = (long long)lane * entries + e;
-    const T xv = x[at];
-    const T a = xv + u[at];
-    T m = abs_t(a) - t[lane];
-    m = m > T(0) ? m : T(0);
-    // sign(a) * m: a * m keeps the sign of a zero and propagates a NaN
-    const T z = a > T(0) ? m : (a < T(0) ? -m : a * m);
-    z_new[at] = z;
-    u_new[at] = a - z;
-    const T dp = xv - z;
-    const T dd = z - z_old[at];
-    rp = mul_rn(dp, dp);
-    rd = mul_rn(dd, dd);
+                      long long t_stride, T t_value, T* __restrict__ z_new,
+                      T* __restrict__ u_new, T* __restrict__ rp2, T* __restrict__ rd2,
+                      T* __restrict__ partial, unsigned int* __restrict__ tickets,
+                      long long entries, int tiles, int blocks) {
+  const int lane = blockIdx.x / blocks;
+  const T tl = t != nullptr ? t[lane * t_stride] : t_value;
+  T* pl = partial + 2 * (long long)lane * tiles;
+  // two buffers, so a tile's warp sums never overwrite the last tile's
+  // before thread 0 has read them
+  __shared__ T warp_sums[2][kThreads / 32][2];
+  __shared__ bool last;
+  int parity = 0;
+  for (int tile = blockIdx.x - lane * blocks; tile < tiles; tile += blocks) {
+    const long long e = (long long)tile * kThreads + threadIdx.x;
+    T rp = T(0), rd = T(0);
+    if (e < entries) {
+      const long long at = (long long)lane * entries + e;
+      const T xv = x[at];
+      const T a = xv + u[at];
+      T m = abs_t(a) - tl;
+      m = m > T(0) ? m : T(0);
+      // sign(a) * m: a * m keeps the sign of a zero and propagates a NaN
+      const T z = a > T(0) ? m : (a < T(0) ? -m : a * m);
+      z_new[at] = z;
+      u_new[at] = a - z;
+      const T dp = xv - z;
+      const T dd = z - z_old[at];
+      rp = mul_rn(dp, dp);
+      rd = mul_rn(dd, dd);
+    }
+    block_sum2(rp, rd, warp_sums[parity]);
+    parity ^= 1;
+    if (threadIdx.x == 0) {
+      pl[2 * tile] = rp;
+      pl[2 * tile + 1] = rd;
+    }
   }
-  __shared__ T warp_sums[kThreads / 32][2];
-  block_sum2(rp, rd, warp_sums);
   if (threadIdx.x == 0) {
-    partial[2 * (long long)blockIdx.x] = rp;
-    partial[2 * (long long)blockIdx.x + 1] = rd;
+    __threadfence();  // the partials are visible before the ticket is taken
+    last = atomicAdd(&tickets[lane], 1u) == (unsigned int)(blocks - 1);
   }
-}
-
-// acc[lane] = [rp2, rd2]: thread k sums partials k, k + 256, ... in order,
-// then the threads reduce in a fixed tree
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    shard_prox_sum_kernel(const T* __restrict__ partial, T* __restrict__ acc,
-                          int tiles) {
-  const int lane = blockIdx.x;
-  const T* pl = partial + 2 * (long long)lane * tiles;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // rp2[lane], rd2[lane]: thread k sums partials k, k + 256, ... in order
+  // (read past L1: other blocks wrote them), then the fixed tree
   T p = T(0), d = T(0);
+#pragma unroll 8
   for (int k = threadIdx.x; k < tiles; k += kThreads) {
-    p = add_rn(p, pl[2 * k]);
-    d = add_rn(d, pl[2 * k + 1]);
+    p = add_rn(p, __ldcg(pl + 2 * k));
+    d = add_rn(d, __ldcg(pl + 2 * k + 1));
   }
-  __shared__ T warp_sums[kThreads / 32][2];
-  block_sum2(p, d, warp_sums);
+  block_sum2(p, d, warp_sums[parity]);
   if (threadIdx.x == 0) {
-    acc[2 * lane] = p;
-    acc[2 * lane + 1] = d;
+    rp2[lane] = p;
+    rd2[lane] = d;
+    tickets[lane] = 0u;
   }
 }
 
-int tiles_for(long long entries) {
-  return (int)((entries + kThreads - 1) / kThreads);
+// resident blocks of the kernel the current device holds at once (SMs x
+// blocks an SM, from the occupancy calculator), looked up once a device
+template <typename T>
+int resident_blocks() {
+  static int cached[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shard_prox_kernel<T>,
+                                                      kThreads, 0) != cudaSuccess)
+      return 0;
+    cached[dev] = sms * per_sm;
+  }
+  return cached[dev];
 }
 
 template <typename T>
 int launch(const void* x_new, const void* u, const void* z_old, const void* t,
-           void* z_new, void* u_new, void* partial, void* acc, int n,
-           long long entries, void* stream) {
+           long long t_stride, double t_value, void* z_new, void* u_new, void* rp2,
+           void* rd2, void* partial, void* tickets, int n, long long entries,
+           void* stream) {
   if (n <= 0 || entries <= 0) return 0;
   const long long tiles = (entries + kThreads - 1) / kThreads;
-  const long long grid = (long long)n * tiles;
-  if (grid > 2147483647LL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  shard_prox_kernel<T><<<(unsigned)grid, kThreads, 0, s>>>(
-      (const T*)x_new, (const T*)u, (const T*)z_old, (const T*)t, (T*)z_new,
-      (T*)u_new, (T*)partial, entries, (int)tiles);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  shard_prox_sum_kernel<T><<<n, kThreads, 0, s>>>((const T*)partial, (T*)acc,
-                                                  (int)tiles);
+  if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
+  // enough blocks to fill the card once, each walking its lane's tiles
+  const int resident = resident_blocks<T>();
+  if (resident <= 0) {
+    const cudaError_t e = cudaGetLastError();
+    return (int)(e != cudaSuccess ? e : cudaErrorUnknown);
+  }
+  const long long fill = (resident + n - 1) / n;
+  const long long blocks = tiles < fill ? tiles : fill;
+  if ((long long)n * blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  shard_prox_kernel<T><<<(unsigned)(n * blocks), kThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)x_new, (const T*)u, (const T*)z_old, (const T*)t, t_stride, (T)t_value,
+      (T*)z_new, (T*)u_new, (T*)rp2, (T*)rd2, (T*)partial, (unsigned int*)tickets,
+      entries, (int)tiles, (int)blocks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// values of scratch (of the operands' dtype) the launcher needs for n lanes
-// of `entries` values
-extern "C" long long shard_prox_scratch_values(int n, long long entries) {
-  return 2LL * n * tiles_for(entries);
-}
-
+// n lanes of `entries` values each.  t: per-lane thresholds read at
+// t[lane * t_stride], or t_value for every lane when t is null.  rp2, rd2:
+// n values each.  partial:
+// 2 n ceil(entries / 256) values of the operands' dtype; tickets: n
+// unsigned ints, all 0 on entry and left 0.
 extern "C" int shard_prox_launch_f64(const void* x_new, const void* u,
                                      const void* z_old, const void* t,
-                                     void* z_new, void* u_new, void* partial,
-                                     void* acc, int n, long long entries,
-                                     void* stream) {
-  return launch<double>(x_new, u, z_old, t, z_new, u_new, partial, acc, n,
-                        entries, stream);
+                                     long long t_stride, double t_value,
+                                     void* z_new, void* u_new, void* rp2,
+                                     void* rd2, void* partial, void* tickets,
+                                     int n, long long entries, void* stream) {
+  return launch<double>(x_new, u, z_old, t, t_stride, t_value, z_new, u_new, rp2,
+                        rd2, partial, tickets, n, entries, stream);
 }
 
 extern "C" int shard_prox_launch_f32(const void* x_new, const void* u,
                                      const void* z_old, const void* t,
-                                     void* z_new, void* u_new, void* partial,
-                                     void* acc, int n, long long entries,
-                                     void* stream) {
-  return launch<float>(x_new, u, z_old, t, z_new, u_new, partial, acc, n,
-                       entries, stream);
+                                     long long t_stride, double t_value,
+                                     void* z_new, void* u_new, void* rp2,
+                                     void* rd2, void* partial, void* tickets,
+                                     int n, long long entries, void* stream) {
+  return launch<float>(x_new, u, z_old, t, t_stride, t_value, z_new, u_new, rp2,
+                       rd2, partial, tickets, n, entries, stream);
 }

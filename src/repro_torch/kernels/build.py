@@ -27,11 +27,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+#: CUTLASS's headers (``$CUTLASS_HOME/include``): flash_attention's wgmma
+#: body takes its shared-memory descriptor type from CuTe
+CUTLASS_INCLUDE = Path(os.environ.get("CUTLASS_HOME", "/usr/local/cutlass")) / "include"
 
-#: sm_90a: the Hopper target with wgmma/setmaxnreg (plain sm_90 refuses them)
+#: sm_90a: the Hopper target with wgmma/setmaxnreg (plain sm_90 refuses them).
+#: No -lcuda: the driver's cuTensorMapEncodeTiled is looked up at run time
+#: (cudaGetDriverEntryPointByVersion in csrc/flash_attention.cu)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-I", str(CUTLASS_INCLUDE),
 )
 
 _LOCK = threading.Lock()
@@ -58,10 +64,9 @@ _SIGNATURES = {
     ),
     **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
     **{
-        f"flash_attention_launch_{t}": (
-            _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
-        )
-        for t in ("f32", "bf16")
+        name: (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
+        for name in ("flash_attention_launch_f32", "flash_attention_launch_bf16",
+                     "flash_attention_wgmma_launch_bf16")
     },
     **{
         f"joint_prox_launch_{t}": (
@@ -75,11 +80,11 @@ _SIGNATURES = {
     },
     **{
         f"shard_prox_launch_{t}": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong, _P],
+            _I, [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_double, _P, _P, _P, _P, _P, _P,
+                 _I, ctypes.c_longlong, _P],
         )
         for t in ("f64", "f32")
     },
-    "shard_prox_scratch_values": (ctypes.c_longlong, [_I, ctypes.c_longlong]),
     "repro_torch_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -123,6 +128,11 @@ def build() -> tuple[Path, float, str]:
     target = library_path()
     if target.is_file():
         return target, 0.0, ""
+    if not (CUTLASS_INCLUDE / "cute").is_dir():
+        raise RuntimeError(
+            f"CUTLASS headers not found at {CUTLASS_INCLUDE} (set CUTLASS_HOME); "
+            "csrc/flash_attention.cu includes CuTe's cute/arch/mma_sm90_desc.hpp"
+        )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
     t0 = time.perf_counter()

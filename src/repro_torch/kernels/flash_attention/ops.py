@@ -4,9 +4,13 @@ plain version on the CPU.
 The reference's wrapper flattens (B, H) and pads Sq and Skv to its block
 sizes; the CUDA kernel masks the ragged rows and keys itself, so no padded
 copy exists, and reads K/V head ``bh // group`` for query head ``bh``, so
-no repeated K/V exists either.  float32 and bf16 go to the kernel as they
-are (bf16 is upcast per element as it is staged); the output has q's
-dtype."""
+no repeated K/V exists either.  The output has q's dtype.
+
+``csrc/flash_attention.cu`` has two hand-written bodies, chosen here by
+dtype and head dim: bf16 at d in ``WGMMA_HEAD_DIMS`` runs the tensor-core
+body (wgmma fed by TMA; it also bumps
+``kernels.flash_attention.wgmma_launches``), every float32 call and bf16 at
+d in {4, 8} the SIMT body (float32 FMAs, bf16 upcast as it is staged)."""
 
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 _INSTANCES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: head dims the kernel has an instance for
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+#: bf16 head dims the wgmma body takes (wgmma's depth is 16 bf16 values)
+WGMMA_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def flash_attention(
@@ -36,7 +42,8 @@ def flash_attention(
 
     A CPU tensor runs the plain version; a CUDA tensor launches
     ``csrc/flash_attention.cu`` or raises.  Each launch bumps
-    ``kernels.flash_attention.launches``."""
+    ``kernels.flash_attention.launches``, and a launch of the wgmma body
+    also ``kernels.flash_attention.wgmma_launches``."""
     B, Hq, Sq, d = q.shape
     _, Hkv, Skv, _ = k.shape
     assert Hq % Hkv == 0, "GQA requires Hq to be a multiple of Hkv"
@@ -59,16 +66,23 @@ def flash_attention(
         raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention: q, k and v must lie on {q.device}")
+    wgmma = q.dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS
     q, k, v = (x.contiguous() for x in (q, k, v))
+    if wgmma:  # TMA reads from 16-byte aligned addresses only
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    entry = ("flash_attention_wgmma_launch_bf16" if wgmma
+             else f"flash_attention_launch_{_INSTANCES[q.dtype]}")
     with torch.cuda.device(q.device):
-        status = getattr(library(), f"flash_attention_launch_{_INSTANCES[q.dtype]}")(
+        status = getattr(library(), entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B * Hq, Hq // Hkv, Sq, Skv, d, scale, int(causal),
             torch.cuda.current_stream().cuda_stream,
         )
-    check(status, "flash_attention")
+    check(status, entry)
     bump("kernels.flash_attention.launches")
+    if wgmma:
+        bump("kernels.flash_attention.wgmma_launches")
     return out

@@ -539,6 +539,82 @@ def test_shard_prox_matches_plain(cuda_device, shape):
         assert torch.equal(g, a)
 
 
+# shard_prox is one launch a call: each block writes its partials and takes
+# a ticket; the lane's last block sums the partials in a fixed order and
+# resets the lane's counter in the cached scratch
+@pytest.mark.parametrize("shape", [(1280, 1280), (7, 300, 300)])
+def test_shard_prox_sums_are_bit_identical_from_call_to_call(cuda_device, shape):
+    from repro_torch.kernels.shard_prox import fused_prox_residual
+
+    rng = np.random.default_rng(len(shape))
+    x, u, z = (torch.as_tensor(rng.standard_normal(shape), device=cuda_device)
+               for _ in range(3))
+    t = (torch.as_tensor(rng.uniform(0.05, 1.0, shape[0]), device=cuda_device)
+         if len(shape) == 3 else torch.tensor(0.3, dtype=torch.float64, device=cuda_device))
+    first = fused_prox_residual(x, u, z, t)
+    for _ in range(3):
+        again = fused_prox_residual(x, u, z, t)
+        torch.cuda.synchronize()
+        assert torch.equal(first[2], again[2]) and torch.equal(first[3], again[3])
+
+
+def test_shard_prox_scratch_is_reused_across_lane_counts_and_sizes(cuda_device):
+    """Calls of different lane counts and sizes one after another share the
+    cached scratch: every call matches the plain version and leaves every
+    lane counter at zero."""
+    from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
+    from repro_torch.kernels.shard_prox.ops import _SCRATCH
+
+    rng = np.random.default_rng(77)
+    for dtype in (torch.float64, torch.float32):
+        for shape in [(5, 64, 64), (2, 300, 300), (9, 17, 17), (600, 600), (12, 40, 40),
+                      (5, 64, 64)]:
+            x, u, z = (torch.as_tensor(rng.standard_normal(shape), device=cuda_device)
+                       .to(dtype) for _ in range(3))
+            t = (torch.as_tensor(rng.uniform(0.05, 1.0, shape[0]), device=cuda_device)
+                 .to(dtype) if len(shape) == 3 else 0.4)
+            got, want = fused_prox_residual(x, u, z, t), fused_prox_ref(x, u, z, t)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            rtol = 1e-14 if dtype == torch.float64 else F32_SUM_RTOL
+            for g, w in zip(got[2:], want[2:]):
+                assert g.shape == w.shape
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
+            _, tickets = _SCRATCH[(x.device, dtype)]
+            assert int(tickets.abs().sum()) == 0
+
+
+def test_shard_prox_threshold_forms_agree(cuda_device):
+    """A 0-d tensor t, a Python scalar t and an (N,) t (contiguous, and a
+    strided view) give the same Z', U', rp2 and rd2 as the plain version."""
+    from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
+
+    rng = np.random.default_rng(78)
+    x, u, z = (torch.as_tensor(rng.standard_normal((4, 130, 130)), device=cuda_device)
+               for _ in range(3))
+    value = 0.35
+    lanes = torch.full((4,), value, dtype=torch.float64, device=cuda_device)
+    strided = torch.full((4, 2), value, dtype=torch.float64, device=cuda_device)[:, 0]
+    forms = [torch.tensor(value, dtype=torch.float64, device=cuda_device), value, lanes, strided]
+    want = fused_prox_ref(x, u, z, value)
+    outs = [fused_prox_residual(x, u, z, t) for t in forms]
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for g, w in zip(got[2:], want[2:]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-14)
+        assert torch.equal(got[2], outs[0][2]) and torch.equal(got[3], outs[0][3])
+    single = [fused_prox_residual(x[0], u[0], z[0], t)
+              for t in (forms[0], value, lanes[:1])]
+    want = fused_prox_ref(x[0], u[0], z[0], value)
+    for got in single:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2].shape == () and torch.equal(got[2], single[0][2])
+        np.testing.assert_allclose(float(got[3]), float(want[3]), rtol=1e-14)
+    with pytest.raises(ValueError, match="t must be"):
+        fused_prox_residual(x, u, z, lanes[:3])
+
+
 def _solver_lanes(rng, n, b):
     blocks, lams = [], []
     for _ in range(n):
@@ -675,7 +751,8 @@ def test_covgram_rejects_what_the_kernel_does_not_take(cuda_device):
 # version in another order and normalises at the end (an online softmax)
 # instead of first: float32 within 2e-5 and bf16 within 3e-2, the
 # reference's own tolerances for its kernel (tests/test_kernels.py); the
-# bf16 output rounds once from float32 in both.
+# bf16 output rounds once from float32 in both.  bf16 at d >= 16 runs the
+# wgmma body, which also rounds p to bf16 before p v.
 _FLASH_SHAPES = [
     (1, 4, 4, 64, 64, 16),     # MHA square
     (2, 8, 2, 32, 32, 8),      # GQA 4:1
@@ -683,6 +760,9 @@ _FLASH_SHAPES = [
     (2, 4, 2, 100, 100, 4),    # head_dim 4, ragged past one tile
     (1, 16, 2, 300, 300, 128), # the full width's heads, ragged
     (1, 2, 1, 129, 65, 64),    # Skv below Sq, a one-key last tile
+    (2, 4, 2, 300, 237, 64),   # several key tiles, Skv ragged below Sq
+    (1, 8, 1, 190, 450, 128),  # several key tiles, Skv ragged above Sq
+    (2, 4, 2, 96, 160, 32),    # d = 32 (64-byte swizzle), ragged
 ]
 
 
@@ -700,6 +780,8 @@ def test_flash_attention_matches_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d, caus
     want = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert instrument.count("kernels.flash_attention.launches") == 1
+    wgmma = dtype == torch.bfloat16 and d >= 16
+    assert instrument.count("kernels.flash_attention.wgmma_launches") == int(wgmma)
     assert got.dtype == dtype and got.shape == q.shape
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
@@ -742,3 +824,28 @@ def test_prefill_launches_flash_once_a_layer(cuda_device):
     tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
     model.decode_step(tok, caches, 70)
     assert instrument.count("kernels.flash_attention.launches") == cfg.n_layers
+
+
+def test_bf16_prefill_runs_the_wgmma_body(cuda_device):
+    """A bf16 prefill (the configs' own dtype) sends every layer's
+    self-attention to the wgmma body; its logits stay within 5e-2
+    max|logits| of the dense path's: both round to bf16 after every
+    layer, and differ only in the attention output's rounding (~1 bf16
+    ulp, 2^-8 relative), which the residual stream carries."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.specs import make_batch
+    from repro_torch.models.zoo import build_model
+
+    cfg = get_arch("qwen2_5_3b").reduced()
+    assert cfg.dtype == "bfloat16"
+    model = build_model(cfg, device=cuda_device)
+    model.init(0)
+    batch = make_batch(cfg, ShapeConfig("s", 200, 2, "prefill"), seed=1, device=cuda_device)
+    instrument.reset("kernels.")
+    logits, _ = model.prefill(batch)
+    assert instrument.count("kernels.flash_attention.launches") == cfg.n_layers
+    assert instrument.count("kernels.flash_attention.wgmma_launches") == cfg.n_layers
+    dense, _ = model.prefill(batch, use_flash=False)
+    assert torch.isfinite(logits.float()).all()
+    scale = float(dense.float().abs().max())
+    assert float((logits.float() - dense.float()).abs().max()) <= 5e-2 * scale

@@ -91,6 +91,46 @@ def test_plain_matches_reference_kernel_random_shapes(seed):
                                rtol=TOL[torch.float32])
 
 
+def _wgmma_arithmetic(q, k, v, *, causal, scale=None, tile=64):
+    """The card's bf16 wgmma body in plain torch: float32 scores of bf16
+    inputs, an online softmax over 64-key tiles in base 2, P rounded to
+    bf16 before P V, float32 sums, the output rounded to bf16."""
+    B, Hq, Sq, d = q.shape
+    Hkv, Skv = k.shape[1:3]
+    scale = d**-0.5 if scale is None else scale
+    qf = q.float()
+    kf, vf = (torch.repeat_interleave(x, Hq // Hkv, dim=1).float() for x in (k, v))
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, d))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, tile):
+        kpos = torch.arange(k0, min(k0 + tile, Skv))[None, :]
+        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * (scale * 1.4426950408889634)
+        if causal:
+            s = s.masked_fill(kpos > qpos, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv,d", SHAPES + [(1, 2, 1, 129, 65, 64)])
+def test_bf16_p_rounding_stays_within_the_reference_tolerance(B, Hq, Hkv, Sq, Skv, d, causal):
+    """Rounding P to bf16 before P V (the wgmma body's A operand) keeps the
+    bf16 output within the reference's own 3e-2 of its oracle."""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(5, B, Hq, Hkv, Sq, Skv, d), torch.bfloat16)
+    got = _wgmma_arithmetic(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    oracle = jax_attention_ref(jq, jk, jv, causal=causal)
+    tol = TOL[torch.bfloat16]
+    np.testing.assert_allclose(_f32(got), _f32(oracle), atol=tol, rtol=tol)
+
+
 def test_explicit_scale_matches_the_reference():
     (q, k, v), (jq, jk, jv) = _both(_inputs(3, 1, 4, 2, 24, 24, 8), torch.float32)
     got = flash_attention(q, k, v, causal=True, scale=0.3)

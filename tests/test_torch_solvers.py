@@ -184,6 +184,31 @@ def test_shard_prox_row_tiled_and_stacked():
         assert float(rp[k]) == float(rpk) and float(rd[k]) == float(rdk)
 
 
+@pytest.mark.parametrize("form", ["0-d tensor", "python scalar", "per-lane tensor"])
+def test_shard_prox_threshold_forms_match_reference(form):
+    """The wrapper's CPU path takes t as a 0-d tensor (the sharded solver's
+    lam/rho), a Python scalar, or one value a lane (the dense admm's):
+    every lane equals the reference's ``fused_prox_ref`` at that lane's t."""
+    rng = np.random.default_rng(11)
+    N, rl, b = 3, 20, 24
+    x, u, z = (rng.standard_normal((N, rl, b)) for _ in range(3))
+    ts = rng.uniform(0.05, 1.0, N) if form == "per-lane tensor" else np.full(N, 0.45)
+    t = {"0-d tensor": torch.tensor(0.45, dtype=torch.float64),
+         "python scalar": 0.45, "per-lane tensor": _t(ts)}[form]
+    zn, un, rp, rd = fused_prox_residual(_t(x), _t(u), _t(z), t)
+    assert rp.shape == rd.shape == (N,)
+    for k in range(N):
+        zr, ur, rp_r, rd_r = jax_fused_ref(
+            jnp.asarray(x[k]), jnp.asarray(u[k]), jnp.asarray(z[k]), float(ts[k]))
+        assert np.array_equal(zn[k].numpy(), np.asarray(zr))
+        assert np.array_equal(un[k].numpy(), np.asarray(ur))
+        np.testing.assert_allclose([float(rp[k]), float(rd[k])], [float(rp_r), float(rd_r)],
+                                   rtol=SUM_RTOL)
+    if form != "per-lane tensor":  # one shard with a scalar t
+        z1, u1, rp1, rd1 = fused_prox_residual(_t(x[0]), _t(u[0]), _t(z[0]), t)
+        assert rp1.shape == () and torch.equal(z1, zn[0]) and torch.equal(u1, un[0])
+
+
 # --------------------------------------------------------------------- pg
 
 
