@@ -41,16 +41,23 @@ Phases, each printing a line:
              zeroed just before and read just after; every hook step of
              the first solve is recorded, then held against its plain
              version and timed on its own inputs;
+1c. card_tests  the card tests of covgram_screen and joint_prox
+             (``tests/test_torch_cuda_kernels.py -k CARD_TESTS``) in a
+             subprocess;
 7. covgram_screen  the fused Gram + threshold kernel against its plain
              version at n = 192, tile 512 and tile 2048, on the tile pairs
-             the two data paths below schedule;
+             the two data paths below schedule: CUDA-event and profiler
+             device ms (the tile indices on the card, as the paths pass
+             them; ``ms_host_indices`` with numpy ones), the share of the
+             bound and one device event a call;
 8. from_data ``glasso(X=X, lam=0.40, from_data=True)`` at p = 8000 (the
              benchmarks' dense-from-data arm): labels equal to the host
              union-find on the card's dense ``sample_covariance(X)``,
              cross-component zeros, KKT, and the margin min ||S_ij| - lam|
              that shows the kernel's sum order cannot flip an edge; every
              covgram_screen launch of the first solve is recorded, then
-             held against its plain version and timed on its own inputs;
+             held against its plain version and timed on its own inputs
+             (device ms and the share of the bound too);
 9. stream    ``stream_screen`` over an 8-lambda grid at p = 16000: every
              partition equal to the dense one;
 10. joint    ``joint_glasso`` (group penalty) on the card at p = 6000,
@@ -71,7 +78,11 @@ Phases, each printing a line:
              candidate pairs and the tiles skipped;
 13. joint_prox  the first, a middle and the last joint_prox launch of the
              [joint] and [joint_fused] solves, each held against its plain
-             version on its own inputs and timed;
+             version on its own inputs (rp2/rd2 also against a second call,
+             bit for bit) and timed, times summed over the three; the host
+             ms to issue a call, and the profiler's device events of one
+             call, which must be the one joint_prox kernel and nothing
+             else;
 14. pg, admm ``glasso(S, lam, solver="pg" | "admm")`` on the p = 6000 case
              of phase 4 (tol 1e-9), first and repeat: the checks of phase
              4, every rung of the route mix, Theta against phase 4's bcd
@@ -154,6 +165,7 @@ from __future__ import annotations
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -163,7 +175,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import Engine, EngineOptions, glasso  # noqa: E402
 from repro_torch.core import instrument  # noqa: E402
@@ -203,12 +216,14 @@ from repro_torch.kernels.covgram_screen import (  # noqa: E402
     covgram_screen_tiles,
     pad_for_screen,
 )
+from repro_torch.kernels.covgram_screen.ops import MMA  # noqa: E402
 from repro_torch.kernels.threshold_cc import (  # noqa: E402
     connected_components_kernel,
     labelprop_step,
     labelprop_step_ref,
 )
 from repro_torch.kernels.tree_glasso.ref import glasso_forest_ref  # noqa: E402
+from repro_torch.obs.device_profile import profile_calls  # noqa: E402
 from repro_torch.stream import stream_screen  # noqa: E402
 from repro_torch.stream.tiler import (  # noqa: E402
     column_moments,
@@ -477,6 +492,28 @@ def phase_build() -> None:
     log("build", seconds=f"{seconds:.3f}", library=path.name, ptxas="; ".join(usage))
     log("card", nvidia_smi=json.dumps(card_line()), torch=torch.__version__,
         cuda=torch.version.cuda)
+
+
+#: the card tests run as a phase: those of the kernels redesigned last,
+#: on shapes the paths never give them (ragged and odd tiles, K above 113,
+#: scratch reuse, bit-identical sums)
+CARD_TESTS = "covgram_screen or joint_prox"
+
+
+def phase_card_tests() -> None:
+    """``tests/test_torch_cuda_kernels.py -k CARD_TESTS`` in a subprocess
+    (no conftest: it imports JAX, which the port's machine need not have)."""
+    cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+           "tests/test_torch_cuda_kernels.py", "-k", CARD_TESTS]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    lines = r.stdout.strip().splitlines()
+    log("card_tests", selection=json.dumps(CARD_TESTS),
+        result=json.dumps(lines[-1] if lines else ""), seconds=f"{time.perf_counter() - t0:.1f}")
+    if r.returncode != 0 or not lines or "skipped" in lines[-1]:
+        print(r.stdout[-6000:], r.stderr[-2000:], sep="\n", flush=True)
+        raise AssertionError(f"card tests failed or skipped (exit {r.returncode})")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -894,8 +931,13 @@ def covgram_bound(N: int, P: int, B: int, bp: int) -> tuple[float, float]:
 def covgram_measure(label: str, x_pad, mu_pad, ti, tj, lam: float, *, n_true: int,
                     p_true: int, block_p: int) -> dict:
     """covgram_screen against its plain version and the library Gram on one
-    launch's inputs: raises on disagreement; returns the error, the
-    CUDA-event times and the bound."""
+    launch's inputs: raises on disagreement or on a call that is more than
+    its one kernel; returns the error, the bound and the CUDA-event, device
+    and host times of a call with the tile indices as int32 tensors on the
+    card, the form the paths pass (``ms_host_indices``: the same call with
+    numpy indices, which adds their two host-to-device copies)."""
+    ti = torch.as_tensor(ti, dtype=torch.int32, device=x_pad.device)
+    tj = torch.as_tensor(tj, dtype=torch.int32, device=x_pad.device)
     args = (x_pad, mu_pad, ti, tj, lam)
     kw = dict(n_true=n_true, p_true=p_true, block_p=block_p)
     got = covgram_screen_tiles(*args, **kw)
@@ -903,20 +945,29 @@ def covgram_measure(label: str, x_pad, mu_pad, ti, tj, lam: float, *, n_true: in
     scale = float(want[2][:, 0].max()) if len(ti) else 1.0
     err = max(float((got[0] - want[0]).abs().max()), float((got[2] - want[2]).abs().max()))
     if not err <= COVGRAM_RTOL * scale:
-        raise AssertionError(f"covgram_screen {label}: max|diff|={err} > {COVGRAM_RTOL}*{scale}")
+        raise AssertionError(
+            f"covgram_screen {label}: max|diff|={err} > {COVGRAM_RTOL}*{scale}")
     if not torch.equal(got[1], want[1]):
         raise AssertionError(f"covgram_screen {label}: edge counts differ from the plain version")
     edges = int(got[1].sum())
     del got, want
     ms = cuda_ms(lambda: covgram_screen_tiles(*args, **kw), 5)
+    events, device_ms = profile_calls(lambda: covgram_screen_tiles(*args, **kw), 20,
+                                      "covgram_screen")
+    issue_ms = host_ms(lambda: covgram_screen_tiles(*args, **kw), 20)
+    if len(events) != 1 or "covgram_screen" not in next(iter(events)) \
+            or not 0.0 < next(iter(events.values())) <= 1.0:
+        raise AssertionError(f"covgram_screen {label}: device events a call {events}")
+    ti_np, tj_np = ti.cpu().numpy(), tj.cpu().numpy()
+    ms_host_indices = cuda_ms(
+        lambda: covgram_screen_tiles(x_pad, mu_pad, ti_np, tj_np, lam, **kw), 5)
     plain_ms = cuda_ms(lambda: covgram_screen_ref(*args, **kw), 2)
     # library yardstick: cuBLAS DGEMM on the centered tile batch, then the
     # threshold — it computes vals only (no counts, no stats)
     N, P = x_pad.shape
     nt = P // block_p
     xt, mt = x_pad.reshape(N, nt, block_p), mu_pad.reshape(nt, block_p)
-    idx_i = torch.as_tensor(np.asarray(ti), dtype=torch.int64, device=x_pad.device)
-    idx_j = torch.as_tensor(np.asarray(tj), dtype=torch.int64, device=x_pad.device)
+    idx_i, idx_j = ti.long(), tj.long()
     A = (xt[:, idx_i, :] - mt[idx_i]).permute(1, 2, 0).contiguous()
     Bm = (xt[:, idx_j, :] - mt[idx_j]).permute(1, 0, 2).contiguous()
 
@@ -928,8 +979,9 @@ def covgram_measure(label: str, x_pad, mu_pad, ti, tj, lam: float, *, n_true: in
     t_bytes, t_ops = covgram_bound(N, P, len(ti), block_p)
     del A, Bm
     torch.cuda.empty_cache()
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bytes_ms=t_bytes, ops_ms=t_ops, pairs=len(ti), edges=edges)
+    return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes_ms=t_bytes, ops_ms=t_ops, pairs=len(ti), edges=edges, events=events,
+                host_ms=issue_ms, ms_host_indices=ms_host_indices)
 
 
 def covgram_case(label: str, X: np.ndarray, tile: int, lam: float, max_pairs: int) -> dict:
@@ -939,12 +991,16 @@ def covgram_case(label: str, X: np.ndarray, tile: int, lam: float, max_pairs: in
     ti, tj = ti[:max_pairs], tj[:max_pairs]
     x_pad, mu_pad = pad_for_screen(torch.as_tensor(X).to(DEV), mu, block_n=CHUNK, block_p=tile)
     r = covgram_measure(label, x_pad, mu_pad, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    bound = max(r["bytes_ms"], r["ops_ms"])
     log("covgram_screen", case=label, n=n, p=p, tile=tile, pairs=r["pairs"],
-        skipped_pairs=skipped, lam=lam, max_abs_err=r["err"], edges=r["edges"],
-        ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
-        library_ms=f"{r['library_ms']:.4f}", bytes_ms=f"{r['bytes_ms']:.4f}",
-        ops_ms=f"{r['ops_ms']:.4f}",
-        gflops=f"{2.0 * x_pad.shape[0] * tile * tile * r['pairs'] / r['ms'] / 1e6:.1f}")
+        skipped_pairs=skipped, lam=lam, max_abs_err=r["err"], edges=r["edges"], mma=MMA,
+        ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}", host_ms=f"{r['host_ms']:.4f}",
+        ms_host_indices=f"{r['ms_host_indices']:.4f}",
+        plain_ms=f"{r['plain_ms']:.4f}", library_ms=f"{r['library_ms']:.4f}",
+        bytes_ms=f"{r['bytes_ms']:.4f}", ops_ms=f"{r['ops_ms']:.4f}",
+        bound_share=f"{bound / r['device_ms']:.3f}" if r["device_ms"] else "not measured",
+        gflops=f"{2.0 * x_pad.shape[0] * tile * tile * r['pairs'] / r['ms'] / 1e6:.1f}",
+        device_events_per_call=json.dumps(r["events"]))
     return r
 
 
@@ -958,12 +1014,17 @@ def phase_covgram_screen(X_fd: np.ndarray, X_st: np.ndarray) -> None:
 def covgram_launches_on_path(calls: list) -> dict:
     """Each recorded covgram_screen launch of a path, measured on its own
     inputs; errors and bounds combined, times summed."""
-    out = dict(n=len(calls), err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0)
+    out = dict(n=len(calls), err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bytes_ms=0.0, ops_ms=0.0, bound_ms=0.0, ms_host_indices=0.0)
     for k, (args, kw) in enumerate(calls):
+        if not all(isinstance(a, torch.Tensor) and a.dtype == torch.int32 and a.is_cuda
+                   for a in args[2:4]):
+            raise AssertionError(f"covgram_screen path launch {k}: tile indices not int32 on "
+                                 "the card")
         r = covgram_measure(f"path launch {k}", *args, **kw)
         out["err"] = max(out["err"], r["err"])
-        for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms"):
+        for key in ("ms", "device_ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
+                    "ms_host_indices"):
             out[key] += r[key]
         out["bound_ms"] += max(r["bytes_ms"], r["ops_ms"])
     return out
@@ -1030,10 +1091,14 @@ def phase_from_data(X: np.ndarray) -> tuple[dict[str, int], dict]:
     del S_dev
     torch.cuda.empty_cache()
     path = covgram_launches_on_path(calls)
-    log("from_data_kernels", covgram_launches=path["n"], max_abs_err=path["err"],
-        ms=f"{path['ms']:.4f}", plain_ms=f"{path['plain_ms']:.4f}",
-        library_ms=f"{path['library_ms']:.4f}", bound_ms=f"{path['bound_ms']:.4f}",
-        bytes_ms=f"{path['bytes_ms']:.4f}", ops_ms=f"{path['ops_ms']:.4f}")
+    log("from_data_kernels", covgram_launches=path["n"], max_abs_err=path["err"], mma=MMA,
+        ms=f"{path['ms']:.4f}", device_ms=f"{path['device_ms']:.4f}",
+        ms_host_indices=f"{path['ms_host_indices']:.4f}",
+        plain_ms=f"{path['plain_ms']:.4f}", library_ms=f"{path['library_ms']:.4f}",
+        bound_ms=f"{path['bound_ms']:.4f}", bytes_ms=f"{path['bytes_ms']:.4f}",
+        ops_ms=f"{path['ops_ms']:.4f}",
+        bound_share=(f"{path['bound_ms'] / path['device_ms']:.3f}" if path["device_ms"]
+                     else "not measured"))
     return launches, path
 
 
@@ -1265,24 +1330,13 @@ def admm_iteration_split(S, lam1, lam2, args: tuple, *, penalty: str, iters: int
 
 def kernel_device_ms(fn, name: str, reps: int, per_call: int = 1) -> float:
     """Mean device milliseconds per call of the kernels whose names hold
-    ``name`` (``per_call`` such launches a call), from torch.profiler's
-    device events over ``reps`` calls: the mean duration of the events it
-    recorded, times ``per_call`` (the profiler may miss some of a window's
-    events, so their sum over ``reps`` would undercount); 0.0 where it
-    records none.  Unlike a call's CUDA-event time, it leaves out the
-    host's launch cost when the host is the slower side."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(us) / len(us) * per_call / 1e3 if us else 0.0
+    ``name`` (``per_call`` such launches a call), from ``profile_calls``:
+    the mean duration of the events the profiler recorded, times
+    ``per_call`` (the profiler may miss some of a window's events, so their
+    sum over ``reps`` would undercount); 0.0 where it records none.  Unlike
+    a call's CUDA-event time, it leaves out the host's launch cost when the
+    host is the slower side."""
+    return profile_calls(fn, reps, name)[1] * per_call
 
 
 def joint_prox_bound_ms(theta: torch.Tensor) -> float:
@@ -1293,15 +1347,28 @@ def joint_prox_bound_ms(theta: torch.Tensor) -> float:
 
 def joint_prox_on_path(launches: list, *, penalty: str, label: str) -> dict:
     """Each recorded joint_prox launch against its plain version on its own
-    inputs (raises on disagreement), and CUDA-event times summed over
-    them."""
+    inputs and its rp2/rd2 against a second call's, bit for bit (raises on
+    disagreement, or on a call that is more than its one kernel), and
+    CUDA-event, device and host times summed over them."""
     from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
 
     out = dict(n=len(launches), err_z=0.0, err_u=0.0, rel_rp2=0.0, rel_rd2=0.0,
-               ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, ms_f32=0.0, shapes=[])
+               ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, ms_f32=0.0, host_ms=0.0,
+               shapes=[], events={})
     for i, args, kw in launches:
         got = joint_prox_step(*args, **kw)
         want = joint_prox_ref(*args, **kw)
+        again = joint_prox_step(*args, **kw)
+        if not (torch.equal(got[2], again[2]) and torch.equal(got[3], again[3])):
+            raise AssertionError(f"joint_prox {label} launch {i}: rp2/rd2 differ from call to call")
+        del again
+        # the profiler may miss a few microsecond-short events, never add one
+        events, device_ms = profile_calls(lambda: joint_prox_step(*args, **kw), 20,
+                                          "joint_prox")
+        if len(events) != 1 or "joint_prox" not in next(iter(events)) \
+                or not 0.0 < next(iter(events.values())) <= 1.0:
+            raise AssertionError(f"joint_prox {label} launch {i}: device events a call {events}")
+        out["events"] = events
         a32 = as_f32(args)
         check_joint_prox_f32(joint_prox_step(*a32, **kw), joint_prox_ref(*a32, **kw),
                              f"{label} launch {i} in float32")
@@ -1319,8 +1386,8 @@ def joint_prox_on_path(launches: list, *, penalty: str, label: str) -> dict:
         out["rel_rp2"] = max(out["rel_rp2"], rel[0])
         out["rel_rd2"] = max(out["rel_rd2"], rel[1])
         out["ms"] += cuda_ms(lambda: joint_prox_step(*args, **kw), 20)
-        out["device_ms"] += kernel_device_ms(lambda: joint_prox_step(*args, **kw),
-                                             "joint_prox", 20)
+        out["device_ms"] += device_ms
+        out["host_ms"] += host_ms(lambda: joint_prox_step(*args, **kw), 200)
         out["plain_ms"] += cuda_ms(lambda: joint_prox_ref(*args, **kw), 3)
         out["bound_ms"] += joint_prox_bound_ms(args[0])
         out["shapes"].append([i] + list(args[0].shape))
@@ -1526,24 +1593,9 @@ def prox_l1_on_path(kept: dict) -> dict:
 
 
 def device_events(fn, reps: int) -> dict[str, float]:
-    """The profiler's device events of ``fn()`` by name (without "void",
-    namespaces and arguments), each with its count a call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    counts: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
-            name = name.removeprefix("void ").strip()
-            counts[name] = counts.get(name, 0) + 1
-    return {name: n / reps for name, n in counts.items()}
+    """The profiler's device events of ``fn()`` by name, each with its count
+    a call (``profile_calls``)."""
+    return profile_calls(fn, reps)[0]
 
 
 def shard_prox_on_path(kept: dict) -> dict:
@@ -2416,6 +2468,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     fa = phase_flash_attention()
+    phase_card_tests()
     phase_tree()
     phase_bucket()
 
@@ -2478,8 +2531,9 @@ def main() -> int:
             shapes=json.dumps(r["shapes"]), max_abs_err_z=r["err_z"],
             max_abs_err_u=r["err_u"], rel_err_rp2=r["rel_rp2"], rel_err_rd2=r["rel_rd2"],
             ms=f"{r['ms']:.4f}", device_ms=f"{r['device_ms']:.4f}",
+            host_ms=f"{r['host_ms']:.4f}", ms_a_launch=f"{r['ms'] / max(r['n'], 1):.4f}",
             plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}",
-            ms_f32=f"{r['ms_f32']:.4f}")
+            ms_f32=f"{r['ms_f32']:.4f}", device_events_per_call=json.dumps(r["events"]))
     oversize_launches, sp_kept = phase_oversize()
     sp = shard_prox_on_path(sp_kept)
     log_shard_prox("oversize", sp, oversize_launches)
@@ -2522,7 +2576,8 @@ def main() -> int:
             "launches": fd_launches["covgram_screen.launches"], "max_abs_err": cov["err"],
             "ms": cov["ms"], "plain_ms": cov["plain_ms"], "bound_ms": cov["bound_ms"],
             "bound_by": "operations" if cov["ops_ms"] > cov["bytes_ms"] else "bytes",
-            "library_ms": cov["library_ms"],
+            "library_ms": cov["library_ms"], "device_ms": cov["device_ms"],
+            "redesigned": f"FP64 tensor cores (mma.sync {MMA}), cp.async three-stage ring",
         },
         {
             "name": "joint_prox", "route": "cuda",
@@ -2532,6 +2587,8 @@ def main() -> int:
             "max_abs_err": max(jp["joint"]["err_z"], jp["joint"]["err_u"]),
             "ms": jp["joint"]["ms"], "plain_ms": jp["joint"]["plain_ms"],
             "bound_ms": jp["joint"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "device_ms": jp["joint"]["device_ms"], "host_ms": jp["joint"]["host_ms"],
+            "redesigned": "one launch a call (last-block ticket), lean wrapper",
         },
         {
             "name": "prox_l1", "route": "cuda",

@@ -18,125 +18,284 @@
 //
 // Bound on the H100: the larger of the operations, 2 N bp^2 per pair at the
 // FP64 tensor-core peak (67 TFLOP/s), and the bytes, vals written once plus
-// X read once (3.35 TB/s); at n = 192 the two are of one order.  Design:
-// one thread block per (tile pair, 64 x 64 output sub-tile); the blocks of
-// a pair run in parallel (the TPU kernel's sequential grid carried a VMEM
-// accumulator over the row chunks; here a loop inside the block takes that
-// place).  The block walks the rows in 32-row slabs: it stages the centered
-// slices (x - mu) of its 64 I columns and 64 J columns in shared memory
-// (centering before the product, as the oracle does) and each of its 256
-// threads accumulates a 4 x 4 patch with FP64 FMA.  The epilogue divides by
-// n_true after the sum, masks, writes vals and reduces the count and both
-// maxima over the block with warp shuffles; blocks of one pair combine with
-// atomics (atomicAdd for the count; atomicMax on the int64 bit patterns for
-// the maxima, which orders non-negative doubles as numbers — fabs never
-// yields -0.0, and an all-masked tile leaves the zero the wrapper wrote).
+// X read once (3.35 TB/s); at n = 192 the two are of one order.
+//
+// Design.  The products run on the FP64 tensor cores (`mma.sync` on .f64
+// operands; wgmma has no f64 form).  One block of 16 warps computes a
+// 128 x 128 output sub-tile of one pair, each warp a 32 x 32 patch of mma
+// fragments (128 registers a thread, so one block fills an SM's register
+// file); the blocks of a pair run in parallel (the TPU kernel's
+// sequential grid carried a VMEM accumulator over the row chunks; here the
+// K loop inside the block takes that place).  Slabs of 16 rows of X (the
+// block's 128 I columns and 128 J columns) go through a ring of three
+// shared-memory stages filled by cp.async, so slab k + 2 loads while slab k
+// multiplies.  Rows are padded to a stride of 132 values (4 mod 16), so a
+// warp's fragment loads (ld.shared: ldmatrix has no 64-bit form) hit every
+// bank once.  Centering happens as a fragment is built: a thread's fragment
+// columns are fixed for the whole K loop, so it holds their mu in registers
+// and subtracts it from each loaded value — the same (x - mu) rounding as
+// the plain version, with no centered copy of X.  Rows past N are staged as
+// mu (they centre to exactly zero), columns past bp as zero.  The mma
+// shape is m16n8k8, one of those PTX adds for sm_90: sm_80's m8n8k4 in the
+// same body measured 1.3x slower on the H100, m16n8k4 and m16n8k16 level
+// or slower.
+//
+// The epilogue divides by n_true after the sum, masks, and stores each
+// fragment's two adjacent values as one 16-byte store, so a quad of lanes
+// writes 64 contiguous bytes of a `vals` row: whole 32-byte sectors, the
+// unit the memory system writes (staging the patch in shared memory for
+// full 256-byte rows measured slower on the H100).  The 128 x 128 tile
+// keeps the X slabs read from L2 at (128 + 128) N values a block for
+// 128 x 128 outputs.  The count and both maxima are reduced over the block
+// with warp shuffles and combined across the pair's blocks with atomics on
+// a per-pair accumulator in the wrapper's cached scratch (atomicAdd for the
+// count; atomicMax on the bit patterns for the maxima, which orders
+// non-negative doubles as numbers — fabs never yields -0.0); results that
+// do not depend on order.  The pair's last block (a ticket after a
+// __threadfence) moves them into counts and stats and zeroes the
+// accumulator, so a call is this one launch and needs no zero-filled
+// outputs.
 
 #include <cuda_runtime.h>
 
+#include "precision.cuh"
+
 namespace {
 
-constexpr int kSub = 64;      // output sub-tile edge
-constexpr int kSlab = 32;     // rows staged per step
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kBM = 128;              // sub-tile rows (columns of tile I)
+constexpr int kBN = 128;              // sub-tile columns (columns of tile J)
+constexpr int kBK = 16;               // rows of X a stage holds
+constexpr int kStages = 3;
+constexpr int kThreads = 512;         // 16 warps: 4 (rows) x 4 (columns)
 constexpr int kWarps = kThreads / 32;
+constexpr int kWM = 32;               // a warp's patch
+constexpr int kWN = 32;
+constexpr int kLd = kBM + 4;          // stage row stride (values)
+constexpr int kStageValues = 2 * kBK * kLd;
+constexpr size_t kSmemBytes = sizeof(double) * kStages * kStageValues;
+static_assert(kBM == kBN, "one stride serves both operands");
+static_assert((kBM / kWM) * (kBN / kWN) == kWarps, "warps cover the sub-tile");
 
-__global__ void __launch_bounds__(kThreads)
-covgram_screen_kernel(const double* __restrict__ x,
-                      const double* __restrict__ mu,
-                      const int* __restrict__ i_idx,
-                      const int* __restrict__ j_idx,
-                      double* __restrict__ vals, int* __restrict__ counts,
-                      long long* __restrict__ stats, int N, int P, int bp,
-                      int n_true, int p_true, double lam, int sub_per_row) {
-  __shared__ double As[kSlab][kSub];
-  __shared__ double Bs[kSlab][kSub];
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// c += a b on one 16 x 8 x 8 fragment (row-major A, column-major B), f64
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Fragment layouts (lane = 4 g + q): A value i sits at row g + 8 (i % 2),
+// column q + 4 (i / 2); B value i at row q + 4 i, column g; C value i at
+// row g + 8 (i / 2), column 2 q + i % 2.
+__global__ void __launch_bounds__(kThreads, 1)
+    covgram_screen_kernel(const double* __restrict__ x, const double* __restrict__ mu,
+                          const int* __restrict__ i_idx, const int* __restrict__ j_idx,
+                          double* __restrict__ vals, int* __restrict__ counts,
+                          double* __restrict__ stats, unsigned long long* __restrict__ acc,
+                          int N, int P, int bp, int n_true, int p_true, double lam,
+                          int sub_per_row) {
+  constexpr int M = 16;           // the mma shape, m16n8k8
+  constexpr int K = 8;
+  constexpr int MT = kWM / M;     // fragments down a warp's patch
+  constexpr int NT = kWN / 8;     // fragments across it
+  constexpr int AV = M * K / 32;  // A values a thread holds a fragment
+  constexpr int BV = K / 4;
+  constexpr int CV = M / 4;
+  constexpr int AH = M / 8;       // distinct A rows a thread holds a fragment
+  double* smem = repro_torch::dynamic_smem<double>();
   __shared__ int cnt_s[kWarps];
   __shared__ double m0_s[kWarps];
   __shared__ double m1_s[kWarps];
 
   const int t = blockIdx.x;  // tile pair
-  const int r0 = (blockIdx.y / sub_per_row) * kSub;  // rows within tile I
-  const int c0 = (blockIdx.y % sub_per_row) * kSub;  // cols within tile J
+  const int r0 = (blockIdx.y / sub_per_row) * kBM;  // rows within tile I
+  const int c0 = (blockIdx.y % sub_per_row) * kBN;  // cols within tile J
   const long long baseI = (long long)i_idx[t] * bp;
   const long long baseJ = (long long)j_idx[t] * bp;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int wm = (warp / (kBN / kWN)) * kWM;
+  const int wn = (warp % (kBN / kWN)) * kWN;
+  const bool pairs = ((P | bp) & 1) == 0;  // 16-byte copies and stores
 
-  double acc[4][4];
+  // the mu of this thread's fragment columns, for the whole K loop
+  double muA[MT][AH];
+  double muB[NT];
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int m = 0; m < 4; ++m) acc[k][m] = 0.0;
+    for (int h = 0; h < AH; ++h) {
+      const int r = r0 + wm + mt * M + g + 8 * h;
+      muA[mt][h] = r < bp ? mu[baseI + r] : 0.0;
+    }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = c0 + wn + nt * 8 + g;
+    muB[nt] = c < bp ? mu[baseJ + c] : 0.0;
+  }
 
-  for (int k0 = 0; k0 < N; k0 += kSlab) {
-    for (int e = threadIdx.x; e < kSlab * kSub; e += kThreads) {
-      const int rr = e / kSub;
-      const int cc = e % kSub;
-      const long long row = k0 + rr;
-      double a = 0.0, b = 0.0;
-      if (row < N) {
-        if (r0 + cc < bp) {
-          const long long col = baseI + r0 + cc;
-          a = x[row * P + col] - mu[col];
-        }
-        if (c0 + cc < bp) {
-          const long long col = baseJ + c0 + cc;
-          b = x[row * P + col] - mu[col];
+  // stage `slab` (rows slab * kBK ...) into ring slot `slot`: kBK rows of
+  // the I columns, then kBK rows of the J columns.  A thread copies the same
+  // two adjacent columns of each side in every slab (rows lrr, lrr + 8), so
+  // its sources, destinations and bounds are fixed before the K loop.
+  constexpr int kRowsPass = kThreads / (kBM / 2);
+  static_assert(kBK % kRowsPass == 0, "whole passes a stage");
+  const int lcc = 2 * (threadIdx.x % (kBM / 2));
+  const int lrr = threadIdx.x / (kBM / 2);
+  const int colA = r0 + lcc;  // within the tiles
+  const int colB = c0 + lcc;
+  const double* const srcA = x + baseI + colA;
+  const double* const srcB = x + baseJ + colB;
+  const bool vecA = pairs && colA < bp;
+  const bool vecB = pairs && colB < bp;
+  auto load = [&](int slot, int slab) {
+    double* const stage = smem + slot * kStageValues;
+    const int k0 = slab * kBK;
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int col = side ? colB : colA;
+      const double* const src = side ? srcB : srcA;
+      const bool vec = side ? vecB : vecA;
+#pragma unroll
+      for (int pass = 0; pass < kBK / kRowsPass; ++pass) {
+        const int rr = lrr + pass * kRowsPass;
+        const long long row = k0 + rr;
+        double* const dst = stage + (side * kBK + rr) * kLd + lcc;
+        if (row >= N) {  // past the data: mu, which centres to exactly zero
+          const double* const m = mu + (side ? baseJ : baseI) + col;
+          dst[0] = col < bp ? m[0] : 0.0;
+          dst[1] = col + 1 < bp ? m[1] : 0.0;
+        } else if (vec) {
+          cp_async16(dst, src + row * P);
+        } else {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            if (col + h < bp)
+              cp_async8(dst + h, src + row * P + h);
+            else
+              dst[h] = 0.0;
+          }
         }
       }
-      As[rr][cc] = a;
-      Bs[rr][cc] = b;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kSlab; ++rr) {
-      double av[4], bv[4];
+  };
+
+  double c[MT][NT][CV];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) av[k] = As[rr][ty + 16 * k];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int m = 0; m < 4; ++m) bv[m] = Bs[rr][tx + 16 * m];
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
+      for (int i = 0; i < CV; ++i) c[mt][nt][i] = 0.0;
+
+  auto compute = [&](int slot) {
+    const double* const As = smem + slot * kStageValues;
+    const double* const Bs = As + kBK * kLd;
 #pragma unroll
-        for (int m = 0; m < 4; ++m) acc[k][m] = fma(av[k], bv[m], acc[k][m]);
+    for (int kk = 0; kk < kBK; kk += K) {
+      double a[MT][AV];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < AV; ++i) {
+          const int h = i & 1;
+          const int k = kk + q + 4 * (i >> 1);
+          a[mt][i] = As[k * kLd + wm + mt * M + g + 8 * h] - muA[mt][h];
+        }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        double b[BV];
+#pragma unroll
+        for (int i = 0; i < BV; ++i)
+          b[i] = Bs[(kk + q + 4 * i) * kLd + wn + nt * 8 + g] - muB[nt];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_f64(c[mt][nt], a[mt], b);
+      }
     }
-    __syncthreads();
+  };
+
+  const int slabs = (N + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < slabs) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    cp_async_wait<kStages - 2>();  // slab s has landed
+    __syncthreads();               // ... for every thread; slot s - 1 is free
+    const int next = s + kStages - 1;
+    if (next < slabs) load(next % kStages, next);
+    cp_async_commit();
+    compute(s % kStages);
   }
 
   int cnt = 0;
   double m0 = 0.0, m1 = 0.0;
-  double* vt = vals + (long long)t * bp * bp;
+  double* const vt = vals + (long long)t * bp * bp;
   const double n = (double)n_true;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int r = r0 + ty + 16 * k;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int c = c0 + tx + 16 * m;
-      if (r < bp && c < bp) {
-        const long long gr = baseI + r;
-        const long long gc = baseJ + c;
-        const double s = acc[k][m] / n;
-        const double as = fabs(s);
-        const bool valid = gr < p_true && gc < p_true && gr != gc;
-        const bool edge = valid && as > lam;
-        vt[(long long)r * bp + c] = edge ? s : 0.0;
-        if (valid) {
-          m0 = fmax(m0, as);
-          if (!edge) m1 = fmax(m1, as);
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < CV; i += 2) {
+        const int r = r0 + wm + mt * M + g + 8 * (i >> 1);
+        const int col = c0 + wn + nt * 8 + 2 * q;  // the first of two columns
+        double out[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long gr = baseI + r;
+          const long long gc = baseJ + col + h;
+          const double s = c[mt][nt][i + h] / n;
+          const double as = fabs(s);
+          const bool valid = r < bp && col + h < bp && gr < p_true && gc < p_true && gr != gc;
+          const bool edge = valid && as > lam;
+          out[h] = edge ? s : 0.0;
+          if (valid) {
+            m0 = fmax(m0, as);
+            if (!edge) m1 = fmax(m1, as);
+          }
+          cnt += edge ? 1 : 0;
         }
-        cnt += edge ? 1 : 0;
+        if (r < bp) {
+          double* const dst = vt + (long long)r * bp + col;
+          if (pairs && col < bp) {
+            *reinterpret_cast<double2*>(dst) = make_double2(out[0], out[1]);
+          } else {
+            if (col < bp) dst[0] = out[0];
+            if (col + 1 < bp) dst[1] = out[1];
+          }
+        }
       }
-    }
-  }
+
   for (int off = 16; off > 0; off >>= 1) {
     cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
     m0 = fmax(m0, __shfl_xor_sync(0xffffffffu, m0, off));
     m1 = fmax(m1, __shfl_xor_sync(0xffffffffu, m1, off));
   }
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0) {
+  if (lane == 0) {
     cnt_s[warp] = cnt;
     m0_s[warp] = m0;
     m1_s[warp] = m1;
@@ -148,9 +307,18 @@ covgram_screen_kernel(const double* __restrict__ x,
       m0 = fmax(m0, m0_s[w]);
       m1 = fmax(m1, m1_s[w]);
     }
-    if (cnt) atomicAdd(counts + t, cnt);
-    if (m0 > 0.0) atomicMax(stats + 2 * t, __double_as_longlong(m0));
-    if (m1 > 0.0) atomicMax(stats + 2 * t + 1, __double_as_longlong(m1));
+    unsigned long long* const a = acc + 4 * (long long)t;  // count, m0, m1, ticket
+    if (cnt) atomicAdd(a, (unsigned long long)cnt);
+    if (m0 > 0.0) atomicMax(a + 1, (unsigned long long)__double_as_longlong(m0));
+    if (m1 > 0.0) atomicMax(a + 2, (unsigned long long)__double_as_longlong(m1));
+    __threadfence();  // this block's share lands before its ticket
+    if (atomicAdd(a + 3, 1ull) == (unsigned long long)(gridDim.y - 1)) {
+      __threadfence();
+      counts[t] = (int)atomicExch(a, 0ull);
+      stats[2 * t] = __longlong_as_double((long long)atomicExch(a + 1, 0ull));
+      stats[2 * t + 1] = __longlong_as_double((long long)atomicExch(a + 2, 0ull));
+      atomicExch(a + 3, 0ull);
+    }
   }
 }
 
@@ -158,21 +326,24 @@ covgram_screen_kernel(const double* __restrict__ x,
 
 // x: (N, P) padded, mu: (P,), i_idx/j_idx: (npairs,) int32 tile indices;
 // vals: (npairs, bp, bp); counts: (npairs,) int32 and stats: (npairs, 2)
-// float64, both zero-filled by the caller.
-extern "C" int covgram_screen_launch(const void* x, const void* mu,
-                                     const void* i_idx, const void* j_idx,
-                                     void* vals, void* counts, void* stats,
-                                     int npairs, int N, int P, int bp,
-                                     int n_true, int p_true, double lam,
+// float64, written whole by the launch.  acc: 4 npairs zeroed values, left
+// zeroed.
+extern "C" int covgram_screen_launch(const void* x, const void* mu, const void* i_idx,
+                                     const void* j_idx, void* vals, void* counts,
+                                     void* stats, void* acc, int npairs, int N, int P,
+                                     int bp, int n_true, int p_true, double lam,
                                      void* stream) {
   if (npairs <= 0 || bp <= 0) return 0;
-  const int sub_per_row = (bp + kSub - 1) / kSub;
+  const int sub_per_row = (bp + kBM - 1) / kBM;
   const long long subs = (long long)sub_per_row * sub_per_row;
   if (subs > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)npairs, (unsigned)subs);
-  covgram_screen_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const double*)x, (const double*)mu, (const int*)i_idx,
-      (const int*)j_idx, (double*)vals, (int*)counts, (long long*)stats, N, P,
-      bp, n_true, p_true, lam, sub_per_row);
+  const cudaError_t e = cudaFuncSetAttribute(
+      covgram_screen_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  covgram_screen_kernel<<<dim3((unsigned)npairs, (unsigned)subs), kThreads, kSmemBytes,
+                          (cudaStream_t)stream>>>(
+      (const double*)x, (const double*)mu, (const int*)i_idx, (const int*)j_idx,
+      (double*)vals, (int*)counts, (double*)stats, (unsigned long long*)acc, N, P, bp,
+      n_true, p_true, lam, sub_per_row);
   return (int)cudaGetLastError();
 }

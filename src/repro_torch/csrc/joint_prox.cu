@@ -40,9 +40,15 @@
 // the same order, so their z_new and u_new agree bit for bit; only the
 // residual sums group differently.  Both residual partials are reduced per
 // block with warp shuffles and shared memory into a per-(lane, block)
-// buffer, and a second kernel sums each lane's partials in a fixed order: no
-// atomics, so the sums, which decide convergence, are the same from run to
-// run.
+// buffer.  A call is one launch: after writing its partials and a
+// __threadfence(), a block takes a ticket from its lane's counter, and the
+// block that takes the lane's last ticket sums the lane's partials one by
+// one in block order (the order of the second kernel that did it before),
+// writes rp2 and rd2 and resets the counter to 0 for the next call.  The
+// atomic only counts; no value is added atomically, so the sums, which
+// decide convergence, are the same from run to run.  The partials, the work
+// region and the counters are the wrapper's cached scratch (the counters
+// zeroed once, when allocated).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -148,10 +154,14 @@ __device__ __forceinline__ void fused_prox(const T (&a)[K], T t1, T t2,
   }
 }
 
-// a block's two partial sums, warps in order, into partial[blockIdx.x]
+// a block's two partial sums, warps in order, into partial[blockIdx.x];
+// the lane's last block (by ticket) then sums the lane's `tiles` partials in
+// block order into rp2[lane], rd2[lane] and resets the lane's counter
 template <typename T, int NT>
-__device__ __forceinline__ void block_partials(T rp, T rd,
-                                               T* __restrict__ partial) {
+__device__ __forceinline__ void block_partials(T rp, T rd, T* __restrict__ partial,
+                                               int lane, int tiles, T* __restrict__ rp2,
+                                               T* __restrict__ rd2,
+                                               unsigned int* __restrict__ tickets) {
   for (int off = 16; off > 0; off >>= 1) {
     rp += __shfl_down_sync(0xffffffffu, rp, off);
     rd += __shfl_down_sync(0xffffffffu, rd, off);
@@ -171,6 +181,20 @@ __device__ __forceinline__ void block_partials(T rp, T rd,
     }
     partial[2 * (long long)blockIdx.x] = p;
     partial[2 * (long long)blockIdx.x + 1] = d;
+    __threadfence();  // the partials are visible before the ticket is taken
+    if (atomicAdd(&tickets[lane], 1u) == (unsigned int)(tiles - 1)) {
+      __threadfence();
+      // read past L1: other blocks wrote them
+      const T* pl = partial + 2 * (long long)lane * tiles;
+      T sp = T(0), sd = T(0);
+      for (int k = 0; k < tiles; ++k) {
+        sp += __ldcg(pl + 2 * k);
+        sd += __ldcg(pl + 2 * k + 1);
+      }
+      rp2[lane] = sp;
+      rd2[lane] = sd;
+      tickets[lane] = 0u;
+    }
   }
 }
 
@@ -179,7 +203,9 @@ __global__ void __launch_bounds__(kThreads)
     joint_prox_kernel(const T* __restrict__ theta, const T* __restrict__ u,
                       const T* __restrict__ z_old, const T* __restrict__ t,
                       T* __restrict__ z_new, T* __restrict__ u_new,
-                      T* __restrict__ partial, int b, int tiles) {
+                      T* __restrict__ rp2, T* __restrict__ rd2,
+                      T* __restrict__ partial, unsigned int* __restrict__ tickets,
+                      int b, int tiles) {
   const int lane = blockIdx.x / tiles;
   const int tile = blockIdx.x - lane * tiles;
   const long long bb = (long long)b * b;
@@ -212,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
       rd = add_rn(rd, mul_rn(dd, dd));
     }
   }
-  block_partials<T, kThreads>(rp, rd, partial);
+  block_partials<T, kThreads>(rp, rd, partial, lane, tiles, rp2, rd2, tickets);
 }
 
 // values a thread of the shared-memory shape keeps: a[K], s[K] (the order
@@ -229,7 +255,9 @@ __global__ void __launch_bounds__(kSmemThreads)
                            const T* __restrict__ u,
                            const T* __restrict__ z_old,
                            const T* __restrict__ t, T* __restrict__ z_new,
-                           T* __restrict__ u_new, T* __restrict__ partial,
+                           T* __restrict__ u_new, T* __restrict__ rp2,
+                           T* __restrict__ rd2, T* __restrict__ partial,
+                           unsigned int* __restrict__ tickets,
                            T* __restrict__ scratch, int K, int b, int tiles,
                            int use_smem) {
   constexpr int nt = kSmemThreads;
@@ -310,35 +338,19 @@ __global__ void __launch_bounds__(kSmemThreads)
       rd = add_rn(rd, mul_rn(dd, dd));
     }
   }
-  block_partials<T, nt>(rp, rd, partial);
-}
-
-// acc[lane] = [rp2, rd2]: each lane's block partials summed in block order
-template <typename T>
-__global__ void joint_prox_sum_kernel(const T* __restrict__ partial,
-                                      T* __restrict__ acc, int n, int tiles) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const T* pl = partial + 2 * (long long)lane * tiles;
-  T p = T(0), d = T(0);
-  for (int k = 0; k < tiles; ++k) {
-    p += pl[2 * k];
-    d += pl[2 * k + 1];
-  }
-  acc[2 * lane] = p;
-  acc[2 * lane + 1] = d;
+  block_partials<T, nt>(rp, rd, partial, lane, tiles, rp2, rd2, tickets);
 }
 
 template <typename T, int K>
 void launch_k(bool fused, unsigned grid, cudaStream_t stream, const T* theta,
-              const T* u, const T* z_old, const T* t, T* z_new, T* u_new,
-              T* partial, int b, int tiles) {
+              const T* u, const T* z_old, const T* t, T* z_new, T* u_new, T* rp2,
+              T* rd2, T* partial, unsigned int* tickets, int b, int tiles) {
   if (fused)
     joint_prox_kernel<T, K, true><<<grid, kThreads, 0, stream>>>(
-        theta, u, z_old, t, z_new, u_new, partial, b, tiles);
+        theta, u, z_old, t, z_new, u_new, rp2, rd2, partial, tickets, b, tiles);
   else
     joint_prox_kernel<T, K, false><<<grid, kThreads, 0, stream>>>(
-        theta, u, z_old, t, z_new, u_new, partial, b, tiles);
+        theta, u, z_old, t, z_new, u_new, rp2, rd2, partial, tickets, b, tiles);
 }
 
 int tiles_for(int b, int per_block) {
@@ -363,8 +375,9 @@ long long scratch_values(int n, int K, int b, int smem_shape, size_t itemsize) {
 
 template <typename T>
 int launch(const void* theta, const void* u, const void* z_old, const void* t,
-           void* z_new, void* u_new, void* scratch, void* acc, int n, int K,
-           int b, int fused, int smem_shape, void* stream) {
+           void* z_new, void* u_new, void* rp2, void* rd2, void* scratch,
+           void* tickets, int n, int K, int b, int fused, int smem_shape,
+           void* stream) {
   if (n <= 0 || b <= 0 || K <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   const T* th = (const T*)theta;
@@ -373,7 +386,10 @@ int launch(const void* theta, const void* u, const void* z_old, const void* t,
   const T* tt = (const T*)t;
   T* zn = (T*)z_new;
   T* un = (T*)u_new;
+  T* r2p = (T*)rp2;
+  T* r2d = (T*)rd2;
   T* pt = (T*)scratch;
+  unsigned int* tk = (unsigned int*)tickets;
   const bool f = fused != 0;
   int tiles;
   if (smem_shape) {
@@ -392,10 +408,10 @@ int launch(const void* theta, const void* u, const void* z_old, const void* t,
     }
     if (f)
       joint_prox_smem_kernel<T, true><<<(unsigned)grid, kSmemThreads, smem, s>>>(
-          th, uu, zo, tt, zn, un, pt, work, K, b, tiles, use_smem);
+          th, uu, zo, tt, zn, un, r2p, r2d, pt, tk, work, K, b, tiles, use_smem);
     else
       joint_prox_smem_kernel<T, false><<<(unsigned)grid, kSmemThreads, smem, s>>>(
-          th, uu, zo, tt, zn, un, pt, work, K, b, tiles, use_smem);
+          th, uu, zo, tt, zn, un, r2p, r2d, pt, tk, work, K, b, tiles, use_smem);
   } else {
     if (K > kMaxClasses) return (int)cudaErrorInvalidValue;
     tiles = tiles_for(b, kThreads);
@@ -405,7 +421,7 @@ int launch(const void* theta, const void* u, const void* z_old, const void* t,
     switch (K) {
 #define JOINT_PROX_CASE(KK) \
   case KK:                  \
-    launch_k<T, KK>(f, g, s, th, uu, zo, tt, zn, un, pt, b, tiles); \
+    launch_k<T, KK>(f, g, s, th, uu, zo, tt, zn, un, r2p, r2d, pt, tk, b, tiles); \
     break;
       JOINT_PROX_CASE(1) JOINT_PROX_CASE(2) JOINT_PROX_CASE(3)
       JOINT_PROX_CASE(4) JOINT_PROX_CASE(5) JOINT_PROX_CASE(6)
@@ -418,10 +434,6 @@ int launch(const void* theta, const void* u, const void* z_old, const void* t,
         return (int)cudaErrorInvalidValue;
     }
   }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  joint_prox_sum_kernel<T><<<(n + 127) / 128, 128, 0, s>>>(pt, (T*)acc, n,
-                                                           tiles);
   return (int)cudaGetLastError();
 }
 
@@ -434,20 +446,24 @@ extern "C" long long joint_prox_scratch_values(int n, int K, int b,
   return scratch_values(n, K, b, smem_shape, (size_t)itemsize);
 }
 
+// rp2, rd2: n values each.  scratch: joint_prox_scratch_values(...) values
+// of the operands' dtype; tickets: n unsigned ints, all 0 on entry and left 0.
 extern "C" int joint_prox_launch_f64(const void* theta, const void* u,
                                      const void* z_old, const void* t,
-                                     void* z_new, void* u_new, void* scratch,
-                                     void* acc, int n, int K, int b, int fused,
+                                     void* z_new, void* u_new, void* rp2,
+                                     void* rd2, void* scratch, void* tickets,
+                                     int n, int K, int b, int fused,
                                      int smem_shape, void* stream) {
-  return launch<double>(theta, u, z_old, t, z_new, u_new, scratch, acc, n, K,
-                        b, fused, smem_shape, stream);
+  return launch<double>(theta, u, z_old, t, z_new, u_new, rp2, rd2, scratch,
+                        tickets, n, K, b, fused, smem_shape, stream);
 }
 
 extern "C" int joint_prox_launch_f32(const void* theta, const void* u,
                                      const void* z_old, const void* t,
-                                     void* z_new, void* u_new, void* scratch,
-                                     void* acc, int n, int K, int b, int fused,
+                                     void* z_new, void* u_new, void* rp2,
+                                     void* rd2, void* scratch, void* tickets,
+                                     int n, int K, int b, int fused,
                                      int smem_shape, void* stream) {
-  return launch<float>(theta, u, z_old, t, z_new, u_new, scratch, acc, n, K,
-                       b, fused, smem_shape, stream);
+  return launch<float>(theta, u, z_old, t, z_new, u_new, rp2, rd2, scratch,
+                       tickets, n, K, b, fused, smem_shape, stream);
 }

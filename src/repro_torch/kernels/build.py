@@ -60,7 +60,7 @@ _SIGNATURES = {
         _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _I, _P],
     ),
     "covgram_screen_launch": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     ),
     **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
     **{
@@ -70,7 +70,7 @@ _SIGNATURES = {
     },
     **{
         f"joint_prox_launch_{t}": (
-            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         )
         for t in ("f64", "f32")
     },

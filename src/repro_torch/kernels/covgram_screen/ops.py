@@ -7,9 +7,20 @@ compaction.
 ``vals`` is nonzero iff it is an eq.-(4) edge (|S_ij| > lam >= 0 implies
 S_ij != 0 in the same arithmetic), so compaction is one ``torch.nonzero``
 over the in-flight batch on its own device — only the compacted edges leave
-the card."""
+the card.
+
+A kernel call on the card with the tile indices already there as int32
+tensors, as the screening paths pass them (each uploads its tile schedule
+once), is one launch: the kernel writes vals, counts and stats whole, and
+combines each pair's count and maxima in accumulators cached per device
+that it leaves zeroed, so no output is zero-filled first.  Sharing them
+between calls is safe because launches on one stream run in order; calls
+on two streams at once would need a buffer each."""
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -41,6 +52,30 @@ def pad_for_screen(
     return x.contiguous(), mu.contiguous()
 
 
+#: the kernel's mma shape (sm_90's; sm_80's m8n8k4 measured slower on the
+#: H100: PERF.md section 6)
+MMA = "m16n8k8"
+
+#: device -> the per-pair accumulators (count, two maxima, ticket), zeroed
+#: once when allocated and left zeroed by every launch
+_ACC: dict[torch.device, torch.Tensor] = {}
+
+
+def _accumulators(dev: torch.device, npairs: int) -> torch.Tensor:
+    """The cached accumulators for ``npairs`` pairs, reallocated only when a
+    call needs more."""
+    acc = _ACC.get(dev)
+    if acc is None or acc.numel() < 4 * npairs:
+        acc = torch.zeros(4 * npairs, dtype=torch.int64, device=dev)
+        _ACC[dev] = acc
+    return acc
+
+
+@functools.cache
+def _launcher():
+    return library().covgram_screen_launch
+
+
 def covgram_screen_tiles(
     x_pad: torch.Tensor,
     mu_pad: torch.Tensor,
@@ -56,12 +91,14 @@ def covgram_screen_tiles(
     returns (vals (B, bp, bp), counts (B,) int32, stats (B, 2)) on x's
     device (stats: [tile max |S_ij|, max |S_ij| <= lam], off-diagonal).
 
-    x_pad/mu_pad follow ``pad_for_screen``.  A CPU x runs the plain version;
-    a CUDA x launches ``csrc/covgram_screen.cu`` (float64) or raises.  Each
-    launch bumps ``kernels.covgram_screen.launches``."""
+    x_pad/mu_pad follow ``pad_for_screen``; the tile indices are sequences
+    or int tensors (int32 ones on x's device are used in place, others are
+    copied there).  A CPU x runs the plain version; a CUDA x launches
+    ``csrc/covgram_screen.cu`` (float64) or raises.  Each launch bumps
+    ``kernels.covgram_screen.launches``."""
     dev = x_pad.device
-    i_idx = torch.as_tensor(np.asarray(i_idx), dtype=torch.int32).to(dev)
-    j_idx = torch.as_tensor(np.asarray(j_idx), dtype=torch.int32).to(dev)
+    i_idx = torch.as_tensor(i_idx, dtype=torch.int32, device=dev).contiguous()
+    j_idx = torch.as_tensor(j_idx, dtype=torch.int32, device=dev).contiguous()
     if dev.type == "cpu":
         return covgram_screen_ref(
             x_pad, mu_pad, i_idx, j_idx, lam,
@@ -84,17 +121,21 @@ def covgram_screen_tiles(
         raise ValueError("covgram_screen: i_idx and j_idx must be equal-length vectors")
     B = i_idx.shape[0]
     x_pad, mu_pad = x_pad.contiguous(), mu_pad.contiguous()
+    if x_pad.data_ptr() % 16:  # the kernel copies X in 16-byte pieces
+        x_pad = x_pad.clone()
     vals = torch.empty((B, block_p, block_p), dtype=x_pad.dtype, device=dev)
-    counts = torch.zeros(B, dtype=torch.int32, device=dev)
-    stats = torch.zeros((B, 2), dtype=x_pad.dtype, device=dev)
+    counts = torch.empty(B, dtype=torch.int32, device=dev)
+    stats = torch.empty((B, 2), dtype=x_pad.dtype, device=dev)
     if B == 0:
         return vals, counts, stats
-    with torch.cuda.device(dev):
-        status = library().covgram_screen_launch(
+    acc = _accumulators(dev, B)
+    other = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if other else contextlib.nullcontext():
+        status = _launcher()(
             x_pad.data_ptr(), mu_pad.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(),
-            vals.data_ptr(), counts.data_ptr(), stats.data_ptr(), B, N, P,
+            vals.data_ptr(), counts.data_ptr(), stats.data_ptr(), acc.data_ptr(), B, N, P,
             block_p, int(n_true), int(p_true), float(lam),
-            torch.cuda.current_stream().cuda_stream,
+            torch._C._cuda_getCurrentRawStream(dev.index),
         )
     check(status, "covgram_screen")
     bump("kernels.covgram_screen.launches")
@@ -107,10 +148,12 @@ def compact_edges_signed(
     """Global (i, j, S_ij) of every nonzero in a batch of thresholded tiles,
     upper triangle only (diagonal tile pairs hold both orientations;
     off-diagonal pairs are scheduled with tile_i < tile_j), in row-major
-    order of (pair, row, col), as numpy arrays (int64, int64, float64)."""
+    order of (pair, row, col), as numpy arrays (int64, int64, float64).  The
+    tile indices are sequences or int tensors, as ``covgram_screen_tiles``
+    takes them."""
     dev = vals.device
-    i_idx = torch.as_tensor(np.asarray(i_idx), dtype=torch.int64).to(dev)
-    j_idx = torch.as_tensor(np.asarray(j_idx), dtype=torch.int64).to(dev)
+    i_idx = torch.as_tensor(i_idx, device=dev).to(torch.int64)
+    j_idx = torch.as_tensor(j_idx, device=dev).to(torch.int64)
     t, ri, ci = torch.nonzero(vals, as_tuple=True)
     gi = i_idx[t] * block_p + ri
     gj = j_idx[t] * block_p + ci
@@ -146,9 +189,10 @@ def covgram_screen_tiles_stacked(
     schedule (the Cauchy-Schwarz certificates are per class) in bounded
     ``pair_batch`` flights through ``tile_fn`` (default
     ``covgram_screen_tiles``: the kernel on the card), and the compacted
-    SIGNED per-class edges (i, j, S_ij) come back for the hybrid rule.
-    Per-class row counts n_k differ, which is why this loops over classes
-    rather than launching one K-batched kernel."""
+    SIGNED per-class edges (i, j, S_ij) come back for the hybrid rule; each
+    class's schedule is uploaded to x's device once, as int32.  Per-class
+    row counts n_k differ, which is why this loops over classes rather than
+    launching one K-batched kernel."""
     if tile_fn is None:
         tile_fn = covgram_screen_tiles
     batch = max(1, int(pair_batch))
@@ -156,10 +200,10 @@ def covgram_screen_tiles_stacked(
     for x_pad, mu_pad, bi, bj, n_true in zip(
         xs_pad, mus_pad, i_idx_per_class, j_idx_per_class, n_trues
     ):
-        bi = np.asarray(bi, np.int32)
-        bj = np.asarray(bj, np.int32)
+        bi = torch.as_tensor(np.asarray(bi, np.int32), device=x_pad.device)
+        bj = torch.as_tensor(np.asarray(bj, np.int32), device=x_pad.device)
         parts = []
-        for b0 in range(0, bi.size, batch):
+        for b0 in range(0, bi.numel(), batch):
             sl = slice(b0, b0 + batch)
             vals, _, _ = tile_fn(
                 x_pad, mu_pad, bi[sl], bj[sl], lam,

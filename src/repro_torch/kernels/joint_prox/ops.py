@@ -3,10 +3,24 @@ card, the plain version on the CPU.
 
 Called once per iteration of the joint ADMM's Z-update with the whole
 (n, K, b, b) bucket stack and the per-lane t = [lam1/rho, lam2/rho] as an
-(n, 2) tensor on the stack's device, so an adaptive rho never reaches the
-host.  No padding is needed: the kernel masks the ragged edge itself."""
+(n, 2) tensor on the stack's device, read in place by pointer, so an
+adaptive rho never reaches the host.  No padding is needed: the kernel
+masks the ragged edge itself.
+
+A call on the card is one kernel launch and nothing else: the cross-block
+sums finish inside the same launch, the outputs (Z_new, U_new, rp2, rd2)
+are views of one allocation the kernel writes whole, and the partials, the
+shared-memory shape's work region and the per-lane counters live in a
+scratch buffer cached per (device, dtype) that only grows.  The counters
+are zeroed once, when the buffer is allocated, and every launch leaves
+them at zero.  Sharing the buffer between calls is safe because launches
+on one stream run in order and the ADMM calls from one stream; calls on
+two streams at once would need a buffer each."""
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -18,6 +32,34 @@ from repro_torch.kernels.joint_prox.ref import PENALTIES, joint_prox_ref
 #: template instance per K up to this; above it the wrapper picks the
 #: shared-memory shape, which takes any K
 MAX_CLASSES = 16
+
+#: (device, dtype) -> (partials and work region, per-lane counters)
+_SCRATCH: dict[tuple[torch.device, torch.dtype], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.cache
+def scratch_values(n: int, K: int, b: int, smem_shape: bool, itemsize: int) -> int:
+    """Values of scratch the launcher needs for n lanes of (K, b, b), asked
+    of the library once per shape."""
+    return int(library().joint_prox_scratch_values(n, K, b, int(smem_shape), itemsize))
+
+
+def scratch(dev: torch.device, dtype: torch.dtype, n: int, values: int):
+    """The cached (scratch, counters) for ``values`` values of ``dtype`` and
+    n zeroed int32 counters, reallocated only when a call needs more."""
+    buf, tickets = _SCRATCH.get((dev, dtype), (None, None))
+    if buf is None or buf.numel() < values:
+        buf = torch.empty(values, dtype=dtype, device=dev)
+    if tickets is None or tickets.numel() < n:
+        tickets = torch.zeros(n, dtype=torch.int32, device=dev)
+    _SCRATCH[(dev, dtype)] = (buf, tickets)
+    return buf, tickets
+
+
+@functools.cache
+def _launcher(suffix: str):
+    """The kernel instance's entry point ("f64" or "f32")."""
+    return getattr(library(), f"joint_prox_launch_{suffix}")
 
 
 def joint_prox_step(
@@ -60,24 +102,26 @@ def joint_prox_step(
     if any(x.device != dev for x in ops):
         raise ValueError(f"joint_prox: every operand must lie on {dev}")
     theta, u, z_old, t = (x.contiguous() for x in ops)
-    z_new = torch.empty_like(theta)
-    u_new = torch.empty_like(theta)
-    acc = torch.zeros((n, 2), dtype=theta.dtype, device=dev)
+    numel = theta.numel()
+    # Z_new, U_new, rp2 and rd2: views of one allocation
+    z_new, u_new, rp2, rd2 = torch.empty(
+        2 * numel + 2 * n, dtype=theta.dtype, device=dev
+    ).split([numel, numel, n, n])
+    z_new, u_new = z_new.view(theta.shape), u_new.view(theta.shape)
     if n == 0 or K == 0 or b == 0:
-        return z_new, u_new, acc[:, 0], acc[:, 1]
-    lib = library()
-    smem_shape = int(K > MAX_CLASSES)
-    scratch = torch.empty(
-        int(lib.joint_prox_scratch_values(n, K, b, smem_shape, theta.element_size())),
-        dtype=theta.dtype, device=dev,
+        return z_new, u_new, rp2.zero_(), rd2.zero_()
+    smem_shape = K > MAX_CLASSES
+    buf, tickets = scratch(
+        dev, theta.dtype, n, scratch_values(n, K, b, smem_shape, theta.element_size())
     )
-    with torch.cuda.device(dev):
-        status = getattr(lib, f"joint_prox_launch_{suffix}")(
+    other = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if other else contextlib.nullcontext():
+        status = _launcher(suffix)(
             theta.data_ptr(), u.data_ptr(), z_old.data_ptr(), t.data_ptr(),
-            z_new.data_ptr(), u_new.data_ptr(), scratch.data_ptr(), acc.data_ptr(),
-            n, K, b, int(penalty == "fused"), smem_shape,
-            torch.cuda.current_stream().cuda_stream,
+            z_new.data_ptr(), u_new.data_ptr(), rp2.data_ptr(), rd2.data_ptr(),
+            buf.data_ptr(), tickets.data_ptr(), n, K, b, int(penalty == "fused"),
+            int(smem_shape), torch._C._cuda_getCurrentRawStream(dev.index),
         )
     check(status, "joint_prox")
     bump("kernels.joint_prox.launches")
-    return z_new, u_new, acc[:, 0], acc[:, 1]
+    return z_new, u_new, rp2, rd2

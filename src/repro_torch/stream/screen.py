@@ -134,15 +134,18 @@ def stream_screen(
     batch = cfg.resolved_pair_batch(x_pad.element_size())
     i_keep = ti[keep].astype(np.int32)
     j_keep = tj[keep].astype(np.int32)
+    # the schedule goes to the device once: a kernel call is then one launch
+    i_dev = torch.from_numpy(i_keep).to(dev)
+    j_dev = torch.from_numpy(j_keep).to(dev)
     base_bytes = x_pad.numel() * x_pad.element_size() + 4 * p * 8  # padded X + moments
     local_peak = base_bytes
     for b0 in range(0, i_keep.size, batch):
-        bi = i_keep[b0 : b0 + batch]
-        bj = j_keep[b0 : b0 + batch]
+        sl = slice(b0, b0 + batch)
+        bi, bj = i_keep[sl], j_keep[sl]
         vals, _, stats = tile_fn(
-            x_pad, mu_pad, bi, bj, lam_min, n_true=n, p_true=p, block_p=cfg.tile
+            x_pad, mu_pad, i_dev[sl], j_dev[sl], lam_min, n_true=n, p_true=p, block_p=cfg.tile
         )
-        gi, gj, w = compact_edges(vals, bi, bj, block_p=cfg.tile)
+        gi, gj, w = compact_edges(vals, i_dev[sl], j_dev[sl], block_p=cfg.tile)
         acc.add_batch(bi, bj, gi, gj, w, stats.cpu().numpy(), tile=cfg.tile)
         vals_bytes = vals.numel() * vals.element_size()
         local_peak = max(local_peak, base_bytes + vals_bytes + acc.bytes_held())

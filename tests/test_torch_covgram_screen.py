@@ -26,6 +26,7 @@ from repro_torch.kernels.covgram_screen import (
     compact_edges_signed,
     covgram_screen_ref,
     covgram_screen_tiles,
+    covgram_screen_tiles_stacked,
     pad_for_screen,
 )
 
@@ -113,3 +114,147 @@ def test_compact_edges_match_reference(seed):
             assert g.dtype == w.dtype and np.array_equal(g, w)
     gi, gj, _ = compact_edges(torch.as_tensor(vals), ti, tj, block_p=tile)
     assert (gi < gj).all() and (gj < p).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_compact_edges_take_index_tensors(seed):
+    """The screening paths pass each batch's tile indices as int32 tensors
+    (their schedule uploaded once); compaction reads them as it reads the
+    numpy form."""
+    rng = np.random.default_rng(seed)
+    n, p, tile = 16, 37, 16
+    X = rng.standard_normal((n, p))
+    x_np, mu_np, x_t, mu_t, ti, tj = _inputs(X, tile, 8)
+    vals, _, _ = np_screen_ref(x_np, mu_np, ti, tj, 0.3, n_true=n, p_true=p, block_p=tile)
+    got = compact_edges_signed(torch.as_tensor(vals), torch.from_numpy(ti),
+                               torch.from_numpy(tj), block_p=tile)
+    want = jax_compact_edges_signed(vals, ti, tj, block_p=tile)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+
+
+def _recording(calls):
+    def tile_fn(x, mu, i_idx, j_idx, *args, **kw):
+        calls.append((i_idx, j_idx))
+        return covgram_screen_tiles(x, mu, i_idx, j_idx, *args, **kw)
+
+    return tile_fn
+
+
+def _uploaded_once(calls):
+    """Every call's indices are int32 tensors, slices of one allocation a
+    side: the schedule went to the device once, not once a call."""
+    assert len(calls) > 1
+    for side in (0, 1):
+        idx = [c[side] for c in calls]
+        assert all(isinstance(t, torch.Tensor) and t.dtype == torch.int32 for t in idx)
+        assert len({t.untyped_storage().data_ptr() for t in idx}) == 1
+
+
+def test_stream_screen_uploads_the_schedule_once(monkeypatch):
+    from repro.stream import stream_screen as jax_stream_screen
+    from repro_torch.stream import screen as stream_mod
+
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((40, 90))
+    cfg = {"tile": 16, "chunk": 16, "pair_batch": 3}
+    calls = []
+    monkeypatch.setattr(stream_mod, "covgram_screen_tiles", _recording(calls))
+    got = stream_mod.stream_screen(X, [0.3], config=cfg, device="cpu", materialize=False)
+    _uploaded_once(calls)
+    want = jax_stream_screen(X, [0.3], config=cfg, materialize=False)
+    assert np.array_equal(got.labels[0], np.asarray(want.labels[0]))
+    for g, w in zip(got.edges, want.edges):
+        assert np.array_equal(g, np.asarray(w))
+
+
+def test_stacked_screen_uploads_each_schedule_once():
+    rng = np.random.default_rng(6)
+    tile, lam = 16, 0.25
+    xs_pad, mus_pad, sched_i, sched_j, n_trues = [], [], [], [], []
+    for n in (24, 31):
+        X = rng.standard_normal((n, 50))
+        x_np, mu_np, x_t, mu_t, ti, tj = _inputs(X, tile, 8)
+        xs_pad.append(x_t)
+        mus_pad.append(mu_t)
+        sched_i.append(ti)
+        sched_j.append(tj)
+        n_trues.append(n)
+    calls = []
+    got = covgram_screen_tiles_stacked(
+        xs_pad, mus_pad, sched_i, sched_j, lam, n_trues=n_trues, p_true=50, block_p=tile,
+        pair_batch=4, tile_fn=_recording(calls),
+    )
+    per_class = [calls[:3], calls[3:]]  # 10 pairs a class, 4 a flight
+    assert len(calls) == 6
+    for k, cls in enumerate(per_class):
+        _uploaded_once(cls)
+        x_np, mu_np = xs_pad[k].numpy(), mus_pad[k].numpy()
+        vals, _, _ = np_screen_ref(x_np, mu_np, sched_i[k], sched_j[k], lam,
+                                   n_true=n_trues[k], p_true=50, block_p=tile)
+        want = jax_compact_edges_signed(vals, sched_i[k], sched_j[k], block_p=tile)
+        for g, w in zip(got[k], want):
+            assert g.dtype == w.dtype
+            np.testing.assert_allclose(g, w, rtol=0, atol=RTOL * np.abs(vals).max())
+
+
+def _mma_order_screen(x, mu, ti, tj, lam, *, n_true, p_true, block_p, k_step):
+    """The card kernel's arithmetic in plain torch: centered operands, the
+    products of each k-step of its mma shape summed on their own and added
+    to the fragment's running sum (rows past N, staged as mu, add zero),
+    the division by n after the sum, then the strict threshold, counts and
+    tile maxima."""
+    N, P = x.shape
+    nt = P // block_p
+    ti = torch.as_tensor(ti, dtype=torch.int64)
+    tj = torch.as_tensor(tj, dtype=torch.int64)
+    xt, mt = x.reshape(N, nt, block_p), mu.reshape(nt, block_p)
+    a = (xt[:, ti, :] - mt[ti]).permute(1, 2, 0)   # (B, bp, N)
+    b = (xt[:, tj, :] - mt[tj]).permute(1, 0, 2)   # (B, N, bp)
+    acc = torch.zeros((len(ti), block_p, block_p), dtype=x.dtype)
+    for k0 in range(0, N, k_step):
+        acc = acc + a[:, :, k0 : k0 + k_step] @ b[:, k0 : k0 + k_step]
+    S = acc / n_true
+    iota = torch.arange(block_p)
+    rows = ti[:, None, None] * block_p + iota[None, :, None]
+    cols = tj[:, None, None] * block_p + iota[None, None, :]
+    valid = (rows < p_true) & (cols < p_true) & (rows != cols)
+    edge = valid & (S.abs() > lam)
+    zero = torch.zeros((), dtype=S.dtype)
+    stats = torch.stack([torch.where(valid, S.abs(), zero).amax(dim=(1, 2)),
+                         torch.where(valid & ~edge, S.abs(), zero).amax(dim=(1, 2))], dim=1)
+    return torch.where(edge, S, zero), edge.sum(dim=(1, 2)).to(torch.int32), stats
+
+
+# the kernel's mma shape, m16n8k8, takes k-steps of 8 rows; chunk 67 pads
+# n = 64 and n = 60 to N = 67 (with rows of mu), not a multiple of 8, and
+# chunk 16 pads n = 60 to 64 (n = 64 needs no padding rows)
+@pytest.mark.parametrize("chunk", [67, 16])
+@pytest.mark.parametrize("integer", [True, False])
+def test_mma_accumulation_order_matches_reference(chunk, integer):
+    k_step = 8
+    rng = np.random.default_rng(chunk + 10 * integer)
+    n, p, tile = (64, 50, 16) if integer else (60, 70, 32)
+    if integer:
+        X = rng.integers(-4, 5, size=(n, p)).astype(np.float64)
+    else:
+        X = rng.standard_normal((n, p)) * (0.1 + rng.random(p))
+    x_np, mu_np, x_t, mu_t, ti, tj = _inputs(X, tile, chunk)
+    assert (x_np.shape[0] % k_step != 0) == (chunk == 67)
+    Xc = X - X.mean(axis=0)
+    vals = np.unique(np.abs(Xc.T @ Xc / n)[np.triu_indices(p, 1)])
+    k = vals.size // 2
+    # integer data: lam an existing |S_ij| (an exact tie, not an edge);
+    # Gaussian data: lam midway between two values, far from any entry
+    lam = float(vals[k]) if integer else float(0.5 * (vals[k] + vals[k + 1]))
+    want = np_screen_ref(x_np, mu_np, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    got = _mma_order_screen(x_t, mu_t, ti, tj, lam, n_true=n, p_true=p, block_p=tile,
+                            k_step=k_step)
+    assert np.array_equal(got[1].numpy(), want[1][:, 0])
+    if integer:
+        assert np.array_equal(got[0].numpy(), want[0])
+        assert np.array_equal(got[2].numpy(), want[2])
+    else:
+        scale = float(want[2][:, 0].max())
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=0, atol=RTOL * scale)
+        np.testing.assert_allclose(got[2].numpy(), want[2], rtol=0, atol=RTOL * scale)

@@ -23,6 +23,7 @@ from repro_torch.core.blocks import pad_block
 from repro_torch.core.solvers.bcd import convergence_scale
 from repro_torch.kernels.bucket_glasso import fused_bcd_ref_stack, fused_bcd_stack
 from repro_torch.kernels.tree_glasso import glasso_forest_ref, glasso_forest_stack
+from repro_torch.obs.device_profile import profile_calls
 
 pytestmark = pytest.mark.cuda
 
@@ -291,18 +292,31 @@ def _screen_inputs(X, tile, chunk=64):
     return x_pad, mu_pad, ti.astype(np.int32), tj.astype(np.int32)
 
 
-@pytest.mark.parametrize("tile", [48, 64, 128])
+def _device_events(fn):
+    """The profiler's device events of ``fn()`` by name, each with its
+    count a call."""
+    return profile_calls(fn, 10)[0]
+
+
+# covgram_screen runs on the FP64 tensor cores in k-steps of its mma shape:
+# Gaussian data agrees with the plain version within 1e-12 of max|S| with
+# equal counts; integer data (every value exact) bit for bit.  chunk 67
+# pads n = 64 and n = 100 to N = 67 and N = 134 (with rows of mu), not
+# multiples of the k-step (8) nor of the kernel's 16-row stages; tile 33
+# takes the 8-byte copy path.
+@pytest.mark.parametrize("tile", [33, 48, 64, 100, 128, 512, 2048])
 @pytest.mark.parametrize("integer", [True, False])
 def test_covgram_screen_matches_plain(cuda_device, tile, integer):
     from repro_torch.kernels.covgram_screen import covgram_screen_ref, covgram_screen_tiles
 
     rng = np.random.default_rng(tile)
-    n, p = (64, 300) if integer else (96, 300)
+    n, p = (64, 300) if integer else (100, 300)
     if integer:
         X = rng.integers(-4, 5, size=(n, p)).astype(np.float64)
     else:
         X = rng.standard_normal((n, p)) * (0.1 + rng.random(p))
-    x_pad, mu_pad, ti, tj = _screen_inputs(X, tile)
+    x_pad, mu_pad, ti, tj = _screen_inputs(X, tile, chunk=67)
+    assert x_pad.shape[0] % 4
     vals = np.unique(np.abs(np.cov(X, rowvar=False, bias=True))[np.triu_indices(p, 1)])
     k = int(0.9 * vals.size)
     # integer data: lam an existing |S_ij| (an exact tie, not an edge);
@@ -321,6 +335,37 @@ def test_covgram_screen_matches_plain(cuda_device, tile, integer):
         assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
         assert float((got[2] - want[2]).abs().max()) <= 1e-12 * scale
         assert torch.equal(got[1], want[1])
+
+
+def test_covgram_screen_call_is_one_device_event(cuda_device):
+    """With the tile indices on the card, as the screening paths pass them,
+    a call is the kernel's one launch: no fill of counts or stats, no copy;
+    the cached accumulators are left zeroed, so a second batch of another
+    size agrees too."""
+    from repro_torch.kernels.covgram_screen import covgram_screen_ref, covgram_screen_tiles
+    from repro_torch.kernels.covgram_screen.ops import _ACC
+
+    rng = np.random.default_rng(11)
+    n, p, tile = 90, 700, 128
+    X = rng.standard_normal((n, p))
+    x_pad, mu_pad, ti, tj = _screen_inputs(X, tile)
+    kw = dict(n_true=n, p_true=p, block_p=tile)
+    for b0, b1 in ((0, len(ti)), (3, 9)):
+        i_dev = torch.as_tensor(ti[b0:b1], device=cuda_device)
+        j_dev = torch.as_tensor(tj[b0:b1], device=cuda_device)
+        events = _device_events(lambda: covgram_screen_tiles(x_pad, mu_pad, i_dev, j_dev, 0.1,
+                                                             **kw))
+        assert len(events) == 1, events
+        name, per_call = next(iter(events.items()))
+        assert "covgram_screen" in name and 0.0 < per_call <= 1.0, events
+        got = covgram_screen_tiles(x_pad, mu_pad, i_dev, j_dev, 0.1, **kw)
+        want = covgram_screen_ref(x_pad, mu_pad, ti[b0:b1], tj[b0:b1], 0.1, **kw)
+        torch.cuda.synchronize()
+        scale = float(want[2][:, 0].max())
+        assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
+        assert float((got[2] - want[2]).abs().max()) <= 1e-12 * scale
+        assert torch.equal(got[1], want[1])
+        assert int(_ACC[x_pad.device].abs().sum()) == 0
 
 
 def test_covgram_screen_rejects_what_the_kernel_does_not_take(cuda_device):
@@ -464,6 +509,93 @@ def test_joint_prox_shared_memory_shape_matches_plain(cuda_device, K, b, penalty
     for g, w in zip(got[2:], want[2:]):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-9)
     assert torch.equal(got[0][:, 1, :2], got[0][:, 0, :2])
+
+
+def _joint_lanes(rng, n, K, b, device, dtype=torch.float64, dyadic=False):
+    """theta, u, z_old (n, K, b, b) and t (n, 2); ``dyadic``: every value a
+    small multiple of 1/16 and t multiples of 1/64, so the plain version
+    and the kernel compute every step exactly or with one rounding each."""
+    if dyadic:
+        ops = [rng.integers(-32, 33, size=(n, K, b, b)) / 16.0 for _ in range(3)]
+        t = rng.integers(1, 17, size=(n, 2)) / 64.0
+    else:
+        ops = [rng.standard_normal((n, K, b, b)) for _ in range(3)]
+        t = np.stack([0.3 * rng.random(n) + 0.01, 0.3 * rng.random(n)], axis=1)
+    return [torch.as_tensor(x, device=device).to(dtype) for x in (*ops, t)]
+
+
+# joint_prox is one launch a call: each block writes its partials and takes
+# a ticket; the lane's last block sums the partials in block order and
+# resets the lane's counter in the cached scratch
+@pytest.mark.parametrize("K,b", [(4, 40), (20, 16), (130, 3)])
+def test_joint_prox_call_is_one_device_event(cuda_device, K, b):
+    """The register shape, the shared-memory shape and its device-scratch
+    case (K = 130) each run as one device event a call and nothing else."""
+    from repro_torch.kernels.joint_prox import joint_prox_step
+
+    ops = _joint_lanes(np.random.default_rng(K), 3, K, b, cuda_device)
+    for penalty in ("group", "fused"):
+        events = _device_events(lambda: joint_prox_step(*ops, penalty=penalty))
+        assert len(events) == 1, events
+        name, per_call = next(iter(events.items()))
+        assert "joint_prox" in name and 0.0 < per_call <= 1.0, events
+
+
+@pytest.mark.parametrize("K,b", [(4, 100), (16, 33), (20, 40), (130, 5)])
+def test_joint_prox_sums_are_bit_identical_from_call_to_call(cuda_device, K, b):
+    from repro_torch.kernels.joint_prox import joint_prox_step
+
+    ops = _joint_lanes(np.random.default_rng(K + b), 6, K, b, cuda_device)
+    for penalty in ("group", "fused"):
+        first = joint_prox_step(*ops, penalty=penalty)
+        for _ in range(3):
+            again = joint_prox_step(*ops, penalty=penalty)
+            torch.cuda.synchronize()
+            for g, w in zip(first, again):
+                assert torch.equal(g, w)
+
+
+def test_joint_prox_scratch_is_reused_across_shapes(cuda_device):
+    """Calls of changing (n, K, b), in both shapes and both dtypes, share
+    the cached scratch: each matches the plain version and leaves every lane
+    counter at zero."""
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+    from repro_torch.kernels.joint_prox.ops import _SCRATCH
+
+    rng = np.random.default_rng(91)
+    for dtype in (torch.float64, torch.float32):
+        for n, K, b in [(5, 4, 16), (2, 20, 30), (9, 3, 7), (1, 130, 4), (12, 16, 20),
+                        (3, 250, 3), (5, 4, 16)]:
+            ops = _joint_lanes(rng, n, K, b, cuda_device, dtype)
+            for penalty in ("group", "fused"):
+                got = joint_prox_step(*ops, penalty=penalty)
+                want = joint_prox_ref(*ops, penalty=penalty)
+                torch.cuda.synchronize()
+                atol, rtol = (1e-12, 1e-9) if dtype == torch.float64 else (1e-5, F32_SUM_RTOL)
+                for g, w in zip(got[:2], want[:2]):
+                    assert float((g - w).abs().max()) <= atol
+                for g, w in zip(got[2:], want[2:]):
+                    assert g.shape == w.shape == (n,)
+                    np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
+                _, tickets = _SCRATCH[(ops[0].device, dtype)]
+                assert int(tickets.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("K,b", [(1, 9), (4, 17), (16, 8), (20, 9), (130, 3)])
+def test_joint_prox_is_bit_equal_on_representable_data(cuda_device, K, b):
+    """On dyadic data the kernel's per-entry arithmetic is the plain
+    version's operation for operation: Z and U equal bit for bit, in every
+    shape, ties included."""
+    from repro_torch.kernels.joint_prox import joint_prox_ref, joint_prox_step
+
+    ops = _joint_lanes(np.random.default_rng(3 * K + b), 4, K, b, cuda_device, dyadic=True)
+    for penalty in ("group", "fused"):
+        got = joint_prox_step(*ops, penalty=penalty)
+        want = joint_prox_ref(*ops, penalty=penalty)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for g, w in zip(got[2:], want[2:]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=1e-9)
 
 
 def test_joint_glasso_on_the_card_matches_the_cpu_path(cuda_device):

@@ -109,3 +109,48 @@ def test_cpu_step_runs_the_plain_version_and_validates():
     assert instrument.count("kernels.joint_prox.launches") == 0
     with pytest.raises(ValueError, match="unknown joint penalty"):
         joint_prox_step(*ops, penalty="lasso")
+
+
+def _kernel_order_sums(theta, z_new, z_old, *, tile):
+    """rp2 and rd2 in the card kernel's fixed order, in plain torch: per
+    entry the K classes in order (each square rounded, then added), per
+    block of ``tile`` entries a warp's shuffle tree (offsets 16, 8, 4, 2, 1)
+    and its warps in order, per lane the blocks one by one in order."""
+    n, K, b, _ = theta.shape
+    bb = b * b
+    tiles = -(-bb // tile)
+
+    def reduce(d):
+        e = torch.zeros((n, bb), dtype=d.dtype)
+        for k in range(K):
+            e = e + d[:, k] * d[:, k]
+        w = torch.nn.functional.pad(e, (0, tiles * tile - bb)).reshape(n, tiles, tile // 32, 32)
+        for off in (16, 8, 4, 2, 1):
+            w = w[..., :off] + w[..., off : 2 * off]
+        block = torch.zeros((n, tiles), dtype=d.dtype)
+        for warp in range(tile // 32):
+            block = block + w[:, :, warp, 0]
+        total = torch.zeros(n, dtype=d.dtype)
+        for t in range(tiles):
+            total = total + block[:, t]
+        return total
+
+    flat = (n, K, bb)
+    return (reduce((theta - z_new).reshape(flat)), reduce((z_new - z_old).reshape(flat)))
+
+
+# the register shape sums blocks of 256 entries (K <= 16), the
+# shared-memory shape blocks of 64 (K > 16)
+@pytest.mark.parametrize("penalty", PENALTIES)
+@pytest.mark.parametrize("K,b,tile", [(1, 23, 256), (3, 40, 256), (17, 9, 64)])
+def test_kernel_reduction_order_matches_reference(K, b, tile, penalty):
+    rng = np.random.default_rng(K * b)
+    n = 3
+    theta, u, z_old, t = _lanes(rng, n, K, b)
+    zn, _, _, _ = joint_prox_ref(*_torch(theta, u, z_old, t), penalty=penalty)
+    rp2, rd2 = _kernel_order_sums(*_torch(theta), zn, *_torch(z_old), tile=tile)
+    for lane in range(n):
+        args = [jnp.asarray(x[lane]) for x in (theta, u, z_old)]
+        want = jax_joint_prox_ref(*args, *t[lane], penalty=penalty)
+        np.testing.assert_allclose(float(rp2[lane]), float(want[2]), rtol=1e-12)
+        np.testing.assert_allclose(float(rd2[lane]), float(want[3]), rtol=1e-12)
