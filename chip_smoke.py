@@ -6,13 +6,17 @@ Phases, each printing a line:
 
 1. build     compile the CUDA kernels from ``src/repro_torch/csrc`` and
              print the build seconds and the card's name and power limit;
+             [flash_instances] each flash_attention instance's registers,
+             local (spilled and stack) bytes, shared bytes and blocks an SM;
 1b. flash_attention  the kernel against its plain version at the
              prefill's shape in float32 and bf16, a ragged length and full
-             MHA in both, MQA and a long causal case (against the plain
-             chunked form), timed beside its bound, the plain version and
-             SDPA, with the profiler's device time of each case (run
-             first, while the profiler is fresh: after sessions of
-             thousands of events it records short ones only in part);
+             MHA in both, MQA, a long causal case (against the plain
+             chunked form) and Phi-3-mini's d = 96 (its own instance), timed
+             beside its bound, the plain version and SDPA, with the
+             profiler's device time of each case (run first, while the
+             profiler is fresh: after sessions of thousands of events it
+             records short ones only in part); each case must run its
+             dtype's body (fp32 or wgmma);
 2. tree      ``tree_glasso`` against its plain PyTorch version on float64
              stacks at b in {2, 8, 64, 384}, sized to fill the card;
 3. bucket    ``bucket_glasso`` against its plain version, cold and warm
@@ -41,9 +45,9 @@ Phases, each printing a line:
              zeroed just before and read just after; every hook step of
              the first solve is recorded, then held against its plain
              version and timed on its own inputs;
-1c. card_tests  the card tests of covgram_screen and joint_prox
-             (``tests/test_torch_cuda_kernels.py -k CARD_TESTS``) in a
-             subprocess;
+1c. card_tests  the card tests of flash_attention, covgram_screen and
+             joint_prox (``tests/test_torch_cuda_kernels.py -k
+             CARD_TESTS``) in a subprocess;
 7. covgram_screen  the fused Gram + threshold kernel against its plain
              version at n = 192, tile 512 and tile 2048, on the tile pairs
              the two data paths below schedule: CUDA-event and profiler
@@ -142,7 +146,8 @@ Phases, each printing a line:
              just before the run, read just after), init / prefill / decode
              times, tokens/s and peak memory; the kernel's prefill logits
              against the dense path's on the card, and two decode steps
-             against fresh prefills of the extended prompt;
+             against fresh prefills of the extended prompt; the kernel's
+             device ms a prefill and its share of the prefill;
              [serve_profile] the device-busy share of one decode step;
 24. prefill_bf16  qwen2.5-3b at full width in its config's own bfloat16
              (random weights from seed 0), ``Model.prefill`` of a batch of
@@ -162,6 +167,7 @@ CUDA.  Data is made from fixed seeds with numpy.
 
 from __future__ import annotations
 
+import ctypes
 import importlib
 import json
 import math
@@ -379,9 +385,11 @@ PREFILL_BF16_RTOL = 5e-2
 # reference's own tolerances for its kernel (tests/test_kernels.py): float32
 # 2e-5, bf16 3e-2.  Cases (label, B, Hq, Hkv, Sq, Skv, d, causal, dtype): the
 # serving prefill's shape, a ragged length and full (non-causal) MHA in
-# float32 and bf16 (bf16 at d = 128 runs the wgmma body), MQA, and one long
-# causal case held against the plain chunked form (``_sdpa_chunked``, the
-# reference's own path above ATTN_CHUNK_THRESHOLD = 4096 query rows)
+# float32 (the fp32 body) and bf16 (the wgmma body), MQA, one long causal
+# case held against the plain chunked form (``_sdpa_chunked``, the
+# reference's own path above ATTN_CHUNK_THRESHOLD = 4096 query rows), and
+# Phi-3-mini's attention (32 heads of d = 96, no GQA) at the serving
+# prefill's batch and length, the fp32 body's d = 96 instance
 FLASH_ATOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 FLASH_CASES = (
     ("full_width", 4, 16, 2, 2048, 2048, 128, True, torch.float32),
@@ -392,7 +400,11 @@ FLASH_CASES = (
     ("mha_full", 4, 16, 16, 1024, 1024, 128, False, torch.bfloat16),
     ("mqa", 4, 16, 1, 2048, 2048, 128, True, torch.float32),
     ("long", 1, 16, 2, 8192, 8192, 128, True, torch.float32),
+    ("phi3_mini", 4, 32, 32, 2048, 2048, 96, True, torch.float32),
 )
+#: flash_attention's instances: (body, head dim), body 0 the fp32 body and
+#: 1 the wgmma body (``flash_attention_instance_info``)
+FLASH_INSTANCES = ((0, 32), (0, 64), (0, 96), (0, 128), (1, 16), (1, 32), (1, 64), (1, 128))
 
 
 T_START = time.perf_counter()
@@ -487,17 +499,25 @@ def phase_build() -> None:
     path, seconds, out = kbuild.build()
     if out:  # the compiler's full report, beside the library it built
         path.with_suffix(".log").write_text(out)
-    kbuild.library()
+    lib = kbuild.library()
     usage = [ln.strip() for ln in out.splitlines() if "registers" in ln]
     log("build", seconds=f"{seconds:.3f}", library=path.name, ptxas="; ".join(usage))
     log("card", nvidia_smi=json.dumps(card_line()), torch=torch.__version__,
         cuda=torch.version.cuda)
+    for body, d in FLASH_INSTANCES:
+        info = (ctypes.c_int * 4)()
+        kbuild.check(lib.flash_attention_instance_info(body, d, info), "flash_attention")
+        # local bytes: a thread's spills and stack (0: nothing spilled)
+        log("flash_instances", body=("fp32", "wgmma")[body], d=d, registers=info[0],
+            local_bytes=info[1], dynamic_smem_bytes=info[2], blocks_per_sm=info[3],
+            warps_per_sm=info[3] * (4 if body == 0 else 8))
 
 
 #: the card tests run as a phase: those of the kernels redesigned last,
-#: on shapes the paths never give them (ragged and odd tiles, K above 113,
-#: scratch reuse, bit-identical sums)
-CARD_TESTS = "covgram_screen or joint_prox"
+#: on shapes the paths never give them (ragged and odd tiles, head dims
+#: off the instances, unaligned views, K above 113, scratch reuse,
+#: bit-identical sums)
+CARD_TESTS = "flash_attention or covgram_screen or joint_prox"
 
 
 def phase_card_tests() -> None:
@@ -2261,8 +2281,10 @@ def phase_flash_attention() -> dict:
         got, want = flash_attention(q, k, v, causal=causal), plain()
         if got.dtype != dtype or got.shape != q.shape:
             raise AssertionError(f"flash_attention {label}: {got.dtype} {tuple(got.shape)}")
-        body = "wgmma" if instrument.count("kernels.flash_attention.wgmma_launches") else "simt"
-        if body != ("wgmma" if dtype == torch.bfloat16 else "simt"):
+        if instrument.count("kernels.flash_attention.launches") != 1:
+            raise AssertionError(f"flash_attention {label}: not one launch")
+        body = "wgmma" if instrument.count("kernels.flash_attention.wgmma_launches") else "fp32"
+        if body != ("wgmma" if dtype == torch.bfloat16 else "fp32"):
             raise AssertionError(f"flash_attention {label} {dtype} ran the {body} body")
         err = float((got.float() - want.float()).abs().max())
         if not err <= FLASH_ATOL[dtype]:
@@ -2309,8 +2331,9 @@ def phase_serve() -> dict:
     run_serving: the parameter count, flash launches per prefill (one a
     layer), init / prefill / decode times and peak memory; then the
     kernel's prefill logits against the dense path's on the card, and two
-    decode steps against fresh prefills of the extended prompt; one decode
-    step under the profiler.  Returns the serving run's launches."""
+    decode steps against fresh prefills of the extended prompt; the
+    kernel's device ms a prefill (profiler); one decode step under the
+    profiler.  Returns the serving run's launches."""
     from repro_torch.launch.serve import run_serving
     from repro_torch.models.transformer import padded_vocab
 
@@ -2342,6 +2365,8 @@ def phase_serve() -> dict:
         flash_s = time.perf_counter() - t0
         if instrument.count("kernels.flash_attention.launches") != cfg.n_layers:
             raise AssertionError("[serve] the check's prefill did not launch flash_attention")
+        flash_ms = kernel_device_ms(lambda: model.prefill(batch, capacity=SERVE_PROMPT + 2),
+                                    "flash_attention", 2, per_call=cfg.n_layers)
         t0 = time.perf_counter()
         dense, _ = model.prefill(batch, use_flash=False)
         torch.cuda.synchronize()
@@ -2379,6 +2404,8 @@ def phase_serve() -> dict:
         decode_tokens_per_s=f"{SERVE_BATCH * run.decode_steps / run.decode_s:.1f}",
         tokens_per_s=f"{run.tokens_per_s:.1f}", peak_bytes=peak,
         check_prefill_flash_s=f"{flash_s:.3f}", check_prefill_dense_s=f"{dense_s:.3f}",
+        flash_device_ms=f"{flash_ms:.3f}",
+        flash_share_of_prefill=f"{flash_ms / (flash_s * 1e3):.4f}",
         logits_vs_dense=err, max_abs_logits=scale, logits_tol_rel=SERVE_LOGITS_RTOL,
         argmax_equal=argmax_equal, decode_vs_fresh_prefill=json.dumps(step_errs),
         tokens_row0=json.dumps(toks[0].tolist()))
@@ -2624,6 +2651,8 @@ def main() -> int:
             "max_abs_err": fa["err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
             "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
             "library_ms": fa["library_ms"], "device_ms": fa["device_ms"],
+            "redesigned": "float32: register-tiled FP32 FMAs, swizzled float4 shared loads, "
+                          "cp.async K/V ring; bf16: wgmma fed by TMA",
             # the bf16 instance (the wgmma body) on [prefill_bf16]'s path
             "bf16": {
                 "launches": bf16_launches["flash_attention.wgmma_launches"],

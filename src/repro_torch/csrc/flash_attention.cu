@@ -1,9 +1,19 @@
 // flash_attention: blockwise online-softmax attention, causal or full, with
 // grouped K/V heads (GQA), for float32 or bf16 q/k/v; float32 sums and the
-// output in q's dtype.  Two hand-written bodies, chosen by dtype and head
-// dim in the wrapper (kernels/flash_attention/ops.py):
-//   - the SIMT body: float32 at every d, bf16 at d in {4, 8};
-//   - the wgmma body: bf16 at d in {16, 32, 64, 128} (wgmma's depth is 16).
+// output in q's dtype.  One hand-written body per dtype, chosen by dtype in
+// the wrapper (kernels/flash_attention/ops.py), each with instances at a few
+// head dims:
+//   - the float32 body (register-tiled FP32 FMAs): d in {32, 64, 96, 128};
+//   - the wgmma body (bf16 tensor cores): d in {16, 32, 64, 128} (wgmma's
+//     depth is 16 bf16 values).
+// The wrapper pads any other d <= 128 with zero columns of q, k and v up to
+// the next instance (a zero column adds nothing to q . k, and the output
+// columns it adds are sliced away), keeping the unpadded d's scale: in
+// float32, d < 32 runs the d = 32 instance and d = 80 the d = 96 one; in
+// bf16, d < 16 runs d = 16 and d = 80 and 96 run d = 128.  The float32 body
+// takes any multiple of 32 cheaply (d = 96, Phi-3-mini's, runs without a
+// padded copy); it has no d = 16 instance, where a lane would own one
+// output column.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py
 // (`_kernel`, launched by `flash_attention_pallas`).  That kernel ran a grid
@@ -20,6 +30,8 @@
 //   m'  = max(m, max s);  p = exp(s - m');  alpha = exp(m - m');
 //   l   = l alpha + sum p;  acc = acc alpha + p v;  m = m'  (m from NEG_INF);
 //   out = acc / max(l, 1e-30), cast to q's dtype.
+// Both bodies take exp in base 2: s is scaled by scale * log2 e and
+// exp(x) is 2^x by ex2.approx, the same function within float32 rounding.
 // With causal, key tiles wholly above the diagonal of the query block are
 // skipped.  Query head bh reads K/V head bh / group, so no repeated K/V
 // exists in memory.  Sq and Skv need not be multiples of the tiles: rows
@@ -30,19 +42,40 @@
 // instance, at the bf16 tensor-core rate (989 TFLOP/s) for bf16; the bytes
 // of q, k, v and o at 3.35 TB/s are far below either at S = 2048, d = 128.
 //
-// SIMT body: one block of 128 threads per (bh, 64-row query block); the
-// longest causal blocks are numbered first.  The query block is staged once
-// in shared memory, upcast to float32; each 64-key tile of K, then of V, is
-// staged in one buffer after it (rows of pitch d + 1, so the column reads
-// below hit distinct banks).  Thread (ty, tx), ty < 16, tx < 8, owns query
-// rows 4 ty .. 4 ty + 3: it computes their scores against keys tx + 8 j
-// (j < 8), a 4 x 8 register tile of float32 FMAs; the row max and row sum
-// reduce over the 8 threads of the row group by warp shuffles, so every
-// thread of the group holds the row's (m, l); p goes through shared memory,
-// and the thread accumulates its rows' output columns tx + 8 j.  Shared
-// memory: (2 * 64 (d + 1) + 64 * 65) floats, 82,688 bytes at d = 128, so
-// two blocks fit an SM.  Float32 must stay float32 (no TF32), so this body
-// keeps the float32 instance off the tensor cores.
+// float32 body: one block of 128 threads per (bh, 64-row query block), the
+// longest causal blocks first.  The threads are 8 row groups of 16 lanes;
+// lane t of row group g owns query rows 8 g .. 8 g + 7, and
+//   - in S = Q K^T, keys t + 16 j (j < 4) of each 64-key tile: an 8 x 4
+//     register tile.  A step over 4 values of d reads 8 float4 of Q (one
+//     address across the row group: a broadcast) and 4 float4 of K, for
+//     128 FMAs: 10.7 FMAs a shared load;
+//   - in O += P V, output columns 4 (t + 16 u) .. 4 (t + 16 u) + 3
+//     (u < d / 64), and 64 (d / 64) + 2 t, + 1 where d is an odd multiple
+//     of 32: an 8 x d/16 register tile.  A key reads two float4 of P (the 8
+//     rows: a broadcast) and d/64 float4 (and a float2) of V, for 8 d/16
+//     FMAs: 16 FMAs a shared load at d = 128.
+// Q (staged once), one K tile, one V tile and P (stored key-major, P^T)
+// lie in shared memory.  Q, K and V are filled by 16-byte cp.async.cg
+// copies: each thread copies one fixed 16-byte chunk of each 32-column
+// group of every 16th row, so no copy divides an index, and rows past Sq
+// or Skv are zero-filled by the copy itself (src-size 0).  An XOR swizzle takes the place of a
+// padded pitch: K's chunk c of row r lies at chunk c ^ (r & 7), P^T's
+// chunk c of key j at c ^ (j & 7) and Q's chunk c of row r at
+// c ^ ((r / 8) & 7), so the float4 reads of K by 8 consecutive keys, the
+// float4 writes of P and the two row groups' reads of Q in a warp each
+// land on distinct banks; V is read as it lies, by consecutive chunks.
+// K and V have buffers of their own and take turns as a two-slot ring:
+// V(kb) is copied while S(kb) and its softmax run, K(kb + 1) while
+// P(kb) V(kb) runs, so each half of a tile waits for one copy
+// (cp.async.wait_group 0) and meets one barrier.  The online softmax stays
+// in registers: a row's max reduces over its 16 lanes by 4 shuffles, its
+// sum stays per lane until the end; the mask runs only on diagonal and
+// ragged tiles.  Shared memory: (3 * 64 d + 64 * 64) floats, 112 KB at
+// d = 128, so two blocks (8 warps) fit an SM at d >= 96 and three below, with the carveout set to
+// its maximum; two blocks of 128 threads leave up to 255 registers a
+// thread, and a thread's 64 output and 32 score accumulators give each
+// warp independent FMAs enough to cover the FMA pipe's latency.  Float32
+// stays float32 FMAs: no TF32 and no tensor cores.
 //
 // wgmma body (bf16): a block of two warpgroups (256 threads) per (bh,
 // 128-row query block), longest causal blocks first, each warpgroup owning
@@ -83,203 +116,9 @@
 
 namespace {
 
-constexpr int kBQ = 64;                 // query rows a block
+constexpr int kBQ = 64;                 // query rows a block (a warpgroup's, in wgmma)
 constexpr int kBK = 64;                 // keys a tile
-constexpr int kTX = 8;                  // threads of a row group
-constexpr int kTY = 16;                 // row groups
-constexpr int kRows = kBQ / kTY;        // 4 query rows a thread
-constexpr int kKeys = kBK / kTX;        // 8 keys a thread
-constexpr int kThreads = kTX * kTY;     // 128
-constexpr int kPPitch = kBK + 1;        // padded row of the p tile
 constexpr float kNegInf = -1e30f;       // the reference's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return (size_t)(kBQ * (D + 1) + kBK * (D + 1) + kBQ * kPPitch) * sizeof(float);
-}
-
-// rows r0 .. r0 + R - 1 of a (len, D) row-major matrix into tile[R][D + 1]
-// as float32, zero past len
-template <int D, int R, typename T>
-__device__ __forceinline__ void stage(float* tile, const T* __restrict__ src,
-                                      int r0, int len) {
-  for (int e = threadIdx.x; e < R * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int row = r0 + r;
-    tile[r * (D + 1) + c] =
-        row < len ? to_f32(src[(long long)row * D + c]) : 0.0f;
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           int group, int sq, int skv, float scale,
-                           int causal) {
-  constexpr int kPitch = D + 1;
-  constexpr int kDims = (D + kTX - 1) / kTX;  // output columns a thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // [kBQ][kPitch]
-  float* KVs = Qs + kBQ * kPitch;     // [kBK][kPitch]: the tile's K, then V
-  float* Ps = KVs + kBK * kPitch;     // [kBQ][kPPitch]
-
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
-  const T* qh = q + (long long)bh * sq * D;
-  const T* kh = k + (long long)(bh / group) * skv * D;
-  const T* vh = v + (long long)(bh / group) * skv * D;
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int r_base = kRows * ty;
-
-  stage<D, kBQ>(Qs, qh, q0, sq);
-
-  float m[kRows], l[kRows], acc[kRows][kDims];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kDims; ++c) acc[i][c] = 0.0f;
-  }
-
-  int nk = (skv + kBK - 1) / kBK;
-  if (causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
-  for (int kb = 0; kb < nk; ++kb) {
-    const int k0 = kb * kBK;
-    __syncthreads();  // the last tile's V reads (and the Q stage) are done
-    stage<D, kBK>(KVs, kh, k0, skv);
-    __syncthreads();
-
-    float s[kRows][kKeys];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = Qs[(r_base + i) * kPitch + c];
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) kv[j] = KVs[(tx + kTX * j) * kPitch + c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + r_base + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const int kpos = k0 + tx + kTX * j;
-        const bool keep = kpos < skv && (!causal || kpos <= qpos);
-        s[i][j] = keep ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // the 8 threads of a row group are 8 consecutive lanes
-#pragma unroll
-      for (int w = 1; w < kTX; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(r_base + i) * kPPitch + tx + kTX * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int w = 1; w < kTX; w <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, w);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
-    }
-    __syncthreads();  // every score read of K done, the p tile written
-    stage<D, kBK>(KVs, vh, k0, skv);
-    __syncthreads();
-
-    const int keys = min(kBK, skv - k0);
-#pragma unroll 4
-    for (int j = 0; j < keys; ++j) {
-      float pv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = Ps[(r_base + i) * kPPitch + j];
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) {
-        const int col = tx + kTX * c;
-        if (D % kTX == 0 || col < D) {
-          const float vv = KVs[j * kPitch + col];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + r_base + i;
-    if (row >= sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* out = o + ((long long)bh * sq + row) * D;
-#pragma unroll
-    for (int c = 0; c < kDims; ++c) {
-      const int col = tx + kTX * c;
-      if (D % kTX == 0 || col < D) store(out + col, acc[i][c] / den);
-    }
-  }
-}
-
-template <int D, typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int bh,
-             int group, int sq, int skv, float scale, int causal,
-             void* stream) {
-  const size_t smem = smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<D, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((unsigned)bh, (unsigned)((sq + kBQ - 1) / kBQ));
-  flash_attention_kernel<D, T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, group, sq, skv, scale,
-      causal);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int group, int sq, int skv, int d, float scale, int causal,
-           void* stream) {
-  if (bh <= 0 || sq <= 0) return 0;
-  if (group <= 0 || skv < 0 || (sq + kBQ - 1) / kBQ > 65535)
-    return (int)cudaErrorInvalidValue;
-  switch (d) {
-    case 4: return launch_d<4, T>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    case 8: return launch_d<8, T>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    case 16: return launch_d<16, T>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    case 32: return launch_d<32, T>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    case 64: return launch_d<64, T>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    case 128: return launch_d<128, T>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace
 
@@ -749,25 +588,322 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int bh,
 
 }  // namespace
 
+
+// --------------------------------------------------------- the float32 body
+
+namespace {
+
+constexpr int kLanes = 16;                          // lanes of a row group
+constexpr int kRowsT = 8;                           // query rows a thread
+constexpr int kKeysT = kBK / kLanes;                // keys a thread in S: 4
+constexpr int kF32Threads = kBQ / kRowsT * kLanes;  // 128
+static_assert(kBQ == kBK, "copy_tile stages 64-row tiles of Q, K and V alike");
+
+template <int D>
+constexpr size_t f32_smem_bytes() {
+  return (size_t)(3 * kBK * D + kBK * kBQ) * sizeof(float);  // Q, K, V, P^T
+}
+
+// 16 bytes from global to shared memory, of which the first `bytes` (16 or
+// 0) are read and the rest zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// where chunk c of a tile's row r lies: as it is (V), at c ^ (r & 7) (K:
+// 8 consecutive keys read one chunk each), or at c ^ ((r / 8) & 7) (Q: the
+// two row groups of a warp read one chunk of rows 8 apart)
+enum Swizzle { kPlain, kByRow, kByRowGroup };
+
+template <Swizzle kSw>
+__device__ __forceinline__ int chunk_at(int c, int r) {
+  return kSw == kPlain ? c : (kSw == kByRow ? c ^ (r & 7) : c ^ ((r >> 3) & 7));
+}
+
+// rows r0 .. r0 + 63 of a (len, D) row-major float32 matrix into the 64 x D
+// tile at `dst`, zero past len.  Thread x copies 16-byte chunk x % 8 of
+// each 32-column group of rows x / 8 + 16 i (8 threads a 128-byte line).
+template <int D, Swizzle kSw>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const float* __restrict__ src,
+                                          int r0, int len) {
+  constexpr int kRowStep = kF32Threads / 8;
+  const int c = threadIdx.x % 8;
+  const int r = threadIdx.x / 8;
+#pragma unroll
+  for (int i = 0; i < kBK / kRowStep; ++i) {
+    const int row = r + kRowStep * i;
+    const bool in = r0 + row < len;
+    const float* from = src + (long long)(in ? r0 + row : 0) * D + 4 * c;
+#pragma unroll
+    for (int grp = 0; grp < D / 32; ++grp)
+      cp_async16(dst + (uint32_t)(row * D + 4 * chunk_at<kSw>(c + 8 * grp, row)) * 4u,
+                 from + 32 * grp, in ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+    flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, float* __restrict__ o,
+                               int group, int sq, int skv, float scale_log2, int causal) {
+  static_assert(D % 32 == 0 && D <= 128, "float32 body: d in {32, 64, 96, 128}");
+  // a lane's output columns: 4 (t + 16 u) .. + 3 for u < kVec4, then
+  // 64 kVec4 + 2 t and + 1 when d is an odd multiple of 32
+  constexpr int kVec4 = D / 64;
+  constexpr bool kVec2 = D % 64 != 0;
+  constexpr int kColsT = 4 * kVec4 + 2 * kVec2;  // D / 16
+  constexpr int kTile = kBK * D;                 // floats of a Q, K or V tile
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;
+  float* Ks = Qs + kTile;
+  float* Vs = Ks + kTile;
+  float* Ps = Vs + kTile;  // P^T: [key][query row], chunks swizzled by key
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const float* qh = q + (long long)bh * sq * D;
+  const float* kh = k + (long long)(bh / group) * skv * D;
+  const float* vh = v + (long long)(bh / group) * skv * D;
+  const int t = threadIdx.x % kLanes;
+  const int g = threadIdx.x / kLanes;
+  const int sw = t & 7;  // key & 7 of every key t + 16 j this lane owns in S
+  const float* q_rows = Qs + kRowsT * g * D;
+  const float* k_rows = Ks + t * D;
+
+  int nk = (skv + kBK - 1) / kBK;
+  if (causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
+
+  copy_tile<D, kByRowGroup>(smem_u32(Qs), qh, q0, sq);
+  if (nk > 0) copy_tile<D, kByRow>(smem_u32(Ks), kh, 0, skv);
+  cp_async_commit();
+
+  float acc[kRowsT][kColsT], m[kRowsT], l[kRowsT];  // m in log2 units
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;  // this lane's keys only, until the end
+#pragma unroll
+    for (int c = 0; c < kColsT; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * kBK;
+    cp_async_wait_all();
+    __syncthreads();  // K(kb) (and Q) in place; every read of V(kb - 1) and P done
+    copy_tile<D, kPlain>(smem_u32(Vs), vh, k0, skv);
+    cp_async_commit();
+
+    float s[kRowsT][kKeysT];
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int c = 0; c < D / 4; ++c) {
+      const int q_at = 4 * (c ^ (g & 7)), k_at = 4 * (c ^ sw);
+      float4 qv[kRowsT];
+#pragma unroll
+      for (int i = 0; i < kRowsT; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(q_rows + i * D + q_at);
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(k_rows + kLanes * j * D + k_at);
+#pragma unroll
+        for (int i = 0; i < kRowsT; ++i) {
+          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+        }
+      }
+    }
+
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i) {
+      const int qpos = q0 + kRowsT * g + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) {
+        const int kpos = k0 + t + kLanes * j;
+        const bool keep = !edge || (kpos < skv && (!causal || kpos <= qpos));
+        s[i][j] = keep ? s[i][j] * scale_log2 : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // the 16 lanes of a row group are one half of a warp
+#pragma unroll
+      for (int w = 1; w < kLanes; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float alpha = fast_exp2(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) {
+        s[i][j] = fast_exp2(s[i][j] - mx);
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < kColsT; ++c) acc[i][c] *= alpha;
+    }
+    // p of rows 8 g .. 8 g + 7 are row chunks 2 g and 2 g + 1 of key row j
+#pragma unroll
+    for (int j = 0; j < kKeysT; ++j) {
+      float* p_row = Ps + (t + kLanes * j) * kBQ;
+      *reinterpret_cast<float4*>(p_row + 4 * ((2 * g) ^ sw)) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(p_row + 4 * ((2 * g + 1) ^ sw)) =
+          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+
+    cp_async_wait_all();
+    __syncthreads();  // V(kb) and P in place; every read of K(kb) done
+    if (kb + 1 < nk) copy_tile<D, kByRow>(smem_u32(Ks), kh, k0 + kBK, skv);
+    cp_async_commit();
+
+    // keys past Skv have p = 0 and zero-filled V rows, so every tile runs
+    // all 64 keys
+#pragma unroll 8
+    for (int j = 0; j < kBK; ++j) {
+      const float* p_row = Ps + j * kBQ;
+      const float4 p_lo = *reinterpret_cast<const float4*>(p_row + 4 * ((2 * g) ^ (j & 7)));
+      const float4 p_hi = *reinterpret_cast<const float4*>(p_row + 4 * ((2 * g + 1) ^ (j & 7)));
+      const float p[kRowsT] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+      const float* v_row = Vs + j * D;
+      float vv[kColsT];
+#pragma unroll
+      for (int u = 0; u < kVec4; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(v_row + 4 * (t + kLanes * u));
+        vv[4 * u] = x.x;
+        vv[4 * u + 1] = x.y;
+        vv[4 * u + 2] = x.z;
+        vv[4 * u + 3] = x.w;
+      }
+      if constexpr (kVec2) {
+        const float2 x = *reinterpret_cast<const float2*>(v_row + 64 * kVec4 + 2 * t);
+        vv[4 * kVec4] = x.x;
+        vv[4 * kVec4 + 1] = x.y;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsT; ++i)
+#pragma unroll
+        for (int c = 0; c < kColsT; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+    }
+  }
+  cp_async_wait_all();  // nothing in flight at exit (nk = 0 leaves Q's copy)
+
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+#pragma unroll
+    for (int w = 1; w < kLanes; w <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], w);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+    const int row = q0 + kRowsT * g + i;
+    if (row >= sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* out = o + ((long long)bh * sq + row) * D;
+#pragma unroll
+    for (int u = 0; u < kVec4; ++u)
+      *reinterpret_cast<float4*>(out + 4 * (t + kLanes * u)) =
+          make_float4(acc[i][4 * u] / den, acc[i][4 * u + 1] / den, acc[i][4 * u + 2] / den,
+                      acc[i][4 * u + 3] / den);
+    if constexpr (kVec2)
+      *reinterpret_cast<float2*>(out + 64 * kVec4 + 2 * t) =
+          make_float2(acc[i][4 * kVec4] / den, acc[i][4 * kVec4 + 1] / den);
+  }
+}
+
+// the dynamic shared memory an instance needs, and the carveout that lets
+// two blocks share an SM
+template <int D>
+cudaError_t f32_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_f32_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)f32_smem_bytes<D>());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_f32_kernel<D>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+template <int D>
+int launch_f32_d(const void* q, const void* k, const void* v, void* o, int bh, int group,
+                 int sq, int skv, float scale, int causal, void* stream) {
+  const cudaError_t e = f32_attributes<D>();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)bh, (unsigned)((sq + kBQ - 1) / kBQ));
+  flash_attention_f32_kernel<D><<<grid, kF32Threads, f32_smem_bytes<D>(),
+                                  (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, group, sq, skv,
+      scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
+// registers and local bytes a thread, dynamic shared bytes, and resident
+// blocks an SM, as the runtime reports them for `kernel`
+template <typename Kernel>
+int instance_info(Kernel kernel, int threads, size_t smem, int* info) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  int blocks = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = a.numRegs;
+  info[1] = (int)a.localSizeBytes;
+  info[2] = (int)smem;
+  info[3] = blocks;
+  return 0;
+}
+
+template <int D>
+int f32_info(int* info) {
+  const cudaError_t e = f32_attributes<D>();
+  if (e != cudaSuccess) return (int)e;
+  return instance_info(flash_attention_f32_kernel<D>, kF32Threads, f32_smem_bytes<D>(), info);
+}
+
+template <int D>
+int wgmma_info(int* info) {
+  const cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)wgmma_smem_bytes<D>());
+  if (e != cudaSuccess) return (int)e;
+  return instance_info(flash_attention_wgmma_kernel<D>, kWG * 128, wgmma_smem_bytes<D>(),
+                       info);
+}
+
+}  // namespace
+
 // q, o: (bh, sq, d) row-major; k, v: (bh / group, skv, d) row-major; all
-// float32.  d in {4, 8, 16, 32, 64, 128}.  The SIMT body.
+// float32 and 16-byte aligned (cp.async).  d in {32, 64, 96, 128}: the
+// float32 body.
 extern "C" int flash_attention_launch_f32(const void* q, const void* k,
                                           const void* v, void* o, int bh,
                                           int group, int sq, int skv, int d,
                                           float scale, int causal,
                                           void* stream) {
-  return launch<float>(q, k, v, o, bh, group, sq, skv, d, scale, causal, stream);
-}
-
-// the same layout in bf16 through the SIMT body, upcast per element as
-// staged; o in bf16.  The wrapper sends d in {4, 8} here.
-extern "C" int flash_attention_launch_bf16(const void* q, const void* k,
-                                           const void* v, void* o, int bh,
-                                           int group, int sq, int skv, int d,
-                                           float scale, int causal,
-                                           void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, bh, group, sq, skv, d, scale,
-                               causal, stream);
+  if (bh <= 0 || sq <= 0) return 0;
+  if (group <= 0 || bh % group != 0 || skv < 0 || (sq + kBQ - 1) / kBQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  switch (d) {
+    case 32: return launch_f32_d<32>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 64: return launch_f32_d<64>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 96: return launch_f32_d<96>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 128: return launch_f32_d<128>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // the same layout in bf16 through the wgmma body, d in {16, 32, 64, 128};
@@ -785,6 +921,25 @@ extern "C" int flash_attention_wgmma_launch_bf16(const void* q, const void* k,
     case 32: return launch_wgmma_d<32>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 64: return launch_wgmma_d<64>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 128: return launch_wgmma_d<128>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// one instance's resources as the runtime reports them: info[0] registers
+// a thread, info[1] local (spill and stack) bytes a thread, info[2] dynamic
+// shared bytes a block, info[3] resident blocks an SM.  body 0 is the
+// float32 body, 1 the wgmma body; an instance that does not exist returns
+// cudaErrorInvalidValue.
+extern "C" int flash_attention_instance_info(int body, int d, int* info) {
+  switch (body * 1000 + d) {
+    case 32: return f32_info<32>(info);
+    case 64: return f32_info<64>(info);
+    case 96: return f32_info<96>(info);
+    case 128: return f32_info<128>(info);
+    case 1016: return wgmma_info<16>(info);
+    case 1032: return wgmma_info<32>(info);
+    case 1064: return wgmma_info<64>(info);
+    case 1128: return wgmma_info<128>(info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

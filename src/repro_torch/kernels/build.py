@@ -65,9 +65,9 @@ _SIGNATURES = {
     **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
     **{
         name: (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
-        for name in ("flash_attention_launch_f32", "flash_attention_launch_bf16",
-                     "flash_attention_wgmma_launch_bf16")
+        for name in ("flash_attention_launch_f32", "flash_attention_wgmma_launch_bf16")
     },
+    "flash_attention_instance_info": (_I, [_I, _I, _P]),
     **{
         f"joint_prox_launch_{t}": (
             _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

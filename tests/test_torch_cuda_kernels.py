@@ -883,8 +883,10 @@ def test_covgram_rejects_what_the_kernel_does_not_take(cuda_device):
 # version in another order and normalises at the end (an online softmax)
 # instead of first: float32 within 2e-5 and bf16 within 3e-2, the
 # reference's own tolerances for its kernel (tests/test_kernels.py); the
-# bf16 output rounds once from float32 in both.  bf16 at d >= 16 runs the
-# wgmma body, which also rounds p to bf16 before p v.
+# bf16 output rounds once from float32 in both.  Every bf16 call runs the
+# wgmma body, which also rounds p to bf16 before p v; a d off a body's
+# instances (4, 8, 12, 16, 80 in float32; 4, 8, 12, 80, 96 in bf16) runs
+# padded with zero columns to the next one.
 _FLASH_SHAPES = [
     (1, 4, 4, 64, 64, 16),     # MHA square
     (2, 8, 2, 32, 32, 8),      # GQA 4:1
@@ -895,6 +897,9 @@ _FLASH_SHAPES = [
     (2, 4, 2, 300, 237, 64),   # several key tiles, Skv ragged below Sq
     (1, 8, 1, 190, 450, 128),  # several key tiles, Skv ragged above Sq
     (2, 4, 2, 96, 160, 32),    # d = 32 (64-byte swizzle), ragged
+    (1, 4, 2, 70, 90, 12),     # d = 12, padded to 32 (float32) and 16 (bf16)
+    (1, 8, 2, 130, 130, 80),   # phi-2's d = 80, padded to 96 (float32) and 128
+    (2, 4, 4, 100, 150, 96),   # Phi-3-mini's d = 96 (float32's own; bf16 pads)
 ]
 
 
@@ -912,9 +917,34 @@ def test_flash_attention_matches_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d, caus
     want = attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert instrument.count("kernels.flash_attention.launches") == 1
-    wgmma = dtype == torch.bfloat16 and d >= 16
+    wgmma = dtype == torch.bfloat16
     assert instrument.count("kernels.flash_attention.wgmma_launches") == int(wgmma)
     assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_unaligned_and_strided_views(cuda_device, dtype):
+    """Views starting off a 16-byte boundary, and a non-contiguous q, run
+    the kernel on aligned copies and agree with the plain version."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    rng = np.random.default_rng(5)
+    shape_q, shape_kv = (1, 4, 70, 64), (1, 2, 90, 64)
+    flat = torch.as_tensor(rng.standard_normal(int(np.prod(shape_kv)) + 1),
+                           device=cuda_device).to(dtype)
+    k = flat[1:].view(shape_kv)  # one element past an aligned start
+    assert k.data_ptr() % 16 != 0
+    v = torch.as_tensor(rng.standard_normal(shape_kv), device=cuda_device).to(dtype)
+    q = torch.as_tensor(rng.standard_normal((1, 70, 4, 64)), device=cuda_device).to(dtype)
+    q = q.transpose(1, 2)
+    assert q.shape == shape_q and not q.is_contiguous()
+    instrument.reset("kernels.")
+    got = flash_attention(q, k, v, causal=True)
+    want = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.flash_attention.launches") == 1
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     assert float((got.float() - want.float()).abs().max()) <= tol
 
@@ -927,8 +957,8 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="head_dim 12"):
-        z = torch.zeros((1, 4, 8, 12), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 160"):
+        z = torch.zeros((1, 4, 8, 160), device=cuda_device)
         flash_attention(z, z, z)
     with pytest.raises(AssertionError, match="multiple of Hkv"):
         flash_attention(q, q[:, :3], q[:, :3])

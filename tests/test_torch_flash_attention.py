@@ -1,7 +1,9 @@
 """The ``flash_attention`` kernel's plain version against the reference
 package: its Pallas kernel (``repro.kernels.flash_attention``, run in
 interpret mode off the TPU, as ``tests/test_kernels.py`` runs it) and its
-oracle ``attention_ref``; and the port's wrapper's dispatch.
+oracle ``attention_ref``; the port's head-dim padding (the card runs any
+d <= 128 on the next instance, with zero columns); and the port's
+wrapper's dispatch.
 
 Inputs come from ``np.random.default_rng`` and reach both packages as the
 same float32 values (rounded once to bf16 for the bf16 cases).
@@ -19,7 +21,8 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention, pad_head_dim
+from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM, instance_head_dim
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -155,3 +158,49 @@ def test_wrapper_asserts_grouped_heads_and_rejects_other_devices():
     m = torch.zeros((1, 4, 8, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [4, 12, 80, 96])
+def test_padded_head_dim_matches_reference_kernel(d, causal, dtype):
+    """The card runs d off its instances padded with zero columns to the
+    next one, at the unpadded d's scale: the plain version on the padded
+    tensors, sliced back, against the reference's kernel at d itself (GQA,
+    ragged cross lengths).  The padded output columns are exactly zero.
+    (float32 d = 96 has an instance of its own: its padding is none.)"""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(7, 1, 4, 2, 40, 56, d), dtype)
+    to = instance_head_dim(d, dtype)
+    qp, kp, vp = pad_head_dim(q, k, v, to)
+    assert qp.shape == (1, 4, 40, to) and kp.shape == vp.shape == (1, 2, 56, to)
+    assert torch.equal(qp[..., :d], q) and not qp[..., d:].any()
+    out = attention_ref(qp, kp, vp, causal=causal, scale=d**-0.5)
+    assert not out[..., d:].any()
+    got = out[..., :d]
+    kernel = jax_flash(jq, jk, jv, causal=causal, block_q=16, block_k=16)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def test_instance_head_dims():
+    """Each dtype's body runs d on its smallest instance at or above d;
+    none takes d outside 1 .. 128."""
+    want = {1: (32, 16), 4: (32, 16), 12: (32, 16), 16: (32, 16), 17: (32, 32),
+            32: (32, 32), 33: (64, 64), 64: (64, 64), 80: (96, 128), 96: (96, 128),
+            97: (128, 128), 128: (128, 128)}
+    for d, (f32, bf16) in want.items():
+        assert instance_head_dim(d, torch.float32) == f32
+        assert instance_head_dim(d, torch.bfloat16) == bf16
+    assert pad_head_dim(*(torch.zeros((1, 1, 2, 32)),) * 3, 32)[0].shape[-1] == 32
+    for d in (0, MAX_HEAD_DIM + 1):
+        with pytest.raises(ValueError, match=f"head_dim {d} outside"):
+            instance_head_dim(d, torch.float32)
+
+
+def test_head_dim_above_128_raises_off_the_cpu():
+    """d = 160 has no instance: a tensor off the CPU raises ValueError naming
+    d before any device dispatch (the plain version on the CPU takes any d)."""
+    m = torch.zeros((1, 4, 8, 160), device="meta")
+    with pytest.raises(ValueError, match="head_dim 160"):
+        flash_attention(m, m, m)
+    c = torch.zeros((1, 4, 8, 160))
+    assert flash_attention(c, c, c).shape == c.shape
