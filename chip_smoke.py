@@ -22,6 +22,8 @@ Phases, each printing a line:
 3. bucket    ``bucket_glasso`` against its plain version, cold and warm
              lanes at b in {4, 16, 64, 128}: sweep counts equal lane by
              lane, Theta within tolerance, KKT residual <= 1e-5 max|S|;
+             ``ns_per_step``, the kernel's time over the longest lane's
+             serial coordinate updates;
 4. main      ``repro_torch.glasso(S, lam)`` with default options on the
              card: a p = 6000 planted-structure covariance (pairs, trees,
              chordal and general blocks) and the paper's Table-1 shape
@@ -33,7 +35,10 @@ Phases, each printing a line:
              be <= 1e-5 max|S|.  The p = 6000 solve runs twice (the
              first pays one-time library set-up).  Then each kernel is
              timed against its plain version on the inputs that solve gave
-             it;
+             it ([main_tree], [main_bucket], [main_kernels] with
+             ``ns_per_step``); ``phase_main_kernels`` does the same alone,
+             with the [pg] solve's prox_l1 launches, for
+             ``scripts/compare_turns.py``;
 5. threshold_cc  the hook step against its plain version on
              ``structured_synthetic`` at p = 6000 and p = 20016 (lam = 0.6):
              ms per step, the bound, the rounds to the fixed point, the
@@ -45,9 +50,10 @@ Phases, each printing a line:
              zeroed just before and read just after; every hook step of
              the first solve is recorded, then held against its plain
              version and timed on its own inputs;
-1c. card_tests  the card tests of flash_attention, covgram_screen and
-             joint_prox (``tests/test_torch_cuda_kernels.py -k
-             CARD_TESTS``) in a subprocess;
+1c. card_tests  the card tests of flash_attention, covgram_screen,
+             joint_prox, bucket_glasso and prox_l1
+             (``tests/test_torch_cuda_kernels.py -k CARD_TESTS``) in a
+             subprocess;
 7. covgram_screen  the fused Gram + threshold kernel against its plain
              version at n = 192, tile 512 and tile 2048, on the tile pairs
              the two data paths below schedule: CUDA-event and profiler
@@ -93,7 +99,9 @@ Phases, each printing a line:
              solve, and the prox_l1 / shard_prox launches;
 15. prox_l1  the first, a middle and the last prox_l1 launch of the [pg]
              solve, held against the plain version (bit-equal) and timed
-             beside softshrink(theta - t*grad, t*lam);
+             beside softshrink(theta - t*grad, t*lam); the host ms to issue
+             a call and the profiler's device events of one call, which
+             must be the one prox_l1 kernel and nothing else;
 16. oversize ``glasso(S, lam, solver="admm", oversize_threshold=1024)`` on
              ``benchmarks/bench_giant.py``'s workload at p = 1280 (one
              component of 1273): one sharded dispatch, no fallback, the
@@ -172,6 +180,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -476,6 +485,12 @@ def tree_bound_ms(B: int, b: int) -> float:
     return 2 * B * b * b * 8 / HBM_BYTES_PER_S * 1e3
 
 
+def ns_per_step(ms: float, steps: int) -> float:
+    """Nanoseconds of kernel time a link of the serial chain: ``ms`` over
+    ``steps`` dependent coordinate updates (0.0 without any)."""
+    return ms * 1e6 / steps if steps else 0.0
+
+
 def bucket_bound(N: int, b: int, sweeps: torch.Tensor, cd: torch.Tensor) -> tuple[float, float, int]:
     """(bytes ms, operations ms, longest serial chain) of one launch; its
     bound is the larger of the two times.
@@ -495,13 +510,51 @@ def bucket_bound(N: int, b: int, sweeps: torch.Tensor, cd: torch.Tensor) -> tupl
 # ------------------------------------------------------------------ phase 1
 
 
+def ptxas_entries(out: str) -> dict[str, dict]:
+    """Each entry function's registers, stack frame and spill bytes from
+    ``nvcc -Xptxas -v``'s report, by mangled name."""
+    entries: dict[str, dict] = {}
+    name = None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            entries[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            entries[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                                 spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            entries[name]["registers"] = int(m.group(1))
+    return entries
+
+
 def phase_build() -> None:
     path, seconds, out = kbuild.build()
     if out:  # the compiler's full report, beside the library it built
         path.with_suffix(".log").write_text(out)
+    elif path.with_suffix(".log").is_file():  # built earlier by this checkout
+        out = path.with_suffix(".log").read_text()
     lib = kbuild.library()
     usage = [ln.strip() for ln in out.splitlines() if "registers" in ln]
-    log("build", seconds=f"{seconds:.3f}", library=path.name, ptxas="; ".join(usage))
+    # bucket_glasso's instances: float64 / float32 ("d" / "f"), rows a lane
+    # keeps in registers (chunks of 32; 0: in shared memory)
+    bucket = []
+    for name, info in sorted(ptxas_entries(out).items()):
+        m = re.search(r"bucket_glasso_kernelI([df])Li(\d+)E", name)
+        if m:
+            bucket.append(dict(dtype={"d": "float64", "f": "float32"}[m.group(1)],
+                               chunks=int(m.group(2)), **info))
+    log("build", seconds=f"{seconds:.3f}", library=path.name,
+        bucket_glasso_spill_bytes=sum(i.get("spill_stores", 0) + i.get("spill_loads", 0)
+                                      for i in bucket),
+        bucket_glasso_max_registers=max((i.get("registers", 0) for i in bucket), default=0),
+        ptxas="; ".join(usage))
+    for info in bucket:
+        log("bucket_instances", **info)
     log("card", nvidia_smi=json.dumps(card_line()), torch=torch.__version__,
         cuda=torch.version.cuda)
     for body, d in FLASH_INSTANCES:
@@ -516,24 +569,72 @@ def phase_build() -> None:
 #: the card tests run as a phase: those of the kernels redesigned last,
 #: on shapes the paths never give them (ragged and odd tiles, head dims
 #: off the instances, unaligned views, K above 113, scratch reuse,
-#: bit-identical sums)
-CARD_TESTS = "flash_attention or covgram_screen or joint_prox"
+#: bit-identical sums, b at each shared-memory limit, every form of t)
+CARD_TESTS = "flash_attention or covgram_screen or joint_prox or bucket_glasso or prox_l1"
+
+
+#: card-test processes run side by side: the bucket_glasso tests spend
+#: their time in the plain version's host loop, one CPU core each (one
+#: thread each: the loop's tensors are too small to split)
+CARD_TEST_SHARDS = 8
+
+
+def card_test_weight(test_id: str) -> float:
+    """A card test's rough seconds, for dealing them out: the
+    bucket_glasso cases spend their time in the plain version's loop, which
+    grows as b^2, about four times faster on dense covariances than on the
+    planner's general lanes (b = 96 on dense ones: 14 s); any other test
+    ~0.2 s."""
+    m = re.search(r"bucket_glasso_matches_plain\[([^-\]]+)-\d+-dtype\d+-(\w+)\]", test_id)
+    if m is None:
+        return 0.2
+    b = {"w_max": 168, "w_max+1": 169}.get(m.group(1)) or int(m.group(1))
+    return b * b / (650.0 if m.group(2) == "cov" else 2800.0)
 
 
 def phase_card_tests() -> None:
-    """``tests/test_torch_cuda_kernels.py -k CARD_TESTS`` in a subprocess
-    (no conftest: it imports JAX, which the port's machine need not have)."""
+    """``tests/test_torch_cuda_kernels.py -k CARD_TESTS`` in
+    ``CARD_TEST_SHARDS`` subprocesses at once, the collected tests dealt
+    out by ``card_test_weight`` (no conftest: it imports JAX, which the
+    port's machine need not have); fails unless every shard passes with
+    nothing skipped."""
     cmd = [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
-           "tests/test_torch_cuda_kernels.py", "-k", CARD_TESTS]
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+           "tests/test_torch_cuda_kernels.py"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    lines = r.stdout.strip().splitlines()
-    log("card_tests", selection=json.dumps(CARD_TESTS),
-        result=json.dumps(lines[-1] if lines else ""), seconds=f"{time.perf_counter() - t0:.1f}")
-    if r.returncode != 0 or not lines or "skipped" in lines[-1]:
-        print(r.stdout[-6000:], r.stderr[-2000:], sep="\n", flush=True)
-        raise AssertionError(f"card tests failed or skipped (exit {r.returncode})")
+    collected = subprocess.run(cmd + ["-k", CARD_TESTS, "--collect-only"], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=300)
+    ids = [ln for ln in collected.stdout.splitlines()
+           if ln.startswith("tests/test_torch_cuda_kernels.py::") and " " not in ln]
+    if collected.returncode != 0 or not ids:
+        print(collected.stdout[-4000:], collected.stderr[-2000:], sep="\n", flush=True)
+        raise AssertionError(f"card tests: collection failed (exit {collected.returncode})")
+    # longest first, each to the shard with the least work so far
+    shards: list[list[str]] = [[] for _ in range(min(CARD_TEST_SHARDS, len(ids)))]
+    work = [0.0] * len(shards)
+    for test in sorted(ids, key=card_test_weight, reverse=True):
+        k = work.index(min(work))
+        shards[k].append(test)
+        work[k] += card_test_weight(test)
+    procs = [subprocess.Popen(cmd + shard, cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for shard in shards]
+    results, failed = [], False
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            lines = out.strip().splitlines()
+            results.append(lines[-1] if lines else "")
+            if proc.returncode != 0 or not lines or "skipped" in lines[-1]:
+                print(out[-6000:], err[-2000:], sep="\n", flush=True)
+                failed = True
+    finally:
+        for proc in procs:
+            proc.kill()
+    log("card_tests", selection=json.dumps(CARD_TESTS), tests=len(ids),
+        shards=json.dumps(results), seconds=f"{time.perf_counter() - t0:.1f}")
+    if failed:
+        raise AssertionError("card tests failed or skipped")
 
 
 # ------------------------------------------------------------------ phase 2
@@ -585,16 +686,19 @@ def _general_lanes(rng, n: int, b: int) -> tuple[np.ndarray, float]:
 
 
 def compare_bucket(S, lams, W0, T0, label: str, *, time_plain: bool = True) -> dict:
-    """Kernel against plain version on one stack; raises on disagreement."""
+    """Kernel against plain version on one stack; raises on disagreement.
+    The check runs the plain version on CPU copies of the inputs (launch-
+    bound on the card, it takes several times as long there); with
+    ``time_plain`` the plain version is also timed on the card
+    (``plain_ms``, else None)."""
     N, b, _ = S.shape
     scales = convergence_scale(S)
     cd = torch.empty(N, dtype=torch.int64, device=DEV)
     theta, sweeps = fused_bcd_stack(S, lams, scales, W0, T0, cd_sweeps=cd)
-    cd_ref = torch.empty_like(cd)
-    t0 = time.perf_counter()
-    theta_ref, sweeps_ref = fused_bcd_ref_stack(S, lams, scales, W0, T0, cd_sweeps=cd_ref)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
+    cd_ref = torch.empty(N, dtype=torch.int64)
+    theta_ref, sweeps_ref = fused_bcd_ref_stack(
+        *(x.cpu() for x in (S, lams, scales, W0, T0)), cd_sweeps=cd_ref)
+    theta_ref, sweeps_ref, cd_ref = (x.to(DEV) for x in (theta_ref, sweeps_ref, cd_ref))
     if not torch.equal(sweeps, sweeps_ref):
         raise AssertionError(f"bucket_glasso {label}: sweeps {sweeps.tolist()} != {sweeps_ref.tolist()}")
     if not torch.equal(cd, cd_ref):
@@ -608,9 +712,8 @@ def compare_bucket(S, lams, W0, T0, label: str, *, time_plain: bool = True) -> d
     if not bool((res <= KKT_RTOL * smax).all()):
         raise AssertionError(f"bucket_glasso {label}: KKT {res.tolist()} > {KKT_RTOL}*max|S|")
     ms = cuda_ms(lambda: fused_bcd_stack(S, lams, scales, W0, T0), 3)
-    plain_ms = plain_s * 1e3
-    if time_plain:
-        plain_ms = cuda_ms(lambda: fused_bcd_ref_stack(S, lams, scales, W0, T0), 1)
+    plain_ms = (cuda_ms(lambda: fused_bcd_ref_stack(S, lams, scales, W0, T0), 1)
+                if time_plain else None)
     t_bytes, t_ops, chain = bucket_bound(N, b, sweeps, cd)
     return dict(err=err, ms=ms, plain_ms=plain_ms, bytes_ms=t_bytes, ops_ms=t_ops,
                 bound_ms=max(t_bytes, t_ops), chain=chain, sweeps=sweeps,
@@ -634,9 +737,10 @@ def phase_bucket() -> None:
             r = compare_bucket(S, lams, W0, T0, f"b={b} {kind}", time_plain=False)
             log("bucket", b=b, N=n, lanes=kind, sweeps=r["sweeps"].tolist()[:8],
                 max_abs_err=r["err"], kkt_max=r["kkt"], ms=f"{r['ms']:.3f}",
-                plain_ms=f"{r['plain_ms']:.3f}", bound_ms=f"{r['bound_ms']:.6f}",
+                bound_ms=f"{r['bound_ms']:.6f}",
                 bytes_ms=f"{r['bytes_ms']:.6f}", ops_ms=f"{r['ops_ms']:.6f}",
-                serial_steps=r["chain"])
+                serial_steps=r["chain"], ns_per_step=f"{ns_per_step(r['ms'], r['chain']):.1f}",
+                smem_bytes=kbuild.library().bucket_glasso_smem_bytes(b, 8))
 
 
 # ------------------------------------------------------------------ phase 4
@@ -710,7 +814,7 @@ def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
     plan = build_plan_incremental(S, lam, labels)
     tree = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
     bucket = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes_ms=0.0, ops_ms=0.0,
-                  chain=0)
+                  chain=0, chain_sum=0, ms_f32=0.0)
     for bk in plan.buckets:
         route = route_for(bk.structure)
         blocks = torch.as_tensor(bk.blocks, device=DEV)
@@ -732,16 +836,51 @@ def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
             tree["bound_ms"] += tree_bound_ms(n, b)
         elif route == "iterative":
             eye = torch.eye(b, dtype=torch.float64, device=DEV)
-            r = compare_bucket(blocks, lams, blocks + lams[:, None, None] * eye,
-                               eye.expand(n, b, b).contiguous(), f"main b={b}")
+            args = (blocks, lams, blocks + lams[:, None, None] * eye,
+                    eye.expand(n, b, b).contiguous())
+            r = compare_bucket(*args, f"main b={b}")
+            # the float32 instance on float32 copies of the same stack
+            a32 = as_f32(args)
+            s32 = convergence_scale(a32[0])
+            r["ms_f32"] = cuda_ms(lambda: fused_bcd_stack(a32[0], a32[1], s32, *a32[2:]), 3)
             log("main_bucket", b=b, N=n, sweeps=r["sweeps"].tolist(), max_abs_err=r["err"],
                 ms=r["ms"], plain_ms=r["plain_ms"], bytes_ms=r["bytes_ms"],
-                ops_ms=r["ops_ms"], serial_steps=r["chain"])
-            for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms"):
+                ops_ms=r["ops_ms"], serial_steps=r["chain"],
+                ns_per_step=f"{ns_per_step(r['ms'], r['chain']):.1f}", ms_f32=r["ms_f32"])
+            for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms", "ms_f32"):
                 bucket[k] += r[k]
             bucket["err"] = max(bucket["err"], r["err"])
             bucket["chain"] = max(bucket["chain"], r["chain"])
+            bucket["chain_sum"] += r["chain"]
     return [tree, bucket]
+
+
+def log_main_kernels(tree: dict, bucket: dict) -> None:
+    """The [main_kernels] line: the dense plan's kernels summed over its
+    stacks; ``bucket_ns_per_step`` over the launches' longest chains
+    summed (the launches run one after another)."""
+    log("main_kernels", tree_ms=tree["ms"], tree_plain_ms=tree["plain_ms"],
+        tree_bound_ms=tree["bound_ms"], bucket_ms=bucket["ms"],
+        bucket_plain_ms=bucket["plain_ms"], bucket_bytes_ms=bucket["bytes_ms"],
+        bucket_ops_ms=bucket["ops_ms"], bucket_serial_steps=bucket["chain"],
+        bucket_serial_steps_summed=bucket["chain_sum"],
+        bucket_ns_per_step=f"{ns_per_step(bucket['ms'], bucket['chain_sum']):.1f}",
+        bucket_ms_f32=bucket["ms_f32"])
+
+
+def phase_main_kernels() -> None:
+    """The p = 6000 main case's kernels on their own inputs, alone (for
+    ``scripts/compare_turns.py``): every tree_glasso and bucket_glasso
+    stack of the dense plan against its plain version ([main_tree],
+    [main_bucket], [main_kernels]), then one ``solver="pg"`` solve whose
+    first, middle and last prox_l1 launches are checked and timed
+    ([prox_l1])."""
+    S = structured_synthetic(*MAIN_CASE, seed=0)
+    log_main_kernels(*main_path_kernels(S, SCREEN_LAM))
+    module, name, _ = SOLVER_KERNELS["pg"]
+    with record_prox_launches(module, name) as kept:
+        glasso(S, SCREEN_LAM, options=EngineOptions(solver="pg", solver_opts=SOLVER_OPTS))
+    log_prox_l1(prox_l1_on_path(kept))
 
 
 # ------------------------------------------------------------ phases 5-9
@@ -1587,8 +1726,8 @@ def prox_l1_on_path(kept: dict) -> dict:
     softshrink(theta - t*grad, t*lam) with the first lane's t as a scalar."""
     from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
 
-    out = dict(n=0, err=0.0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, ms_f32=0.0, shapes=[])
+    out = dict(n=0, err=0.0, ms=0.0, device_ms=0.0, host_ms=0.0, plain_ms=0.0,
+               library_ms=0.0, bound_ms=0.0, ms_f32=0.0, shapes=[], events={})
     for i, args, kw in first_middle_last(kept):
         theta, grad, t, lam = args
         got, want = prox_step(*args, **kw), prox_step_ref(*args, **kw)
@@ -1604,12 +1743,27 @@ def prox_l1_on_path(kept: dict) -> dict:
         out["err"] = max(out["err"], float((got - want).abs().max()))
         out["ms"] += cuda_ms(lambda: prox_step(*args, **kw), 20)
         out["device_ms"] += kernel_device_ms(lambda: prox_step(*args, **kw), "prox_l1", 20)
+        out["host_ms"] += host_ms(lambda: prox_step(*args, **kw), 20)
+        out["events"] = device_events(lambda: prox_step(*args, **kw), 10)
+        if len(out["events"]) != 1 or "prox_l1" not in next(iter(out["events"])):
+            raise AssertionError(f"prox_l1 launch {i}: device events {out['events']}")
         out["plain_ms"] += cuda_ms(lambda: prox_step_ref(*args, **kw), 5)
         out["library_ms"] += cuda_ms(
             lambda: torch.nn.functional.softshrink(theta - t0 * grad, t0 * l0), 20)
         out["bound_ms"] += elementwise_bound_ms(theta, 3)
         out["shapes"].append([i] + list(theta.shape))
     return out
+
+
+def log_prox_l1(pl: dict) -> None:
+    """The [prox_l1] line of the [pg] solve's checked launches (times
+    summed over them; ``ms_a_launch`` the CUDA-event time of one)."""
+    log("prox_l1", path="pg", launches_timed=pl["n"], shapes=json.dumps(pl["shapes"]),
+        max_abs_err=pl["err"], ms=f"{pl['ms']:.4f}", device_ms=f"{pl['device_ms']:.4f}",
+        host_ms=f"{pl['host_ms']:.4f}", ms_a_launch=f"{pl['ms'] / max(pl['n'], 1):.4f}",
+        plain_ms=f"{pl['plain_ms']:.4f}", softshrink_expression_ms=f"{pl['library_ms']:.4f}",
+        bound_ms=f"{pl['bound_ms']:.6f}", ms_f32=f"{pl['ms_f32']:.4f}",
+        device_events_per_call=json.dumps(pl["events"]))
 
 
 def device_events(fn, reps: int) -> dict[str, float]:
@@ -2516,10 +2670,7 @@ def main() -> int:
     if paper_launches.get("bucket_glasso.launches", 0) <= 0:
         raise AssertionError("bucket_glasso was not launched on the Table-1 shape")
 
-    log("main_kernels", tree_ms=tree["ms"], tree_plain_ms=tree["plain_ms"],
-        tree_bound_ms=tree["bound_ms"], bucket_ms=bucket["ms"],
-        bucket_plain_ms=bucket["plain_ms"], bucket_bytes_ms=bucket["bytes_ms"],
-        bucket_ops_ms=bucket["ops_ms"], bucket_serial_steps=bucket["chain"])
+    log_main_kernels(tree, bucket)
 
     phase_threshold_cc()
     screen_launches, thr = phase_screen(S, lam, host_res)
@@ -2531,10 +2682,7 @@ def main() -> int:
     log_shard_prox("admm", sp_admm, admm_launches)
     del admm_kept
     pl = prox_l1_on_path(pg_kept)
-    log("prox_l1", path="pg", launches_timed=pl["n"], shapes=json.dumps(pl["shapes"]),
-        max_abs_err=pl["err"], ms=f"{pl['ms']:.4f}", device_ms=f"{pl['device_ms']:.4f}",
-        plain_ms=f"{pl['plain_ms']:.4f}", softshrink_expression_ms=f"{pl['library_ms']:.4f}",
-        bound_ms=f"{pl['bound_ms']:.6f}", ms_f32=f"{pl['ms_f32']:.4f}")
+    log_prox_l1(pl)
     del pg_kept
     X_fd = workload(FROM_DATA_P, load=0.9, noise=0.44)
     X_st = workload(STREAM_P, load=0.75, noise=0.66)
@@ -2587,6 +2735,9 @@ def main() -> int:
             "bound_ms": bucket["bound_ms"],
             "bound_by": "operations" if bucket["ops_ms"] > bucket["bytes_ms"] else "bytes",
             "library_ms": None,
+            "ns_per_step": ns_per_step(bucket["ms"], bucket["chain_sum"]),
+            "redesigned": "g = W beta carried, moving coordinates found by ballot, "
+                          "W in shared memory up to b = 168 (float64)",
         },
         {
             "name": "threshold_cc", "route": "cuda",
@@ -2624,6 +2775,8 @@ def main() -> int:
             "launches": pg_launches["prox_l1.launches"], "max_abs_err": pl["err"],
             "ms": pl["ms"], "plain_ms": pl["plain_ms"], "bound_ms": pl["bound_ms"],
             "bound_by": "bytes", "library_ms": pl["library_ms"],
+            "device_ms": pl["device_ms"], "host_ms": pl["host_ms"],
+            "redesigned": "one launch a call, t and lam by pointer or value",
         },
         {
             "name": "shard_prox", "route": "cuda",

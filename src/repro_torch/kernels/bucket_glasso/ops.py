@@ -10,6 +10,17 @@ from repro_torch.kernels.bucket_glasso.ref import fused_bcd_ref_stack
 from repro_torch.kernels.build import check, check_operands, instance, library
 
 
+def layout(b: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(shared-memory bytes, device scratch values) of one lane of the CUDA
+    kernel at size b: 0 scratch values when its four (b, b) tiles fit
+    shared memory, 2 b^2 when W alone does, 3 b^2 when W goes to device
+    scratch too (``csrc/bucket_glasso.cu``: ``smem_bytes``,
+    ``scratch_values``)."""
+    lib = library()
+    return (lib.bucket_glasso_smem_bytes(b, dtype.itemsize),
+            lib.bucket_glasso_scratch_values(b, dtype.itemsize))
+
+
 def fused_bcd_stack(
     blocks: torch.Tensor,
     lams: torch.Tensor,
@@ -64,9 +75,10 @@ def fused_bcd_stack(
     if N == 0:
         return theta, sweeps
     lib = library()
+    values = layout(b, blocks.dtype)[1]
     scratch = (
-        torch.empty(3 * N * b * b, dtype=blocks.dtype, device=blocks.device)
-        if lib.bucket_glasso_smem_bytes(b, blocks.element_size()) == 0
+        torch.empty(N * values, dtype=blocks.dtype, device=blocks.device)
+        if values
         else theta  # unused by the kernel when the tiles fit shared memory
     )
     with torch.cuda.device(blocks.device):

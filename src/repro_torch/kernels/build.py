@@ -56,6 +56,7 @@ _SIGNATURES = {
         for t in ("f64", "f32")
     },
     "bucket_glasso_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+    "bucket_glasso_scratch_values": (ctypes.c_longlong, [_I, _I]),
     "threshold_cc_step_launch": (
         _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _I, _P],
     ),
@@ -76,7 +77,11 @@ _SIGNATURES = {
     },
     "joint_prox_scratch_values": (ctypes.c_longlong, [_I, _I, _I, _I, _I]),
     **{
-        f"prox_l1_launch_{t}": (_I, [_P, _P, _P, _P, _P, _I, _I, _P]) for t in ("f64", "f32")
+        f"prox_l1_launch_{t}": (
+            _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _P, ctypes.c_longlong,
+                 ctypes.c_double, _P, _I, _I, _P],
+        )
+        for t in ("f64", "f32")
     },
     **{
         f"shard_prox_launch_{t}": (
@@ -192,19 +197,27 @@ def check(status: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {status} ({msg})")
 
 
-def lane_vector(kernel: str, x, n: int, like) -> "torch.Tensor":
-    """A Python scalar, a 0-d tensor or an (n,) tensor as a contiguous (n,)
-    tensor of ``like``'s dtype on its device (per-lane kernel arguments)."""
-    if not isinstance(x, torch.Tensor):
-        return torch.full((n,), float(x), dtype=like.dtype, device=like.device)
-    if x.ndim == 0:
-        return x.to(dtype=like.dtype, device=like.device).expand(n).contiguous()
+def lane_operand(
+    kernel: str, name: str, x, n: int, like: torch.Tensor
+) -> tuple[torch.Tensor | None, int, float]:
+    """A per-lane kernel argument as (tensor, lane stride, value), the
+    launcher's (pointer, stride, value): a Python scalar or a CPU 0-d tensor
+    by value (no tensor); a 0-d tensor on ``like``'s device by pointer with
+    stride 0, converted first when its dtype differs; an (n,) tensor of
+    ``like``'s dtype and device by pointer with its own stride.  Nothing is
+    filled, expanded or copied for the last two; the caller holds the
+    returned tensor until the launch is enqueued (a converted one is new).
+    Anything else raises ``ValueError``."""
+    if not isinstance(x, torch.Tensor) or (x.ndim == 0 and x.device.type == "cpu"):
+        return None, 0, float(x)
+    if x.ndim == 0 and x.device == like.device:
+        return (x if x.dtype == like.dtype else x.to(like.dtype)), 0, 0.0
     if x.shape != (n,) or x.dtype != like.dtype or x.device != like.device:
         raise ValueError(
-            f"{kernel}: per-lane values must be a scalar or ({n},) {like.dtype} on "
+            f"{kernel}: {name} must be a scalar or ({n},) {like.dtype} on "
             f"{like.device}, got {tuple(x.shape)} {x.dtype} on {x.device}"
         )
-    return x.contiguous()
+    return x, x.stride(0), 0.0
 
 
 def instance(kernel: str, dtype: torch.dtype) -> str:

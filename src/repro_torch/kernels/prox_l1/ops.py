@@ -1,13 +1,28 @@
 """Public wrapper for the proximal-gradient step: the CUDA kernel on the
-card, the plain version on the CPU."""
+card, the plain version on the CPU.
+
+A call on the card is one kernel launch and nothing else: t and lam are
+read in place through a pointer and a lane stride, or passed by value for a
+Python scalar or a CPU 0-d tensor (``build.lane_operand``), the entry point
+is looked up once, the device is entered only when it is not the current
+one, and the stream is passed as a raw handle."""
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
 from repro_torch.core.instrument import bump
-from repro_torch.kernels.build import check, instance, lane_vector, library
+from repro_torch.kernels.build import check, instance, lane_operand, library
 from repro_torch.kernels.prox_l1.ref import prox_step_ref
+
+
+@functools.cache
+def _launcher(suffix: str):
+    """The kernel instance's entry point ("f64" or "f32")."""
+    return getattr(library(), f"prox_l1_launch_{suffix}")
 
 
 def prox_step(theta: torch.Tensor, grad: torch.Tensor, t, lam) -> torch.Tensor:
@@ -36,15 +51,18 @@ def prox_step(theta: torch.Tensor, grad: torch.Tensor, t, lam) -> torch.Tensor:
     th = theta[None] if single else theta
     gr = grad[None] if single else grad
     B, b, _ = th.shape
-    t_v = lane_vector("prox_l1", t, B, th)
-    lam_v = lane_vector("prox_l1", lam, B, th)
+    t_x, t_stride, t_value = lane_operand("prox_l1", "t", t, B, th)
+    lam_x, lam_stride, lam_value = lane_operand("prox_l1", "lam", lam, B, th)
     th, gr = th.contiguous(), gr.contiguous()
     out = torch.empty_like(th)
     if B and b:
-        with torch.cuda.device(dev):
-            status = getattr(library(), f"prox_l1_launch_{suffix}")(
-                th.data_ptr(), gr.data_ptr(), t_v.data_ptr(), lam_v.data_ptr(),
-                out.data_ptr(), B, b, torch.cuda.current_stream().cuda_stream,
+        other = dev.index != torch.cuda.current_device()
+        with torch.cuda.device(dev) if other else contextlib.nullcontext():
+            status = _launcher(suffix)(
+                th.data_ptr(), gr.data_ptr(),
+                None if t_x is None else t_x.data_ptr(), t_stride, t_value,
+                None if lam_x is None else lam_x.data_ptr(), lam_stride, lam_value,
+                out.data_ptr(), B, b, torch._C._cuda_getCurrentRawStream(dev.index),
             )
         check(status, "prox_l1")
         bump("kernels.prox_l1.launches")

@@ -25,7 +25,7 @@ import functools
 import torch
 
 from repro_torch.core.instrument import bump
-from repro_torch.kernels.build import check, instance, library
+from repro_torch.kernels.build import check, instance, lane_operand, library
 from repro_torch.kernels.shard_prox.ref import fused_prox_ref
 
 #: entries a partial sum covers (a tile: ``kThreads`` in csrc/shard_prox.cu)
@@ -53,24 +53,6 @@ def scratch(dev: torch.device, dtype: torch.dtype, n: int, entries: int):
 def _launcher(suffix: str):
     """The kernel instance's entry point ("f64" or "f32")."""
     return getattr(library(), f"shard_prox_launch_{suffix}")
-
-
-def _threshold(t, n: int, like: torch.Tensor) -> tuple[int | None, int, float]:
-    """(pointer, lane stride, value) of the threshold: a 0-d tensor of
-    ``like``'s dtype on its device by pointer with stride 0, an (n,) one by
-    pointer with its own stride, a Python scalar or a CPU 0-d tensor by
-    value; a 0-d tensor on the device in another dtype is converted."""
-    if not isinstance(t, torch.Tensor) or (t.ndim == 0 and t.device.type == "cpu"):
-        return None, 0, float(t)
-    if t.ndim == 0 and t.device == like.device:
-        t = t if t.dtype == like.dtype else t.to(like.dtype)
-        return t.data_ptr(), 0, 0.0
-    if t.shape != (n,) or t.dtype != like.dtype or t.device != like.device:
-        raise ValueError(
-            f"shard_prox: t must be a scalar or ({n},) {like.dtype} on "
-            f"{like.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
-        )
-    return t.data_ptr(), t.stride(0), 0.0
 
 
 def fused_prox_residual(
@@ -103,7 +85,7 @@ def fused_prox_residual(
         )
     x, uu, zo = x_new.contiguous(), u.contiguous(), z_old.contiguous()
     n, entries = (1, x.numel()) if len(shape) == 2 else (shape[0], shape[1] * shape[2])
-    t_ptr, t_stride, t_value = _threshold(t, n, x)
+    t_x, t_stride, t_value = lane_operand("shard_prox", "t", t, n, x)
     z_new = torch.empty_like(x)
     u_new = torch.empty_like(x)
     sums = () if len(shape) == 2 else (n,)
@@ -115,7 +97,8 @@ def fused_prox_residual(
     other = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if other else contextlib.nullcontext():
         status = _launcher(suffix)(
-            x.data_ptr(), uu.data_ptr(), zo.data_ptr(), t_ptr, t_stride, t_value,
+            x.data_ptr(), uu.data_ptr(), zo.data_ptr(),
+            None if t_x is None else t_x.data_ptr(), t_stride, t_value,
             z_new.data_ptr(), u_new.data_ptr(), rp2.data_ptr(), rd2.data_ptr(),
             partial.data_ptr(), tickets.data_ptr(), n, entries,
             # the device's current stream as a raw handle, as Triton's

@@ -68,30 +68,106 @@ def test_tree_glasso_matches_plain(cuda_device, b):
         assert (got[:, 0, 1] == 0).all()
 
 
-@pytest.mark.parametrize("b,N", [(4, 40), (16, 20), (32, 12), (64, 6), (96, 2), (128, 3)])
-def test_bucket_glasso_matches_plain(cuda_device, b, N):
-    """Cold and warm lanes, identity-padded: sweeps and inner sweeps equal,
-    padded cross terms exactly zero.  b <= 64 keeps the tiles in shared
-    memory, b = 96 and 128 in device scratch (96: not a power of two)."""
-    rng = np.random.default_rng(b)
-    live = b - b // 4
-    covs = [_covariance(rng, live) for _ in range(N)]
-    lams = np.array([_lam(s, 0.6) for s in covs])
-    S = torch.as_tensor(np.stack([pad_block(s, b) for s in covs]), device=cuda_device)
-    lm = torch.as_tensor(lams, device=cuda_device)
+def _general_lanes(rng, n, b, lam=0.3):
+    """n padded (b, b) lanes of the planner's iterative kind: a chordless
+    cycle on 3b/4 vertices plus random chords above lam, everything else
+    below it, diagonally dominant."""
+    m = max(4, 3 * b // 4)
+    out = []
+    for _ in range(n):
+        S = np.triu(rng.uniform(-0.8 * lam, 0.8 * lam, size=(m, m)), 1)
+        edges = [(i, (i + 1) % m) for i in range(m)]
+        edges += [tuple(rng.choice(m, size=2, replace=False)) for _ in range(m // 4)]
+        for i, j in edges:
+            S[min(i, j), max(i, j)] = rng.uniform(lam + 0.05, lam + 0.5) * rng.choice([-1.0, 1.0])
+        S = S + S.T
+        np.fill_diagonal(S, 1.0 + np.abs(S).sum(axis=1))
+        out.append(pad_block(S, b))
+    return out, np.full(n, lam), m
+
+
+def _screened_lane(rng, b, lam):
+    """A lane whose every column the eq.-(10) node screen skips: each
+    off-diagonal |S_kj| is below lam."""
+    S = rng.uniform(-0.9 * lam, 0.9 * lam, size=(b, b))
+    S = 0.5 * (S + S.T)
+    np.fill_diagonal(S, 1.0 + np.abs(S).sum(axis=1))
+    return S
+
+
+def _w_shared_limit(dtype):
+    """The largest b whose W tile stays in the kernel's shared memory."""
+    from repro_torch.kernels.bucket_glasso.ops import layout
+
+    b = 1
+    while layout(b + 1, dtype)[1] < 3 * (b + 1) ** 2:
+        b += 1
+    return b
+
+
+# b = 1 (every column trivially screened); 31, 32, 33 around one chunk of
+# rows a lane; 84 / 85 the last b whose four tiles fit shared memory in
+# float64 and the first that keeps only W there; "w_max" / "w_max+1" the
+# last b whose W fits shared memory and the first whose W goes to device
+# scratch (``layout``: b = 168 / 169 in float64); 257 the first b whose
+# rows a lane keeps in shared memory rather than registers.  "cov" stacks
+# are dense random covariances, "general" ones the planner's general lanes
+# (sparse solutions: the plain version takes minutes on dense covariances
+# at these sizes).  Every stack carries one more lane that the node screen
+# skips in every column.  The float32 instance may stop a sweep earlier or
+# later than its plain version (F32_BUCKET_RTOL says why): Theta only.
+F64, F32 = torch.float64, torch.float32
+
+
+@pytest.mark.parametrize("b,N,dtype,data", [
+    (1, 8, F64, "cov"), (4, 40, F64, "cov"), (16, 20, F64, "cov"), (31, 6, F64, "cov"),
+    (32, 12, F64, "cov"), (33, 6, F64, "cov"), (64, 6, F64, "cov"), (84, 2, F64, "general"),
+    (85, 2, F64, "general"), (96, 2, F64, "cov"), (128, 3, F64, "cov"),
+    ("w_max", 2, F64, "general"), ("w_max+1", 2, F64, "general"), (257, 1, F64, "general"),
+    (32, 12, F32, "cov"), (128, 3, F32, "general"),
+])
+def test_bucket_glasso_matches_plain(cuda_device, b, N, dtype, data):
+    """Cold and warm lanes, identity-padded: sweeps and inner sweeps equal
+    (float64), Theta within tolerance, padded cross terms exactly zero, the
+    screened lane's Theta diagonal."""
+    from repro_torch.kernels.bucket_glasso.ops import layout
+
+    rng = np.random.default_rng(b if isinstance(b, int) else 168)
+    if isinstance(b, str):
+        b = _w_shared_limit(F64) + (b == "w_max+1")
+    if data == "general":
+        covs, lams, live = _general_lanes(rng, N, b)
+    else:
+        live = b - b // 4
+        covs = [np.atleast_2d(_covariance(rng, live)) for _ in range(N)]
+        lams = np.array([_lam(s, 0.6) if live > 1 else 0.3 for s in covs])
+    if dtype == F64:
+        assert (layout(b, F64)[1] < 3 * b * b) == (b <= 168)  # W in shared memory
+    lams = np.append(lams, lams[0])
+    blocks = [pad_block(s, b) for s in covs] + [_screened_lane(rng, b, lams[0])]
+    N += 1
+    S = torch.as_tensor(np.stack(blocks), device=cuda_device).to(dtype)
+    lm = torch.as_tensor(lams, device=cuda_device).to(dtype)
     scales = convergence_scale(S)
-    eye = torch.eye(b, dtype=torch.float64, device=cuda_device)
+    eye = torch.eye(b, dtype=dtype, device=cuda_device)
     W_cold, T_cold = S + lm[:, None, None] * eye, eye.expand(N, b, b).contiguous()
     T_warm, _ = fused_bcd_stack(S, 1.2 * lm, scales, W_cold, T_cold)
+    rtol = 1e-9 if dtype == F64 else F32_BUCKET_RTOL
     for W0, T0 in ((W_cold, T_cold), (torch.linalg.inv(T_warm), T_warm)):
         cd = torch.zeros(N, dtype=torch.int64, device=cuda_device)
-        cd_ref = torch.zeros_like(cd)
         got, sw = fused_bcd_stack(S, lm, scales, W0, T0, cd_sweeps=cd)
-        want, sw_ref = fused_bcd_ref_stack(S, lm, scales, W0, T0, cd_sweeps=cd_ref)
-        torch.cuda.synchronize()
-        assert torch.equal(sw, sw_ref) and torch.equal(cd, cd_ref)
-        assert float((got - want).abs().max()) <= 1e-9 * float(want.abs().max())
-        assert (got[:, live:, :live] == 0).all()
+        got, sw, cd = got.cpu(), sw.cpu(), cd.cpu()
+        # the plain version on CPU copies of the same inputs: launch-bound on
+        # the card, it takes several times as long there
+        cd_ref = torch.zeros_like(cd)
+        want, sw_ref = fused_bcd_ref_stack(*(x.cpu() for x in (S, lm, scales, W0, T0)),
+                                           cd_sweeps=cd_ref)
+        assert got.dtype == dtype
+        if dtype == F64:
+            assert torch.equal(sw, sw_ref) and torch.equal(cd, cd_ref)
+        assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+        assert (got[:-1, live:, :live] == 0).all()
+        assert int(cd[-1]) == 0 and (got[-1] == torch.diag_embed(got[-1].diagonal())).all()
 
 
 # float32 instances of the five solve kernels against their float32 plain
@@ -129,7 +205,7 @@ def test_float32_tree_and_bucket_instances_match_plain(cuda_device):
     assert got.dtype == torch.float32
     assert instrument.count("kernels.tree_glasso.launches") == 1
     assert float((got - want).abs().max()) <= F32_TREE_RTOL * float(want.abs().max())
-    for bb, N in ((16, 20), (96, 3), (128, 2)):  # shared memory, then scratch
+    for bb, N in ((16, 20), (32, 12), (96, 3), (128, 2)):  # all four tiles shared, then W alone
         rng = np.random.default_rng(bb)
         live = bb - bb // 4
         covs = [_covariance(rng, live) for _ in range(N)]
@@ -622,8 +698,11 @@ def test_joint_glasso_on_the_card_matches_the_cpu_path(cuda_device):
 
 @pytest.mark.parametrize("B,b", [(1, 1), (3, 7), (5, 33), (2, 256)])
 def test_prox_l1_matches_plain(cuda_device, B, b):
-    """Bit-equal to the plain version for a scalar and a per-lane t, odd
-    sizes included; ties |theta - t*grad| == t*lam give exactly 0."""
+    """Bit-equal to the plain version for every form of t and lam: a Python
+    scalar, a 0-d tensor on the card and on the CPU, a per-lane (B,) tensor
+    and a strided view of one; odd sizes included; ties
+    |theta - t*grad| == t*lam give exactly 0.  A call is one launch and one
+    device event; a t of the wrong shape raises."""
     from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
 
     rng = np.random.default_rng(10 * B + b)
@@ -634,15 +713,25 @@ def test_prox_l1_matches_plain(cuda_device, B, b):
     grad[:, 0, 0] = 0.0
     t_lane = torch.as_tensor(rng.uniform(0.05, 1.5, B), device=cuda_device)
     lam_lane = torch.as_tensor(rng.uniform(0.0, 1.0, B), device=cuda_device)
+    t_strided = torch.as_tensor(rng.uniform(0.05, 1.5, 2 * B), device=cuda_device)[::2]
+    forms = [(t, lam), (t_lane, lam_lane), (t_strided, lam),
+             (torch.tensor(t, dtype=torch.float64, device=cuda_device), lam_lane),
+             (torch.tensor(t, dtype=torch.float64), torch.tensor(lam, dtype=torch.float64))]
     instrument.reset("kernels.")
-    got = prox_step(theta, grad, t, lam)
-    got_lane = prox_step(theta, grad, t_lane, lam_lane)
+    got = [prox_step(theta, grad, tt, ll) for tt, ll in forms]
     torch.cuda.synchronize()
-    assert instrument.count("kernels.prox_l1.launches") == 2
-    assert torch.equal(got, prox_step_ref(theta, grad, t, lam))
-    assert torch.equal(got_lane, prox_step_ref(theta, grad, t_lane, lam_lane))
-    assert (got[:, 0, 0] == 0).all()
-    assert torch.equal(prox_step(theta[0], grad[0], t, lam), got[0])
+    assert instrument.count("kernels.prox_l1.launches") == len(forms)
+    for out, (tt, ll) in zip(got, forms):
+        assert torch.equal(out, prox_step_ref(theta, grad, tt, ll))
+    assert (got[0][:, 0, 0] == 0).all()
+    assert torch.equal(prox_step(theta[0], grad[0], t, lam), got[0][0])
+    for tt, ll in forms:
+        events = _device_events(lambda: prox_step(theta, grad, tt, ll))
+        assert len(events) == 1, events
+        name, per_call = next(iter(events.items()))
+        assert "prox_l1" in name and 0.0 < per_call <= 1.0, events
+    with pytest.raises(ValueError, match="t must be"):
+        prox_step(theta, grad, t_lane[: B - 1] if B > 1 else t_lane.repeat(2), lam)
 
 
 @pytest.mark.parametrize("shape", [(8, 136), (1, 1), (3, 17, 17), (2, 300, 257)])

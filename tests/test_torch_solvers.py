@@ -51,6 +51,7 @@ from repro_torch.core.solvers import (
     kkt_residual,
     solver_spec,
 )
+from repro_torch.kernels.build import lane_operand
 from repro_torch.kernels.prox_l1 import prox_step, prox_step_ref
 from repro_torch.kernels.shard_prox import fused_prox_ref, fused_prox_residual
 
@@ -207,6 +208,31 @@ def test_shard_prox_threshold_forms_match_reference(form):
     if form != "per-lane tensor":  # one shard with a scalar t
         z1, u1, rp1, rd1 = fused_prox_residual(_t(x[0]), _t(u[0]), _t(z[0]), t)
         assert rp1.shape == () and torch.equal(z1, zn[0]) and torch.equal(u1, un[0])
+
+
+# The prox wrappers pass t and lam to the kernel as (pointer, lane stride,
+# value): by value for a Python scalar or a CPU 0-d tensor, by pointer for
+# a tensor on the stack's device (stride 0 for a 0-d one, its own for an
+# (N,) one), with nothing filled, expanded or copied.
+@pytest.mark.parametrize("form", ["python scalar", "cpu 0-d float32", "(N,) tensor",
+                                  "strided view", "wrong shape", "wrong dtype"])
+def test_lane_operand_forms(form):
+    like = torch.zeros((4, 3, 3), dtype=torch.float64)
+    lanes = torch.arange(8, dtype=torch.float64)
+    if form == "python scalar":
+        assert lane_operand("prox_l1", "t", 0.3, 4, like) == (None, 0, 0.3)
+    elif form == "cpu 0-d float32":
+        x = torch.tensor(0.3, dtype=torch.float32)
+        assert lane_operand("prox_l1", "lam", x, 4, like) == (None, 0, float(x))
+    elif form in ("(N,) tensor", "strided view"):
+        x = lanes[:4] if form == "(N,) tensor" else lanes[::2]
+        got, stride, value = lane_operand("prox_l1", "t", x, 4, like)
+        assert got is x and got.data_ptr() == lanes.data_ptr() and value == 0.0
+        assert stride == (1 if form == "(N,) tensor" else 2)
+    else:
+        x = lanes[:3] if form == "wrong shape" else lanes[:4].to(torch.float32)
+        with pytest.raises(ValueError, match="prox_l1: lam must be a scalar or"):
+            lane_operand("prox_l1", "lam", x, 4, like)
 
 
 # --------------------------------------------------------------------- pg
