@@ -6,6 +6,8 @@ Phases, each printing a line:
 
 1. build     compile the CUDA kernels from ``src/repro_torch/csrc`` and
              print the build seconds and the card's name and power limit;
+             [bucket_instances] and [covgram_instances] each instance's
+             registers, stack and spill bytes from ptxas;
              [flash_instances] each flash_attention instance's registers,
              local (spilled and stack) bytes, shared bytes and blocks an SM;
 1b. flash_attention  the kernel against its plain version at the
@@ -35,7 +37,8 @@ Phases, each printing a line:
              be <= 1e-5 max|S|.  The p = 6000 solve runs twice (the
              first pays one-time library set-up).  Then each kernel is
              timed against its plain version on the inputs that solve gave
-             it ([main_tree], [main_bucket], [main_kernels] with
+             it ([main_tree] with each stack's Theta sha256, device ms and
+             host ms a call, [main_bucket], [main_kernels] with
              ``ns_per_step``); ``phase_main_kernels`` does the same alone,
              with the [pg] solve's prox_l1 launches, for
              ``scripts/compare_turns.py``;
@@ -51,7 +54,7 @@ Phases, each printing a line:
              the first solve is recorded, then held against its plain
              version and timed on its own inputs;
 1c. card_tests  the card tests of flash_attention, covgram_screen,
-             joint_prox, bucket_glasso and prox_l1
+             joint_prox, bucket_glasso, prox_l1, covgram and tree_glasso
              (``tests/test_torch_cuda_kernels.py -k CARD_TESTS``) in a
              subprocess;
 7. covgram_screen  the fused Gram + threshold kernel against its plain
@@ -133,7 +136,10 @@ Phases, each printing a line:
 19. covgram  the covgram kernel against its plain version at the
              pipeline's shape (n = 80, p = 16000, float32), on bf16 input
              and at a ragged shape, timed beside its bound, the plain
-             version and torch.matmul of the centered X;
+             version and torch.matmul of the centered X, with the
+             profiler's device ms and the host ms of a call, and S's
+             sha256 (``scripts/compare_turns.py`` holds two checkouts'
+             digests side by side);
 20. large_scale  examples/large_scale_glasso.py's pipeline through the port
              at n = 80, p = 16000: covgram, the correlation R in float64,
              the capacity lambda for p_max = 64, the device screen held
@@ -176,6 +182,7 @@ CUDA.  Data is made from fixed seeds with numpy.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import importlib
 import json
 import math
@@ -341,7 +348,7 @@ ORACLE_OPTS = {"tol": 1e-11, "max_iter": 20000}
 # example's KKT bound on the blockwise residuals.  covgram's tolerance
 # against its plain version is n float32 epsilons of max|S| (both sum n
 # float32 products, in another order); the ragged case is not a multiple of
-# the 64 x 64 tile or the 32-row slab
+# the 128 x 128 tile, the 40-row chunk or 4 (the plain-store epilogue)
 LARGE_N, LARGE_P, LARGE_SEED, LARGE_P_MAX = 80, 16000, 7, 64
 LARGE_TOL, LARGE_KKT = 1e-7, 1e-4
 COVGRAM_CASES = (("pipeline", 80, 16000, torch.float32),
@@ -453,6 +460,12 @@ def host_ms(fn, reps: int) -> float:
     return seconds * 1e3 / reps
 
 
+def sha(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes: two runs
+    that print the same digest computed the same bits."""
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
 @contextmanager
 def record_calls(module: str, name: str):
     """Record the arguments of every call to ``module.name`` made inside the
@@ -555,6 +568,13 @@ def phase_build() -> None:
         ptxas="; ".join(usage))
     for info in bucket:
         log("bucket_instances", **info)
+    # covgram's instances: float32 / bf16 X, TMA stores or the plain-store
+    # epilogue (p not a multiple of 4)
+    for name, info in sorted(ptxas_entries(out).items()):
+        m = re.search(r"covgram_kernelI(f|13__nv_bfloat16)Lb([01])E", name)
+        if m:
+            log("covgram_instances", dtype={"f": "float32"}.get(m.group(1), "bfloat16"),
+                stores=("plain", "tma")[int(m.group(2))], **info)
     log("card", nvidia_smi=json.dumps(card_line()), torch=torch.__version__,
         cuda=torch.version.cuda)
     for body, d in FLASH_INSTANCES:
@@ -570,7 +590,8 @@ def phase_build() -> None:
 #: on shapes the paths never give them (ragged and odd tiles, head dims
 #: off the instances, unaligned views, K above 113, scratch reuse,
 #: bit-identical sums, b at each shared-memory limit, every form of t)
-CARD_TESTS = "flash_attention or covgram_screen or joint_prox or bucket_glasso or prox_l1"
+CARD_TESTS = ("flash_attention or covgram_screen or joint_prox or bucket_glasso or prox_l1"
+              " or covgram or tree_glasso")
 
 
 #: card-test processes run side by side: the bucket_glasso tests spend
@@ -812,7 +833,8 @@ def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
     path hands it (the same plan the solve built)."""
     labels, _ = thresholded_components(S, lam)
     plan = build_plan_incremental(S, lam, labels)
-    tree = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
+    tree = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, device_ms=0.0, host_ms=0.0,
+                n=0)
     bucket = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes_ms=0.0, ops_ms=0.0,
                   chain=0, chain_sum=0, ms_f32=0.0)
     for bk in plan.buckets:
@@ -828,12 +850,20 @@ def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
                 raise AssertionError(f"tree_glasso main path b={b}: max|diff|={err}")
             ms = cuda_ms(lambda: glasso_forest_stack(blocks, lams), 10)
             plain_ms = cuda_ms(lambda: glasso_forest_ref(blocks, lams), 3)
+            events, device_ms = profile_calls(lambda: glasso_forest_stack(blocks, lams), 10,
+                                              name="tree_glasso")
+            issue_ms = host_ms(lambda: glasso_forest_stack(blocks, lams), 50)
             log("main_tree", structure=bk.structure, b=b, N=n, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=tree_bound_ms(n, b))
+                plain_ms=plain_ms, bound_ms=tree_bound_ms(n, b), device_ms=device_ms,
+                host_ms=f"{issue_ms:.4f}", device_events_per_call=json.dumps(events),
+                sha256=sha(got))
             tree["err"] = max(tree["err"], err)
             tree["ms"] += ms
             tree["plain_ms"] += plain_ms
             tree["bound_ms"] += tree_bound_ms(n, b)
+            tree["device_ms"] += device_ms
+            tree["host_ms"] += issue_ms
+            tree["n"] += 1
         elif route == "iterative":
             eye = torch.eye(b, dtype=torch.float64, device=DEV)
             args = (blocks, lams, blocks + lams[:, None, None] * eye,
@@ -860,7 +890,8 @@ def log_main_kernels(tree: dict, bucket: dict) -> None:
     stacks; ``bucket_ns_per_step`` over the launches' longest chains
     summed (the launches run one after another)."""
     log("main_kernels", tree_ms=tree["ms"], tree_plain_ms=tree["plain_ms"],
-        tree_bound_ms=tree["bound_ms"], bucket_ms=bucket["ms"],
+        tree_bound_ms=tree["bound_ms"], tree_device_ms=tree["device_ms"],
+        tree_host_ms_a_call=tree["host_ms"] / max(tree["n"], 1), bucket_ms=bucket["ms"],
         bucket_plain_ms=bucket["plain_ms"], bucket_bytes_ms=bucket["bytes_ms"],
         bucket_ops_ms=bucket["ops_ms"], bucket_serial_steps=bucket["chain"],
         bucket_serial_steps_summed=bucket["chain_sum"],
@@ -2115,9 +2146,12 @@ def phase_covgram() -> dict:
             raise AssertionError(f"covgram {label}: max|diff| {err} > n eps max|S| = {tol}")
         if not torch.equal(got, got.T):
             raise AssertionError(f"covgram {label}: S is not symmetric")
+        digest = sha(got)
         del got, want
         worst = max(worst, err)
         ms = cuda_ms(lambda: covgram(x), 10)
+        events, device_ms = profile_calls(lambda: covgram(x), 5, name="covgram")
+        issue_ms = host_ms(lambda: covgram(x), 10)
         plain_ms = cuda_ms(lambda: covgram_ref(x), 5)
         xf = x.float()
         xc = xf - xf.mean(dim=0, keepdim=True)
@@ -2129,10 +2163,13 @@ def phase_covgram() -> dict:
             max_abs_err=err, tol=tol, max_abs_S=scale, ms=f"{ms:.4f}",
             plain_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.4f}",
             bytes_ms=f"{t_bytes:.4f}", ops_ms=f"{t_ops:.4f}", bound_ms=f"{bound:.4f}",
-            tflops=f"{gram_flops(n, p) / ms / 1e9:.2f}", share_of_bound=f"{bound / ms:.3f}")
+            tflops=f"{gram_flops(n, p) / ms / 1e9:.2f}", share_of_bound=f"{bound / ms:.3f}",
+            device_ms=f"{device_ms:.4f}", host_ms=f"{issue_ms:.4f}",
+            device_events_per_call=json.dumps(events), sha256=digest)
         if label == "pipeline":
             out = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                       bound_by="operations" if t_ops > t_bytes else "bytes")
+                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       device_ms=device_ms, host_ms=issue_ms)
         del x
         torch.cuda.empty_cache()
     out["err"] = worst
@@ -2725,6 +2762,9 @@ def main() -> int:
             "launches": launches["tree_glasso.launches"],
             "max_abs_err": tree["err"], "ms": tree["ms"], "plain_ms": tree["plain_ms"],
             "bound_ms": tree["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "device_ms": tree["device_ms"], "host_ms": tree["host_ms"],
+            "redesigned": "one launch a call, lam by pointer or value, "
+                          "at most ceil(B / SMs) blocks a program",
         },
         {
             "name": "bucket_glasso", "route": "cuda",
@@ -2794,7 +2834,10 @@ def main() -> int:
             "launches": ls_launches["covgram.launches"],
             "max_abs_err": cg["err"], "ms": cg["ms"], "plain_ms": cg["plain_ms"],
             "bound_ms": cg["bound_ms"], "bound_by": cg["bound_by"],
-            "library_ms": cg["library_ms"],
+            "library_ms": cg["library_ms"], "device_ms": cg["device_ms"],
+            "host_ms": cg["host_ms"],
+            "redesigned": "persistent 128 x 128 tiles, 8 x 8 a thread, loads of the next "
+                          "chunk under the FMAs, TMA stores under the next tile's FMAs",
         },
         {
             "name": "flash_attention", "route": "cuda",

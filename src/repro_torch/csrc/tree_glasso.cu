@@ -14,19 +14,28 @@
 // Bound on the H100: memory.  The work is a few flops per element, so the
 // least time is one read of S and one write of Theta, 2 B b^2 itemsize bytes at
 // 3.35 TB/s.  Design: one program per (block, row tile) — for b <= 32 a
-// program takes several whole blocks, above that a 32-row tile of one
-// block.  The program loads the diagonal vector d of its blocks into shared
-// memory once, so each S element is read once from device memory; rows are
+// program takes several whole blocks (at most 2048 / b^2, and at most
+// ceil(B / SMs), so a stack of B >= SMs blocks spreads over about one
+// program an SM), above that a 32-row tile of one block.  The program
+// loads the diagonal vector d of its blocks into shared memory once, so
+// each S element is read once from device memory; rows are
 // reduced by a group of G = min(32, next_pow2(b)) lanes with warp shuffles,
 // so neighbouring lanes read neighbouring elements of a row.
 //
 // The elementwise formulas use explicitly rounded products (mul_rn:
 // __dmul_rn / __fmul_rn) so that no multiply-add is contracted: each element
 // then rounds exactly as the plain PyTorch version does in the same dtype;
-// only the row sum's order differs.
+// only the row sum's order differs.  Neither the program's share of blocks
+// nor the grid changes a row's lanes or its sum order, so Theta's bits do
+// not depend on them.
+//
+// lam comes by pointer with a lane stride (0 for one value on the device,
+// the tensor's own stride for one a block) or, when the pointer is null,
+// by value, so a call needs no tensor built for it.
 
 #include <cuda_runtime.h>
 
+#include "device.cuh"
 #include "precision.cuh"
 
 namespace {
@@ -49,12 +58,13 @@ __device__ __forceinline__ T group_sum(T v, int width) {
 
 template <typename T>
 __global__ void tree_glasso_kernel(const T* __restrict__ S,
-                                   const T* __restrict__ lam,
-                                   T* __restrict__ out, int B, int b,
+                                   const T* __restrict__ lam, long long lam_stride,
+                                   T lam_value, T* __restrict__ out, int B, int b,
                                    int blocks_per_prog, int tiles_per_block,
                                    int G) {
   T* d_s = dynamic_smem<T>();
   const long long bb = (long long)b * b;
+  auto lam_of = [&](int nn) { return lam != nullptr ? lam[nn * lam_stride] : lam_value; };
 
   // which blocks [n0, n1) and rows [r0, r1) this program covers
   int n0, n1, r0, r1;
@@ -75,7 +85,7 @@ __global__ void tree_glasso_kernel(const T* __restrict__ S,
   for (int t = threadIdx.x; t < nblk * b; t += blockDim.x) {
     const int nn = n0 + t / b;
     const int i = t % b;
-    d_s[t] = S[nn * bb + (long long)i * b + i] + lam[nn];
+    d_s[t] = S[nn * bb + (long long)i * b + i] + lam_of(nn);
   }
   __syncthreads();
 
@@ -95,7 +105,7 @@ __global__ void tree_glasso_kernel(const T* __restrict__ S,
       const int k = t / rows;
       nn = n0 + k;
       i = r0 + t % rows;
-      const T lm = lam[nn];
+      const T lm = lam_of(nn);
       const T* dk = d_s + k * b;
       const T di = dk[i];
       const T* srow = S + nn * bb + (long long)i * b;
@@ -125,14 +135,19 @@ __global__ void tree_glasso_kernel(const T* __restrict__ S,
 }
 
 template <typename T>
-int launch(const void* S, const void* lam, void* out, int B, int b,
-           void* stream) {
+int launch(const void* S, const void* lam, long long lam_stride, double lam_value,
+           void* out, int B, int b, void* stream) {
   if (B <= 0 || b <= 0) return 0;
   int blocks_per_prog = 1, tiles_per_block = 1, G = 32;
   long long grid;
   size_t smem;
   if (b <= kSmallB) {
+    // 2048 / b^2 blocks a program, fewer where that would leave SMs idle
+    const int sms = sm_count();
+    if (sms <= 0) return (int)cudaErrorInvalidDevice;
+    const int spread = (B + sms - 1) / sms;
     blocks_per_prog = kSmallElems / (b * b);
+    if (blocks_per_prog > spread) blocks_per_prog = spread;
     if (blocks_per_prog < 1) blocks_per_prog = 1;
     G = 1;
     while (G < b) G <<= 1;
@@ -151,19 +166,23 @@ int launch(const void* S, const void* lam, void* out, int B, int b,
   }
   tree_glasso_kernel<T><<<(unsigned)grid, kThreads, smem,
                           (cudaStream_t)stream>>>(
-      (const T*)S, (const T*)lam, (T*)out, B, b, blocks_per_prog,
+      (const T*)S, (const T*)lam, lam_stride, (T)lam_value, (T*)out, B, b, blocks_per_prog,
       tiles_per_block, G);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tree_glasso_launch_f64(const void* S, const void* lam, void* out,
-                                      int B, int b, void* stream) {
-  return launch<double>(S, lam, out, B, b, stream);
+// lam: block n reads lam[n * lam_stride], or lam_value for every block when
+// lam is null.
+extern "C" int tree_glasso_launch_f64(const void* S, const void* lam, long long lam_stride,
+                                      double lam_value, void* out, int B, int b,
+                                      void* stream) {
+  return launch<double>(S, lam, lam_stride, lam_value, out, B, b, stream);
 }
 
-extern "C" int tree_glasso_launch_f32(const void* S, const void* lam, void* out,
-                                      int B, int b, void* stream) {
-  return launch<float>(S, lam, out, B, b, stream);
+extern "C" int tree_glasso_launch_f32(const void* S, const void* lam, long long lam_stride,
+                                      double lam_value, void* out, int B, int b,
+                                      void* stream) {
+  return launch<float>(S, lam, lam_stride, lam_value, out, B, b, stream);
 }

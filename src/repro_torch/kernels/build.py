@@ -47,7 +47,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     **{
-        f"tree_glasso_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f64", "f32")
+        f"tree_glasso_launch_{t}": (
+            _I, [_P, _P, ctypes.c_longlong, ctypes.c_double, _P, _I, _I, _P],
+        )
+        for t in ("f64", "f32")
     },
     **{
         f"bucket_glasso_launch_{t}": (
@@ -64,6 +67,7 @@ _SIGNATURES = {
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
     ),
     **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
+    "covgram_division_mismatches": (_I, [_I, _P, _P]),
     **{
         name: (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P])
         for name in ("flash_attention_launch_f32", "flash_attention_wgmma_launch_bf16")

@@ -46,10 +46,16 @@ def _lam(S, q):
     return float(0.5 * (vals[k] + vals[k + 1]))
 
 
-@pytest.mark.parametrize("b", [2, 5, 8, 33, 64, 384])
-def test_tree_glasso_matches_plain(cuda_device, b):
+# B = 585 at b = 2: the main path's pair stack, spread over more programs
+# than one an SM's worth of 2048 / b^2 blocks each
+@pytest.mark.parametrize("B,b", [(37, 2), (37, 5), (37, 8), (37, 33), (37, 64), (37, 384),
+                                 (585, 2)])
+def test_tree_glasso_matches_plain(cuda_device, B, b):
+    """Within 1e-13 of max|Theta| of the plain version for every form of
+    lam: one a block, a strided view of one, a Python scalar, a 0-d tensor
+    on the card and on the CPU.  A call is one launch and one device event;
+    a lam of the wrong shape raises."""
     rng = np.random.default_rng(20 + b)
-    B = 37
     blocks = rng.standard_normal((B, b, b))
     blocks = 0.5 * (blocks + blocks.transpose(0, 2, 1))
     blocks += np.abs(blocks).sum(axis=2).max(axis=1)[:, None, None] * np.eye(b)
@@ -58,14 +64,26 @@ def test_tree_glasso_matches_plain(cuda_device, b):
         blocks[:, 0, 1] = blocks[:, 1, 0] = lams
     S = torch.as_tensor(blocks, device=cuda_device)
     lm = torch.as_tensor(lams, device=cuda_device)
+    strided = torch.as_tensor(np.repeat(lams, 2), device=cuda_device)[::2]
+    forms = [lm, strided, 0.35, torch.tensor(0.35, dtype=torch.float64, device=cuda_device),
+             torch.tensor(0.35, dtype=torch.float64)]
     instrument.reset("kernels.")
-    got = glasso_forest_stack(S, lm)
-    want = glasso_forest_ref(S, lm)
+    got = [glasso_forest_stack(S, lam) for lam in forms]
     torch.cuda.synchronize()
-    assert instrument.count("kernels.tree_glasso.launches") == 1
-    assert float((got - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    assert instrument.count("kernels.tree_glasso.launches") == len(forms)
+    for out, lam in zip(got, forms):
+        want = glasso_forest_ref(S, lam)
+        assert float((out - want).abs().max()) <= 1e-13 * float(want.abs().max())
+    assert torch.equal(got[0], got[1])
     if b > 2:
-        assert (got[:, 0, 1] == 0).all()
+        assert (got[0][:, 0, 1] == 0).all()
+    for lam in forms:
+        events = _device_events(lambda: glasso_forest_stack(S, lam))
+        assert len(events) == 1, events
+        name, per_call = next(iter(events.items()))
+        assert "tree_glasso" in name and 0.0 < per_call <= 1.0, events
+    with pytest.raises(ValueError, match="per-block"):
+        glasso_forest_stack(S, lm[: B - 1])
 
 
 def _general_lanes(rng, n, b, lam=0.3):
@@ -938,9 +956,19 @@ def test_glasso_from_data_oversize_on_the_card_matches_the_cpu(cuda_device):
 # by both.
 
 
+# The kernel's edges: p a multiple of its 128-wide tile (256) and above it
+# (260, clipped by the TMA stores; 257 takes the plain-store epilogue, as
+# does every p = 1, 2, 3 mod 4); p below one 32-column store box (4, 8);
+# n = 1; n past one 32-row chunk and not a multiple of it (300); p = 2100,
+# 153 tiles, more than the persistent grid's one block an SM (132 on the
+# H100), so a block takes several.
 @pytest.mark.parametrize("n,p,dtype", [
     (80, 300, torch.float32), (37, 129, torch.float32), (64, 65, torch.bfloat16),
     (200, 64, torch.float64), (1, 5, torch.float32),
+    (80, 256, torch.float32), (80, 260, torch.float32), (33, 257, torch.float32),
+    (20, 258, torch.bfloat16), (50, 131, torch.float32), (7, 4, torch.float32),
+    (5, 8, torch.bfloat16), (1, 128, torch.float32), (300, 136, torch.bfloat16),
+    (16, 2100, torch.float32), (9, 2101, torch.bfloat16),
 ])
 def test_covgram_matches_plain(cuda_device, n, p, dtype):
     from repro_torch.kernels.covgram import covgram, covgram_ref
@@ -957,6 +985,48 @@ def test_covgram_matches_plain(cuda_device, n, p, dtype):
     tol = max(n, 1) * float(torch.finfo(torch.float32).eps) * float(want.abs().max())
     assert float((got - want).abs().max()) <= tol
     assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("p", [64, 130])
+def test_covgram_takes_unaligned_x_and_is_one_launch(cuda_device, p):
+    """X at an offset of one element (no 16-byte rows: the element-wise
+    loads) agrees as well; a call is the kernel's one launch beside the
+    float32 column mean's reduction."""
+    from repro_torch.kernels.covgram import covgram, covgram_ref
+
+    rng = np.random.default_rng(p)
+    n = 45
+    flat = torch.as_tensor(rng.standard_normal(n * p + 1) + 2.0, dtype=torch.float32,
+                           device=cuda_device)
+    X = flat[1:].view(n, p)
+    assert X.is_contiguous() and X.data_ptr() % 16 != 0
+    instrument.reset("kernels.")
+    got = covgram(X)
+    want = covgram_ref(X)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.covgram.launches") == 1
+    tol = n * float(torch.finfo(torch.float32).eps) * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, covgram(X.clone()))  # the vector loads: the same bits
+    events = _device_events(lambda: covgram(X))
+    kernel = [v for k, v in events.items() if "covgram" in k]
+    assert len(kernel) == 1 and 0.0 < kernel[0] <= 1.0 and len(events) <= 2, events
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 77, 80, 100, 192, 1000, 4097, 65537, 16777217,
+                               2**31 - 1])
+def test_covgram_division_is_the_ieee_division(cuda_device, n):
+    """The kernel divides each sum by n through two correction steps from
+    RN(1/n) (the IEEE division only outside 2^-60 <= |a| <= 2^100): over
+    all 2^32 float bit patterns its quotient has the IEEE division's bits."""
+    from repro_torch.kernels.build import check, library
+
+    count = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    check(library().covgram_division_mismatches(
+        n, count.data_ptr(), torch.cuda.current_stream().cuda_stream), "covgram")
+    torch.cuda.synchronize()
+    assert int(count) == 0
 
 
 def test_covgram_rejects_what_the_kernel_does_not_take(cuda_device):

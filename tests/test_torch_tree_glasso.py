@@ -64,3 +64,28 @@ def test_wrapper_takes_plain_version_on_cpu():
     blocks, lams = _stack(rng, 5, 6)
     S, lm = torch.as_tensor(blocks), torch.as_tensor(lams)
     assert torch.equal(glasso_forest_stack(S, lm), glasso_forest_ref(S, lm))
+
+
+@pytest.mark.parametrize("form", ["per_block", "strided", "scalar", "tensor_0d"])
+def test_wrapper_takes_every_lam_form(form):
+    """The wrapper on the CPU takes lam as one value a block, a strided view
+    of one, a Python scalar or a 0-d tensor, and matches the reference and
+    its Pallas kernel in interpret mode for each."""
+    rng = np.random.default_rng(7)
+    B, b = 4, 8
+    blocks, lams = _stack(rng, B, b, ties=True)
+    if form in ("scalar", "tensor_0d"):
+        lams = np.full(B, 0.35)
+    lam = {
+        "per_block": torch.as_tensor(lams),
+        "strided": torch.as_tensor(np.repeat(lams, 3))[::3],
+        "scalar": 0.35,
+        "tensor_0d": torch.tensor(0.35, dtype=torch.float64),
+    }[form]
+    got = glasso_forest_stack(torch.as_tensor(blocks), lam).numpy()
+    want = np.asarray(jax.vmap(jax_forest_ref)(jnp.asarray(blocks), jnp.asarray(lams)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+    want = np.asarray(
+        glasso_forest_pallas(jnp.asarray(blocks), jnp.asarray(lams)[:, None], interpret=True)
+    )
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
