@@ -170,9 +170,37 @@ Phases, each printing a line:
              after), the prefill's time, the kernel's device share of it,
              the dense path's prefill time and peak bytes, and the logits
              against the dense path's on the card (argmax agreement too);
-25. kernels  one JSON line: every ported kernel with its launches on its
+25. path     ``glasso_path`` on ``benchmarks/bench_select.py``'s workload
+             at its own size (p = 2400, 20 lambdas from 0.75 to 0.32,
+             output "sparse", tol 1e-7): the warm path, the cold-restart
+             loop (one ``glasso`` a lambda) and ``warm_start=False``, their
+             walls; every step's labels equal to the host screen's, its
+             KKT <= 1e-5 max|S|, warm within 1e-5 of cold block by block,
+             the warm fraction >= 0.5 (bench_select's gates), one union-find
+             pass; bucket_glasso and tree_glasso launches a step for the
+             path and the cold loop ([path_launches], counters zeroed just
+             before the path);
+26. path_kernels  every bucket_glasso launch of that path, warm (W0, T0)
+             lanes included, against the plain version on CPU copies (a
+             process pool): sweeps equal lane by lane, Theta within
+             BUCKET_RTOL; every tree_glasso launch likewise; all replayed
+             and timed (CUDA-event and device ms);
+27. path_from_data  ``glasso_path(X=..., from_data=True)`` on [from_data]'s
+             workload over 6 lambdas from 0.40 to 0.30: one streamed
+             screen for the grid, every partition equal to the card's dense
+             one, KKT at every step, the largest component a step;
+28. path_oversize  [oversize]'s workload at GIANT_LAM and a lambda just
+             below it that crosses no |S_ij|: one dispatch a step, no
+             fallback, KKT, the giant bucket reused and its second sharded
+             solve warm, with fewer outer iterations;
+29. select   ``select_path`` with EBIC on [path]'s workload (the selected
+             index is the argmin of ``ebic_score`` over [path]'s results),
+             k-fold CV (k = 3) and StARS (4 subsamples) from
+             [path_from_data]'s X and grid: selected lambda, warm fraction,
+             walls;
+30. kernels  one JSON line: every ported kernel with its launches on its
              path and, summed over its recorded launches, its error, times
-             and bound;
+             and bound (with the lambda path's launches under "path");
 
 and last ``{"ok": true, "device": {...}}``.  Any failed check raises, so
 the script exits nonzero and prints no result; so does a machine without
@@ -200,7 +228,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch import Engine, EngineOptions, glasso  # noqa: E402
+from repro_torch import Engine, EngineOptions, glasso, glasso_path  # noqa: E402
 from repro_torch.core import instrument  # noqa: E402
 from repro_torch.core.blocks import (  # noqa: E402
     SINGLE_DEVICE_BUFFERS,
@@ -246,6 +274,7 @@ from repro_torch.kernels.threshold_cc import (  # noqa: E402
 )
 from repro_torch.kernels.tree_glasso.ref import glasso_forest_ref  # noqa: E402
 from repro_torch.obs.device_profile import profile_calls  # noqa: E402
+from repro_torch.select import CovSource, ebic_score, select_path  # noqa: E402
 from repro_torch.stream import stream_screen  # noqa: E402
 from repro_torch.stream.tiler import (  # noqa: E402
     column_moments,
@@ -421,6 +450,26 @@ FLASH_CASES = (
 #: flash_attention's instances: (body, head dim), body 0 the fp32 body and
 #: 1 the wgmma body (``flash_attention_instance_info``)
 FLASH_INSTANCES = ((0, 32), (0, 64), (0, 96), (0, 128), (1, 16), (1, 32), (1, 64), (1, 128))
+# [path] / [path_kernels] / [select]: benchmarks/bench_select.py's workload
+# at its own size, structured_synthetic(60, 40, tree_frac=0.2,
+# chordal_frac=0.2, seed=1) (p = 2400), 20 lambdas linspace(0.75, 0.32),
+# output "sparse", tol 1e-7, and its two gates: warm within 1e-5 of the
+# cold-restart loop block by block, warm fraction >= 0.5.  The plain
+# versions of the path's bucket_glasso launches run on CPU copies in a pool
+# of PATH_PLAIN_WORKERS processes.  EBIC's sample count is bench_select's
+# own (its served-selection check passes n = 150 with a covariance)
+PATH_CASE = (60, 40)
+PATH_GRID = (0.75, 0.32, 20)
+PATH_TOL = 1e-7
+PATH_WARM_GATE = 1e-5
+PATH_WARM_FRACTION = 0.5
+PATH_PLAIN_WORKERS = 8
+SELECT_N = 150
+# [path_from_data] / [select] cv, stars: [from_data]'s workload (p = 8000,
+# n = 192, tile 2048) over 6 lambdas evenly spaced from 0.40 to 0.30; StARS
+# with 4 subsamples
+PATH_FD_GRID = (0.40, 0.30, 6)
+STARS_SUBSAMPLES = 4
 
 
 T_START = time.perf_counter()
@@ -832,7 +881,7 @@ def main_path_kernels(S: np.ndarray, lam: float) -> list[dict]:
     """Time each kernel against its plain version on the stacks the main
     path hands it (the same plan the solve built)."""
     labels, _ = thresholded_components(S, lam)
-    plan = build_plan_incremental(S, lam, labels)
+    plan, _ = build_plan_incremental(S, lam, labels)
     tree = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, device_ms=0.0, host_ms=0.0,
                 n=0)
     bucket = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes_ms=0.0, ops_ms=0.0,
@@ -2677,6 +2726,364 @@ def phase_prefill_bf16() -> dict:
     return launches
 
 
+# ---------------------------------------------------------- phases 26-30
+
+
+@contextmanager
+def launches_per_solve():
+    """The ``kernels.*`` counts each ``BucketExecutor.solve_plan`` call adds
+    inside the block, one dict a call: a path's steps, or a loop of single
+    solves, one entry each."""
+    cls = importlib.import_module("repro_torch.engine.executor").BucketExecutor
+    inner = cls.solve_plan
+    steps: list[dict] = []
+
+    def counting(self, *args, **kwargs):
+        before = instrument.tail_counts("kernels.")
+        out = inner(self, *args, **kwargs)
+        after = instrument.tail_counts("kernels.")
+        steps.append({k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)})
+        return out
+
+    cls.solve_plan = counting
+    try:
+        yield steps
+    finally:
+        cls.solve_plan = inner
+
+
+def per_step(steps: list[dict], kernel: str) -> list[int]:
+    return [s.get(f"{kernel}.launches", 0) for s in steps]
+
+
+def block_diff(a, b) -> float:
+    """max |Theta_a - Theta_b| over the blocks of two SparseThetas of one
+    partition, matched by component (the path's lifetime bucketing orders
+    components differently from a single solve's plan)."""
+    by_comp = {np.asarray(c).tobytes(): blk for c, blk in a.Theta.blocks()}
+    worst = 0.0
+    for c, blk in b.Theta.blocks():
+        worst = max(worst, float(np.abs(by_comp[np.asarray(c).tobytes()] - blk).max()))
+    iso_a = dict(zip(a.Theta.isolated.tolist(), a.Theta.isolated_values.tolist()))
+    for i, v in zip(b.Theta.isolated.tolist(), b.Theta.isolated_values.tolist()):
+        worst = max(worst, abs(iso_a[i] - v))
+    return worst
+
+
+def phase_path() -> dict:
+    """``glasso_path`` on bench_select's workload at its own size: the warm
+    path (recorded for [path_kernels], then timed), the cold-restart loop
+    (one ``glasso`` a lambda) and ``warm_start=False``; labels, KKT,
+    warm == cold and the warm fraction checked at every step."""
+    K, p1 = PATH_CASE
+    S = structured_synthetic(K, p1, tree_frac=0.2, chordal_frac=0.2, seed=1)
+    lams = [float(v) for v in np.linspace(*PATH_GRID)]
+    opts = EngineOptions(output="sparse", solver_opts={"tol": PATH_TOL})
+    smax = float(np.abs(S).max())
+    case = f"bench_select K={K} p1={p1} p={S.shape[0]} lams={len(lams)}"
+    torch.cuda.synchronize()
+    for prefix in ("kernels.", "select.warm.", "planner.", "router.fallback.", "partition."):
+        instrument.reset(prefix)
+    with record_results("repro_torch.core.solvers.bcd", "fused_bcd_stack") as bcd_calls, \
+            record_results("repro_torch.engine.executor", "glasso_forest_stack") as tree_calls, \
+            launches_per_solve() as path_steps:
+        t0 = time.perf_counter()
+        warm = glasso_path(S, lams, options=opts)
+        wall_first = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    warm_counts = instrument.tail_counts("select.warm.")
+    planner = instrument.tail_counts("planner.")
+    fallbacks = instrument.tail_counts("router.fallback.")
+    passes = instrument.count("partition.unionfind_passes")
+    for name in ("tree_glasso", "bucket_glasso"):
+        if launches.get(f"{name}.launches", 0) <= 0:
+            raise AssertionError(f"[path] {name} was not launched on the path")
+    if passes != 1:
+        raise AssertionError(f"[path] {passes} union-find passes for one path")
+    total = sum(warm_counts.values())
+    warm_fraction = (warm_counts.get("reused", 0) + warm_counts.get("merged", 0)) / max(total, 1)
+    if not warm_fraction >= PATH_WARM_FRACTION:
+        raise AssertionError(f"[path] warm fraction {warm_fraction} < {PATH_WARM_FRACTION}")
+    kkts = []
+    for r in warm:
+        if not np.array_equal(r.labels, components_from_covariance_host(S, r.lam)):
+            raise AssertionError(f"[path] lam={r.lam}: labels differ from the host screen")
+        kkt = kkt_residual_sparse(S, r.Theta, r.lam)
+        if not kkt <= KKT_RTOL * smax:
+            raise AssertionError(f"[path] lam={r.lam}: KKT {kkt} > {KKT_RTOL}*max|S|")
+        kkts.append(kkt)
+    # timed arms: the warm path again, the cold-restart loop, the shared plan cold
+    t0 = time.perf_counter()
+    glasso_path(S, lams, options=opts)
+    wall_warm = time.perf_counter() - t0
+    with launches_per_solve() as cold_steps:
+        t0 = time.perf_counter()
+        cold = [glasso(S, lam, options=opts) for lam in lams]
+        wall_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shared = glasso_path(S, lams, warm_start=False, options=opts)
+    wall_shared = time.perf_counter() - t0
+    diffs = [block_diff(w, c) for w, c in zip(warm, cold)]
+    diff_shared = max(block_diff(w, c) for w, c in zip(warm, shared))
+    if not max(diffs) < PATH_WARM_GATE:
+        raise AssertionError(f"[path] warm vs cold-restart max|dTheta| {max(diffs)} >= {PATH_WARM_GATE}")
+    log("path", case=case, lams=f"{lams[0]:.4f}..{lams[-1]:.4f}", tol=PATH_TOL,
+        wall_warm_s=f"{wall_warm:.3f}", wall_cold_s=f"{wall_cold:.3f}",
+        wall_shared_plan_cold_s=f"{wall_shared:.3f}", wall_first_recorded_s=f"{wall_first:.3f}",
+        warm_speedup=f"{wall_cold / wall_warm:.3f}", warm_fraction=f"{warm_fraction:.4f}",
+        warm_counts=json.dumps(warm_counts, sort_keys=True),
+        planner=json.dumps(planner, sort_keys=True), unionfind_passes=passes,
+        fallbacks=json.dumps(fallbacks, sort_keys=True),
+        max_dtheta_vs_cold=max(diffs), max_dtheta_vs_shared_plan_cold=diff_shared,
+        kkt_max=max(kkts), max_abs_S=smax,
+        launches=json.dumps(launches, sort_keys=True))
+    log("path_launches", arm="warm path",
+        bucket_glasso=json.dumps(per_step(path_steps, "bucket_glasso")),
+        tree_glasso=json.dumps(per_step(path_steps, "tree_glasso")))
+    log("path_launches", arm="cold loop",
+        bucket_glasso=json.dumps(per_step(cold_steps, "bucket_glasso")),
+        tree_glasso=json.dumps(per_step(cold_steps, "tree_glasso")))
+    log("path_steps", max_comp=json.dumps([int(r.screen.max_comp) for r in warm]),
+        n_components=json.dumps([int(r.screen.n_components) for r in warm]),
+        dtheta_vs_cold=json.dumps([float(f"{d:.3g}") for d in diffs]),
+        kkt=json.dumps([float(f"{k:.3g}") for k in kkts]),
+        solve_s=json.dumps([round(r.stages()["solve"], 4) for r in warm]),
+        dispatch_s=json.dumps([round(r.stages()["dispatch"], 4) for r in warm]))
+    del cold, shared
+    return dict(S=S, lams=lams, opts=opts, warm=warm, launches=launches,
+                bcd_calls=bcd_calls, tree_calls=tree_calls, wall_warm=wall_warm)
+
+
+def bucket_plain_on_cpu(task: tuple) -> tuple:
+    """One recorded bucket_glasso launch through the plain version on CPU
+    copies of its inputs (a worker of [path_kernels]' process pool)."""
+    from repro_torch.kernels.bucket_glasso.ref import fused_bcd_ref_stack as plain
+
+    args, kwargs = task
+    torch.set_num_threads(1)
+    cd = torch.empty(args[0].shape[0], dtype=torch.int64)
+    theta, sweeps = plain(*args, cd_sweeps=cd, **kwargs)
+    return theta, sweeps, cd
+
+
+def phase_path_kernels(path: dict) -> dict:
+    """Every bucket_glasso and tree_glasso launch of the [path] warm path,
+    held against its plain version on CPU copies of its inputs: sweeps
+    equal lane by lane (warm (W0, T0) lanes included), Theta within
+    BUCKET_RTOL / TREE_RTOL; then all launches replayed in order, timed by
+    CUDA events and by the profiler's device events."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing
+
+    out = {}
+    bcd = path["bcd_calls"]
+    # copies: the pool moves what it sends into shared memory, which must
+    # not be the storage of a tensor the path still holds
+    tasks = [(tuple(a.to("cpu", copy=True) for a in args), dict(kw)) for args, kw, _ in bcd]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=PATH_PLAIN_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        plain = list(pool.map(bucket_plain_on_cpu, tasks, chunksize=1))
+    plain_cpu_s = time.perf_counter() - t0
+    err, lanes, warm_lanes = 0.0, 0, 0
+    for (args, kw, (theta, sweeps)), (want, want_sw, _) in zip(bcd, plain):
+        if not torch.equal(sweeps.cpu(), want_sw):
+            raise AssertionError(f"[path_kernels] bucket_glasso b={args[0].shape[1]}: sweeps "
+                                 f"{sweeps.tolist()} != plain {want_sw.tolist()}")
+        e = float((theta.cpu() - want).abs().max())
+        if not e <= BUCKET_RTOL * float(want.abs().max()):
+            raise AssertionError(f"[path_kernels] bucket_glasso b={args[0].shape[1]}: "
+                                 f"max|diff|={e}")
+        err = max(err, e)
+        T0 = args[4]
+        eye = torch.eye(T0.shape[-1], dtype=T0.dtype, device=T0.device)
+        warm_lanes += int((T0 != eye).flatten(1).any(dim=1).sum())
+        lanes += int(T0.shape[0])
+    if warm_lanes == 0:
+        raise AssertionError("[path_kernels] no warm bucket_glasso lane on the path")
+
+    def replay_bucket():
+        for args, kw, _ in bcd:
+            fused_bcd_stack(*args, **kw)
+
+    ms = cuda_ms(replay_bucket, 1)
+    dev = profile_calls(replay_bucket, 1, name="bucket_glasso")[1] * len(bcd)
+    t_bytes = sum(4 * a[0].numel() * 8 for a, _, _ in bcd) / HBM_BYTES_PER_S * 1e3
+    out["bucket_glasso"] = dict(launches=len(bcd), ms=ms, device_ms=dev, err=err,
+                                bound_ms=t_bytes)
+    log("path_kernels", kernel="bucket_glasso", launches=len(bcd), lanes=lanes,
+        warm_lanes=warm_lanes, sizes=json.dumps(sorted({int(a[0].shape[1]) for a, _, _ in bcd})),
+        sweeps_equal=True, max_abs_err=err, ms=f"{ms:.4f}", device_ms=f"{dev:.4f}",
+        bytes_bound_ms=f"{t_bytes:.6f}", plain_cpu_s=f"{plain_cpu_s:.2f}",
+        plain_workers=PATH_PLAIN_WORKERS)
+
+    tree = path["tree_calls"]
+    err = 0.0
+    for args, _, theta in tree:
+        want = glasso_forest_ref(args[0].cpu(), args[1].cpu())
+        e = float((theta.cpu() - want).abs().max())
+        if not e <= TREE_RTOL * float(want.abs().max()):
+            raise AssertionError(f"[path_kernels] tree_glasso b={args[0].shape[1]}: max|diff|={e}")
+        err = max(err, e)
+
+    def replay_tree():
+        for args, kw, _ in tree:
+            glasso_forest_stack(*args, **kw)
+
+    ms = cuda_ms(replay_tree, 1)
+    dev = profile_calls(replay_tree, 1, name="tree_glasso")[1] * len(tree)
+    bound = sum(tree_bound_ms(a[0].shape[0], a[0].shape[1]) for a, _, _ in tree)
+    out["tree_glasso"] = dict(launches=len(tree), ms=ms, device_ms=dev, err=err, bound_ms=bound)
+    log("path_kernels", kernel="tree_glasso", launches=len(tree),
+        lanes=sum(int(a[0].shape[0]) for a, _, _ in tree), max_abs_err=err,
+        ms=f"{ms:.4f}", device_ms=f"{dev:.4f}", ms_a_launch=f"{ms / max(len(tree), 1):.4f}",
+        bound_ms=f"{bound:.6f}")
+    path["bcd_calls"] = path["tree_calls"] = None
+    return out
+
+
+def phase_path_from_data(X: np.ndarray) -> dict:
+    """``glasso_path(X=..., from_data=True)`` on [from_data]'s workload over
+    PATH_FD_GRID: one streamed screen (one covgram_screen call) for the
+    whole grid, every step's partition equal to the card's dense one, KKT
+    at every step."""
+    n, p = X.shape
+    lams = [float(v) for v in np.linspace(*PATH_FD_GRID)]
+    S_dev = sample_covariance(X)
+    S = S_dev.cpu().numpy()
+    smax = float(np.abs(S).max())
+    dense = []
+    for lam in lams:
+        labels, margin = dense_partition(S_dev, lam)
+        if margin < MARGIN_RTOL * smax:
+            raise AssertionError(f"[path_from_data] an |S_ij| lies within {margin} of {lam}")
+        dense.append(labels)
+    del S_dev
+    torch.cuda.empty_cache()
+    opts = EngineOptions(output="sparse", solver_opts={"tol": 1e-9})
+    stream = {"tile": FROM_DATA_TILE, "chunk": CHUNK}
+    torch.cuda.synchronize()
+    for prefix in ("kernels.", "stream.", "select.warm.", "router.fallback."):
+        instrument.reset(prefix)
+    with record_calls("repro_torch.stream.path", "stream_screen") as screens:
+        t0 = time.perf_counter()
+        res = glasso_path(X=X, lambdas=lams, from_data=True, stream=stream, options=opts)
+        wall = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    if len(screens) != 1 or launches.get("covgram_screen.launches", 0) <= 0:
+        raise AssertionError(f"[path_from_data] {len(screens)} screens, {launches}")
+    kkts = []
+    for r, labels in zip(res, dense):
+        if not np.array_equal(r.labels, labels):
+            raise AssertionError(f"[path_from_data] lam={r.lam}: partition differs from the dense one")
+        kkt = kkt_residual_sparse(S, r.Theta, r.lam)
+        if not kkt <= KKT_RTOL * smax:
+            raise AssertionError(f"[path_from_data] lam={r.lam}: KKT {kkt} > {KKT_RTOL}*max|S|")
+        kkts.append(kkt)
+    counters = instrument.counts("stream.")
+    log("path_from_data", n=n, p=p, lams=json.dumps([round(v, 4) for v in lams]),
+        tile=FROM_DATA_TILE, screens=len(screens),
+        covgram_screen_launches=launches.get("covgram_screen.launches", 0),
+        launches=json.dumps(launches, sort_keys=True),
+        max_comp=json.dumps([int(r.screen.max_comp) for r in res]),
+        n_components=json.dumps([int(r.screen.n_components) for r in res]),
+        warm_counts=json.dumps(instrument.tail_counts("select.warm."), sort_keys=True),
+        fallbacks=json.dumps(instrument.tail_counts("router.fallback."), sort_keys=True),
+        kkt_max=max(kkts), max_abs_S=smax,
+        tiles_total=counters.get("stream.tiles_total", 0),
+        edges_emitted=counters.get("stream.edges_emitted", 0), wall_s=f"{wall:.3f}")
+    return dict(lams=lams, opts=opts, stream=stream, launches=launches)
+
+
+def phase_path_oversize() -> dict:
+    """[oversize]'s workload along two lambdas, GIANT_LAM and one just below
+    it that crosses no |S_ij|: the giant bucket is reused and its sharded
+    solve warm-starts from its own previous block."""
+    S = giant_workload(GIANT_P)
+    lam1 = GIANT_LAM
+    w = np.abs(S[np.triu_indices(S.shape[0], 1)])
+    if (w == lam1).any():
+        raise AssertionError("[path_oversize] an |S_ij| equals GIANT_LAM")
+    lam2 = 0.5 * (lam1 + float(w[w < lam1].max()))
+    opts = EngineOptions(solver="admm", oversize_threshold=GIANT_THRESHOLD,
+                         solver_opts=SOLVER_OPTS)
+    torch.cuda.synchronize()
+    for prefix in ("kernels.", "solver.oversize.", "router.", "select.warm.", "planner."):
+        instrument.reset(prefix)
+    sharded = "repro_torch.core.solvers.sharded"
+    with record_results(sharded, "glasso_sharded") as solves, launches_per_solve() as steps:
+        t0 = time.perf_counter()
+        res = glasso_path(S, [lam1, lam2], options=opts)
+        wall = time.perf_counter() - t0
+    warm_counts = instrument.tail_counts("select.warm.")
+    planner = instrument.tail_counts("planner.")
+    if len(solves) != 2 or [c[1].get("Theta0") is not None for c in solves] != [False, True]:
+        raise AssertionError(f"[path_oversize] {len(solves)} sharded solves; expected a cold "
+                             "then a warm one")
+    for r in res:
+        if r.route_mix.get("oversize", 0) != 1 or r.oversize.get("dispatched") != 1 \
+                or r.oversize.get("fallbacks") != 0:
+            raise AssertionError(f"[path_oversize] lam={r.lam}: {r.route_mix} {r.oversize}")
+    kkts = [check_solution(S, r.lam, r) for r in res]
+    iters = [c[2].iters for c in solves]
+    if not iters[1] < iters[0]:
+        raise AssertionError(f"[path_oversize] outer iterations {iters}: no fewer when warm")
+    if planner.get("buckets_reused", 0) < 1 or warm_counts.get("reused", 0) < 1:
+        raise AssertionError(f"[path_oversize] giant bucket not reused: {planner} {warm_counts}")
+    log("path_oversize", p=GIANT_P, b=solves[0][2].b, lams=f"{lam1:.6g},{lam2:.10g}",
+        outer_iters=json.dumps(iters), inner_iters=json.dumps([c[2].inner_iters for c in solves]),
+        kkt_inplace=json.dumps([c[2].kkt_residual for c in solves]),
+        kkt=json.dumps(kkts), shard_prox_launches=json.dumps(per_step(steps, "shard_prox")),
+        solve_s=json.dumps([round(r.stages()["solve"], 3) for r in res]),
+        warm_counts=json.dumps(warm_counts, sort_keys=True),
+        planner=json.dumps(planner, sort_keys=True), wall_s=f"{wall:.3f}")
+    return dict(launches=per_step(steps, "shard_prox"))
+
+
+def phase_select(path: dict, X: np.ndarray, fd: dict) -> None:
+    """``select_path`` with EBIC on [path]'s workload (its selected index
+    must be the argmin of ``ebic_score`` over [path]'s results), then k-fold
+    CV and StARS from [path_from_data]'s X and grid."""
+    S, lams, opts = path["S"], path["lams"], path["opts"]
+    instrument.reset("select.")
+    t0 = time.perf_counter()
+    sel = select_path(S, grid=lams, criterion="ebic", n=SELECT_N, options=opts)
+    wall = time.perf_counter() - t0
+    src = CovSource(S=S)
+    scores = [ebic_score(r, src, SELECT_N) for r in path["warm"]]
+    rep = sel.report
+    if rep.selected_index != int(np.argmin(scores)):
+        raise AssertionError(f"[select] EBIC picked {rep.selected_index}, "
+                             f"argmin over [path] is {int(np.argmin(scores))}")
+    score_diff = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(rep.scores, scores))
+    log("select", criterion="ebic", p=S.shape[0], n=SELECT_N, lams=len(lams),
+        selected_index=rep.selected_index, selected_lam=f"{rep.selected_lam:.6g}",
+        max_rel_score_diff_vs_path=f"{score_diff:.3g}",
+        warm_fraction=f"{rep.warm_fraction:.4f}", warm=json.dumps(rep.warm, sort_keys=True),
+        wall_s=f"{wall:.3f}", path_wall_s=f"{path['wall_warm']:.3f}")
+    for criterion, copts in (("cv", {"k": 3, "seed": 0}),
+                             ("stars", {"n_subsamples": STARS_SUBSAMPLES, "seed": 0})):
+        t0 = time.perf_counter()
+        sel = select_path(X=X, grid=fd["lams"], criterion=criterion, criterion_opts=copts,
+                          options=fd["opts"], stream=fd["stream"])
+        wall = time.perf_counter() - t0
+        rep = sel.report
+        if not np.isfinite(rep.scores).all():
+            raise AssertionError(f"[select] {criterion}: scores {rep.scores}")
+        if criterion == "cv" and rep.scores[rep.selected_index] != max(rep.scores):
+            raise AssertionError(f"[select] cv picked {rep.selected_index}: {rep.scores}")
+        if criterion == "stars":
+            mono = rep.detail["monotone"]
+            if any(a > b for a, b in zip(mono, mono[1:])):
+                raise AssertionError(f"[select] stars instability not monotone: {mono}")
+        log("select", criterion=criterion, p=X.shape[1], n=X.shape[0], lams=len(fd["lams"]),
+            opts=json.dumps(copts, sort_keys=True), selected_index=rep.selected_index,
+            selected_lam=f"{rep.selected_lam:.6g}",
+            scores=json.dumps([float(f"{v:.6g}") for v in rep.scores]),
+            warm_fraction=f"{rep.warm_fraction:.4f}", warm=json.dumps(rep.warm, sort_keys=True),
+            wall_s=f"{wall:.3f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2727,7 +3134,12 @@ def main() -> int:
     fd_launches, cov = phase_from_data(X_fd)
     phase_stream(X_st)
     phase_from_data_sparse(X_st)
-    del X_fd, X_st
+    del X_st
+    path = phase_path()
+    path_kernels = phase_path_kernels(path)
+    fd_path = phase_path_from_data(X_fd)
+    phase_select(path, X_fd, fd_path)
+    del X_fd, path
     cg = phase_covgram()
     ls_launches, _ = phase_large_scale()
 
@@ -2747,6 +3159,7 @@ def main() -> int:
             plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}",
             ms_f32=f"{r['ms_f32']:.4f}", device_events_per_call=json.dumps(r["events"]))
     oversize_launches, sp_kept = phase_oversize()
+    oversize_path = phase_path_oversize()
     sp = shard_prox_on_path(sp_kept)
     log_shard_prox("oversize", sp, oversize_launches)
     del sp_kept
@@ -2765,6 +3178,7 @@ def main() -> int:
             "device_ms": tree["device_ms"], "host_ms": tree["host_ms"],
             "redesigned": "one launch a call, lam by pointer or value, "
                           "at most ceil(B / SMs) blocks a program",
+            "path": path_kernels["tree_glasso"],
         },
         {
             "name": "bucket_glasso", "route": "cuda",
@@ -2778,6 +3192,7 @@ def main() -> int:
             "ns_per_step": ns_per_step(bucket["ms"], bucket["chain_sum"]),
             "redesigned": "g = W beta carried, moving coordinates found by ballot, "
                           "W in shared memory up to b = 168 (float64)",
+            "path": path_kernels["bucket_glasso"],
         },
         {
             "name": "threshold_cc", "route": "cuda",
@@ -2796,6 +3211,7 @@ def main() -> int:
             "bound_by": "operations" if cov["ops_ms"] > cov["bytes_ms"] else "bytes",
             "library_ms": cov["library_ms"], "device_ms": cov["device_ms"],
             "redesigned": f"FP64 tensor cores (mma.sync {MMA}), cp.async three-stage ring",
+            "path": {"launches": fd_path["launches"].get("covgram_screen.launches", 0)},
         },
         {
             "name": "joint_prox", "route": "cuda",
@@ -2826,6 +3242,8 @@ def main() -> int:
             "max_abs_err": max(sp["err"], sp_admm["err"]),
             "ms": sp["ms"], "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
             "bound_by": "bytes", "library_ms": sp["library_ms"],
+            "path": {"launches": sum(oversize_path["launches"]),
+                     "per_step": oversize_path["launches"]},
         },
         {
             "name": "covgram", "route": "cuda",

@@ -12,6 +12,10 @@ step the ``prox_l1`` kernel) or ``solver="admm"`` (its Z/U tail the
 card, its prox tail the same ``shard_prox`` kernel.  It runs on the card
 by default; ``EngineOptions(device="cpu")`` runs the plain-PyTorch
 versions of the kernels instead.
+``glasso_path(S, lams)`` solves a descending lambda grid from one
+union-find pass with diffed plans and warm starts (``X=`` plans it from
+one streamed screen), and ``repro_torch.select.select_path`` picks lambda
+along it by EBIC, k-fold CV or StARS.
 ``repro_torch.joint.joint_glasso`` solves the joint K-class problem the
 same way, its ADMM Z-update on the ``joint_prox`` CUDA kernel.
 

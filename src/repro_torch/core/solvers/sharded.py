@@ -280,7 +280,7 @@ def glasso_sharded(
     cg_max: int | None = None,
     pow_steps: int = 10,
     dtype=None,
-    Theta0: np.ndarray | None = None,
+    Theta0: np.ndarray | torch.Tensor | None = None,
     device="cuda",
 ) -> ShardedSolve:
     """Solve one oversize block; see the module docstring.
@@ -289,7 +289,8 @@ def glasso_sharded(
     here: the card unless ``device="cpu"``) or an already padded (bp, bp)
     tensor, which stays on its own device (then ``b`` gives the true block
     size — the shard-direct gather's calling convention).  ``Theta0``
-    warm-starts Z and U (a previous solution on the same support).
+    warm-starts Z and U (a previous (b, b) solution on the same support,
+    host array or tensor).
     ``kkt_target`` is the caller's RELATIVE acceptance tolerance (the
     executor's ``route_check_tol``): after the ADMM loop reaches ``tol``,
     the in-place KKT residual is checked against
@@ -317,10 +318,9 @@ def glasso_sharded(
         cg_max = bp
     theta0 = None
     if Theta0 is not None:
-        np_dtype = np.dtype(str(S_sh.dtype).removeprefix("torch."))
-        T_pad = np.eye(bp, dtype=np_dtype) / (1.0 + float(lam))
-        T_pad[:b, :b] = np.asarray(Theta0)
-        theta0 = torch.as_tensor(T_pad).to(S_sh.device)
+        # a device tensor (a path's kept solution) stays on the device
+        theta0 = torch.eye(bp, dtype=S_sh.dtype, device=S_sh.device) / (1.0 + float(lam))
+        theta0[:b, :b] = torch.as_tensor(Theta0, device=S_sh.device)
     Z, it, inner, res, s_max, rho_f, retries = _solve(
         S_sh, float(lam), float(rho), float(tol),
         float("inf") if kkt_target is None else float(kkt_target),

@@ -6,11 +6,15 @@
 the bucket planner and the executor, on the device ``EngineOptions.device``
 names (``"cuda"`` by default); ``Engine.run_from_data`` screens straight
 from the (n, p) data matrix through ``repro_torch.stream`` and solves over
-the materialized component blocks.  ``repro_torch.glasso`` is a thin
-wrapper over both.  Inputs and results are numpy arrays, as in the
-reference package: a dense (p, p) Theta, or, when ``output`` resolves to
-"sparse" (``"auto"`` above ``AUTO_SPARSE_P``), a ``SparseTheta`` built on
-the executor's solution stacks with no (p, p) allocation.
+the materialized component blocks.  ``Engine.run_path`` and
+``run_path_from_data`` solve a descending lambda grid with ONE partition
+pass (``planner.plan_path``, or one streamed screen), diffed plans and warm
+starts between consecutive lambdas.  ``repro_torch.glasso`` and
+``glasso_path`` are thin wrappers over them.  Inputs and results are numpy
+arrays, as in the reference package: a dense (p, p) Theta, or, when
+``output`` resolves to "sparse" (``"auto"`` above ``AUTO_SPARSE_P``), a
+``SparseTheta`` built on the executor's solution stacks with no (p, p)
+allocation.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from repro_torch.core.screening import (
 from repro_torch.core.sparse import SparseTheta, resolve_output, result_nbytes
 from repro_torch.engine.executor import BucketExecutor
 from repro_torch.engine.options import EngineOptions, normalize_options
-from repro_torch.engine.planner import build_plan_incremental
+from repro_torch.engine.planner import build_plan_incremental, plan_path
 from repro_torch.obs.trace import Trace, current_trace, span, trace_request
 
 
@@ -120,6 +124,13 @@ class GlassoResult:
     @property
     def dispatch_seconds(self) -> float:
         return self._stage_seconds["dispatch"]
+
+    @property
+    def stages_us(self) -> dict[str, int]:
+        """The ``stages()`` view in whole microseconds (``screen_us`` /
+        ``solve_us`` / ``dispatch_us`` / ``assemble_us``): what
+        ``SelectionReport.stages_us`` carries per grid point."""
+        return {f"{k}_us": int(v * 1e6) for k, v in self._stage_seconds.items()}
 
     @property
     def screen_seconds(self) -> float:
@@ -286,6 +297,8 @@ class Engine:
     options)."""
 
     def __init__(self, *, options: EngineOptions | None = None, **legacy_engine_kwargs):
+        from repro_torch.core.solvers import WARM_START_SOLVERS
+
         opts = normalize_options(options, legacy_engine_kwargs, context="Engine")
         if opts.fused is True:
             raise NotImplementedError("the fused wave packer is not ported yet (slice 4)")
@@ -303,6 +316,7 @@ class Engine:
         )
         self.cc_backend = opts.cc_backend
         self.stream = opts.stream   # default StreamConfig for from-data runs
+        self.warm_capable = self.solver in WARM_START_SOLVERS
         self.executor = BucketExecutor(
             solver=self.solver,
             dtype=self.dtype,
@@ -366,7 +380,7 @@ class Engine:
                 screen_stats = None
                 screened = False
             with span("engine.plan"):
-                plan = build_plan_incremental(
+                plan, _ = build_plan_incremental(
                     S, lam, labels, dtype=self.np_dtype,
                     classify_structures=self.executor.route and screened,
                     oversize=self.oversize if screened else None,
@@ -389,6 +403,107 @@ class Engine:
                 device=str(self.device),
                 oversize=self.executor.last_oversize,
             )
+
+    def run_path(
+        self,
+        S: np.ndarray,
+        lambdas,
+        *,
+        warm_start: bool = True,
+        p_max: int | None = None,
+        output: str | None = None,
+    ) -> list[GlassoResult]:
+        """Descending path: one union-find pass, diffed plans, warm starts.
+
+        Theorem 2 guarantees nested partitions, so (a) the planner snapshots
+        every lambda from a single pass, and (b) the previous Theta
+        restricted to a merged component is block-diagonal over its old
+        sub-components — a valid PD warm start.  Buckets unchanged between
+        consecutive lambdas keep their device stacks and warm-start from
+        their own previous solutions on the device.  The path's partition
+        is always the host union-find's (``cc_backend`` does not apply: the
+        planner IS the partition pass, and gives the identical labels)."""
+        S = _as_cov_operand(S)
+        lambdas = list(lambdas)
+        with self._trace_ctx("engine.path", n_lams=len(lambdas), p=int(S.shape[0])):
+            with span("engine.plan"):
+                path = plan_path(
+                    S, lambdas, dtype=self.np_dtype,
+                    classify_structures=self.executor.route,
+                    oversize=self.oversize,
+                )
+            return self._execute_path(
+                S, path, warm_start=warm_start, p_max=p_max, output=output
+            )
+
+    def _execute_path(
+        self, S, path, *, warm_start: bool, p_max: int | None,
+        output: str | None = None,
+    ) -> list[GlassoResult]:
+        """Run an already-planned path (dense or streamed) through the
+        executor with bucket-level reuse and warm starts.
+
+        Warm accounting (``select.warm.*``), one count per solver-bound
+        bucket (iterative and sharded routes; closed-form and chordal
+        blocks are solved directly either way): "reused" resumes from its
+        own previous solution, "merged" is a fresh iterative bucket started
+        from the previous result's blocks, "cold" has no warm source (the
+        first grid point, ``warm_start=False``, a solver outside
+        ``WARM_START_SOLVERS``, or a fresh sharded block)."""
+        from repro_torch.engine.registry import route_for
+
+        results: list[GlassoResult] = []
+        prev: GlassoResult | None = None
+        out_mode = resolve_output(self.output if output is None else output, S.shape[0])
+        warmable = False
+        for step in path.steps:
+            schedule_mod.check_capacity(
+                [len(c) for b in step.plan.buckets for c in b.comps] or [1], p_max
+            )
+            warm_Theta = None
+            routes = [
+                route_for(b.structure) if self.executor.route else "iterative"
+                for b in step.plan.buckets
+            ]
+            if warmable and any(
+                r == "iterative" and not step.is_reused(b)
+                for b, r in zip(step.plan.buckets, routes)
+            ):
+                # merged buckets gather their block-diagonal restriction of
+                # the previous Theta (cross-component entries are exact
+                # zeros) and the executor inverts the stacks on the device:
+                # no dense (p, p) W is built on the host
+                warm_Theta = prev.Theta
+            for b, route in zip(step.plan.buckets, routes):
+                if route not in ("iterative", "sharded"):
+                    continue
+                if warmable and step.is_reused(b):
+                    bump("select.warm.reused")
+                elif warmable and route == "iterative":
+                    bump("select.warm.merged")
+                else:
+                    bump("select.warm.cold")
+            t0 = time.perf_counter()
+            with span("engine.solve", lam=float(step.lam)):
+                Theta = self.executor.solve_plan(
+                    step.plan, step.lam, S,
+                    warm_Theta=warm_Theta,
+                    reused_keys=step.reused_keys if warm_start else frozenset(),
+                    keep_solutions=warm_start,
+                    output=out_mode,
+                )
+            seconds = time.perf_counter() - t0
+            prev = _result(
+                step.plan, step.labels, step.screen, Theta, seconds, self.solver,
+                step.lam, routed=self.executor.route,
+                assemble_seconds=self.executor.last_assemble_seconds,
+                dispatch_seconds=self.executor.last_dispatch_seconds,
+                device=str(self.device),
+                oversize=self.executor.last_oversize,
+            )
+            results.append(prev)
+            warmable = warm_start and self.warm_capable
+        return results
 
     def run_from_data(
         self,
@@ -425,4 +540,35 @@ class Engine:
                 p_max=p_max,
                 warm_W=warm_W,
                 output=output,
+            )
+
+    def run_path_from_data(
+        self,
+        X: np.ndarray,
+        lambdas,
+        *,
+        stream=None,
+        warm_start: bool = True,
+        p_max: int | None = None,
+        output: str | None = None,
+    ) -> list[GlassoResult]:
+        """A descending lambda path screened straight from X: one streamed
+        screen covers the whole grid (Theorem 2 — the compacted edges above
+        the grid minimum determine every partition), then the diffed-plan
+        execution of ``run_path`` runs over the materialized blocks."""
+        from repro_torch.stream import plan_path_streaming
+
+        if stream is None:
+            stream = self.stream
+        lambdas = list(lambdas)
+        p = int(np.shape(X)[1])
+        with self._trace_ctx("engine.path", n_lams=len(lambdas), p=p, source="data"):
+            with span("engine.plan", backend="stream"):
+                path, sc = plan_path_streaming(
+                    X, lambdas, config=stream, dtype=self.np_dtype,
+                    classify_structures=self.executor.route,
+                    oversize=self.oversize, device=self.device,
+                )
+            return self._execute_path(
+                sc.S, path, warm_start=warm_start, p_max=p_max, output=output
             )

@@ -15,6 +15,13 @@ assemble.
   iterative solver warm-started from the rejected candidate
   (``dispatch_repair``; ``router.fallback.*`` counters).  Routing changes
   cost, never the answer.
+* **Path warm starts.**  Along a lambda path (``Engine.run_path``) a
+  bucket the planner carried over keeps its padded stack on the device
+  (no re-upload) and warm-starts from its own previous solution, also kept
+  on the device: W0 = inv(prev Theta), batched, with the previous Theta as
+  the inner-lasso seed; a merged bucket gathers T0 from the previous
+  result's blocks and starts from W0 = inv(T0).  A reused oversize bucket
+  hands its previous block to the sharded solve as Theta0.
 * **Oversize blocks.**  Buckets classed "oversize" take the "sharded"
   route: one blocking ``glasso_sharded`` solve per block, issued after the
   asynchronous small buckets are in flight, with its own in-place KKT
@@ -213,6 +220,10 @@ class _Pending:
     out: Any                       # tensor (device routes) or np (chordal)
     ok: Any = None                 # per-block KKT flags of verified routes
     repair: Any = None             # (row idx, in-flight iterative re-solve)
+    stacked: Any = None            # the device block stack (device routes)
+    key: Any = None                # planner.bucket_key of the bucket
+    warm: bool = False             # iterative solve from a warm (W0, T0)
+    host: Any = None               # host copy of ``out``, once read
 
 
 @dataclass
@@ -232,6 +243,11 @@ class BucketExecutor:
     # oversize accounting of the MOST RECENT solve_plan call (dispatched /
     # inner_iters / fallbacks), surfaced as GlassoResult.oversize
     last_oversize: dict = field(default_factory=dict)
+    # bucket_key -> previous padded solution / input stack (device tensors),
+    # kept by solve_plan(keep_solutions=True): a reused bucket warm-starts
+    # from its own solution and skips the host-to-device copy of its blocks
+    _prev_solutions: dict = field(default_factory=dict)
+    _prev_blocks: dict = field(default_factory=dict)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -239,26 +255,60 @@ class BucketExecutor:
         _validate_solver_opts(self.solver, self.solver_opts)
         self._np_dtype = np.dtype(str(self.dtype).removeprefix("torch."))
 
-    def _warm_stack(
-        self, bucket: blocks_mod.Bucket, lam: float, warm_W: np.ndarray
-    ) -> torch.Tensor:
-        """W0 stack gathered from a caller's W iterate, with the padded
-        coordinates reset: diagonal 1 + lam (diagonal KKT), cross terms 0."""
+    def _gather_stack(self, src, bucket: blocks_mod.Bucket) -> torch.Tensor:
+        """The padded restrictions of ``src`` (a dense (p, p) array or a
+        block-sparse result) to the bucket's components, on the device."""
         stacks = [
             blocks_mod.pad_block(
-                blocks_mod.gather_submatrix(warm_W, c, dtype=self._np_dtype),
-                bucket.size,
+                blocks_mod.gather_submatrix(src, c, dtype=self._np_dtype), bucket.size
             )
             for c in bucket.comps
         ]
-        W0 = torch.as_tensor(np.stack(stacks), dtype=self.dtype, device=self.device)
+        return torch.as_tensor(np.stack(stacks), dtype=self.dtype, device=self.device)
+
+    def _warm_stack(
+        self,
+        bucket: blocks_mod.Bucket,
+        key,
+        lam: float,
+        warm_W,
+        warm_Theta=None,
+    ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """(W0 stack, Theta0 stack or None) for one bucket, or (None, None).
+
+        A reused bucket with a kept solution: W0 = inv(prev Theta), batched
+        on the device (the padded block of Theta is diagonal, so the inverse
+        is finite; its padded diagonal is reset to 1 + lam below), and the
+        previous Theta rides along as the Theta0 seed.  A merged or fresh
+        bucket prefers ``warm_Theta`` (the previous result, dense or
+        block-sparse: its cross-component entries are exact zeros, so each
+        gathered restriction is the Theorem-2 block-diagonal PD warm
+        start): T0 is gathered once and W0 = inv(T0) computed batched on
+        the device.  ``warm_W`` (a caller's W iterate, no Theta) is the
+        last resort: no Theta seed then."""
+        T0 = None
+        prev = self._prev_solutions.get(key) if key is not None else None
+        if prev is not None:
+            T0 = prev
+            W0 = torch.linalg.inv(T0)
+        elif warm_Theta is not None:
+            # pad_block puts the identity on the padded diagonal of T0, so
+            # the batched inverse is finite
+            T0 = self._gather_stack(warm_Theta, bucket)
+            W0 = torch.linalg.inv(T0)
+        elif warm_W is not None:
+            W0 = self._gather_stack(warm_W, bucket)
+        else:
+            return None, None
+        # the padded coordinates of a W iterate: diagonal 1 + lam (diagonal
+        # KKT), cross terms 0
         idx = torch.arange(bucket.size, device=self.device)
         pad_mask = torch.stack([idx >= len(c) for c in bucket.comps])
         eye = torch.eye(bucket.size, dtype=torch.bool, device=self.device)
         fix = pad_mask[:, :, None] & eye[None, :, :]
         W0 = torch.where(fix, torch.tensor(1.0 + lam, dtype=W0.dtype, device=self.device), W0)
         off = pad_mask[:, :, None] ^ pad_mask[:, None, :]
-        return torch.where(off, torch.zeros((), dtype=W0.dtype, device=self.device), W0)
+        return torch.where(off, torch.zeros((), dtype=W0.dtype, device=self.device), W0), T0
 
     def solve_plan(
         self,
@@ -266,7 +316,10 @@ class BucketExecutor:
         lam: float,
         S: np.ndarray,
         *,
-        warm_W: np.ndarray | None = None,
+        warm_W=None,
+        warm_Theta=None,
+        reused_keys: frozenset = frozenset(),
+        keep_solutions: bool = False,
         output: str = "dense",
     ):
         """Dispatch all buckets, wait once, verify, then assemble Theta.
@@ -274,7 +327,16 @@ class BucketExecutor:
         ``output="dense"`` scatters into a (p, p) array; ``"sparse"`` hands
         the per-bucket solution stacks, as they came back from the device,
         to ``blocks.assemble_sparse``: a ``SparseTheta`` whose blocks are
-        those arrays (no further copy), and no (p, p) buffer is allocated."""
+        those arrays (no further copy), and no (p, p) buffer is allocated.
+
+        ``reused_keys`` marks buckets the planner carried over from the
+        previous lambda: their device stacks and (when the previous call
+        kept them, ``keep_solutions``) their solutions seed this solve.
+        ``warm_Theta`` is the previous result, gathered for merged buckets;
+        ``warm_W`` a caller's W iterate.  ``keep_solutions=False`` drops
+        whatever the previous call kept."""
+        from repro_torch.engine.planner import bucket_key
+
         if self.route and len(plan.isolated):
             bump("router.route.singleton", int(len(plan.isolated)))
         self.last_dispatch_seconds = 0.0
@@ -283,6 +345,7 @@ class BucketExecutor:
         pending: list[_Pending] = []
         sharded_pending: list[_Pending] = []
         for bucket in plan.buckets:
+            key = bucket_key(bucket)
             n = len(bucket.comps)
             route = route_for(bucket.structure) if self.route else "iterative"
             if self.route:
@@ -290,7 +353,7 @@ class BucketExecutor:
             if route == "sharded":
                 # blocking solves: queued after the asynchronous small
                 # buckets below, so their launches are in flight first
-                p = _Pending(bucket=bucket, out=None)
+                p = _Pending(bucket=bucket, out=None, key=key)
                 pending.append(p)
                 sharded_pending.append(p)
                 continue
@@ -301,14 +364,16 @@ class BucketExecutor:
                     solve_chordal_bucket, bucket, np.full(n, lam),
                     tol=self.route_check_tol,
                 )
-                p = _Pending(bucket=bucket, out=out)
+                p = _Pending(bucket=bucket, out=out, key=key)
                 if not ok.all():
                     idx = np.flatnonzero(~ok)
                     bump(f"router.fallback.{bucket.structure}", int(idx.size))
                     p.repair = self._dispatch_repair(bucket, idx, out[idx], lam)
                 pending.append(p)
                 continue
-            stacked = torch.as_tensor(bucket.blocks, dtype=self.dtype, device=self.device)
+            stacked = self._prev_blocks.get(key) if key in reused_keys else None
+            if stacked is None:
+                stacked = torch.as_tensor(bucket.blocks, dtype=self.dtype, device=self.device)
             lams = torch.full((n,), lam, dtype=self.dtype, device=self.device)
             if route == "closed_form":
                 (theta, ok), dt = timed_dispatch(
@@ -317,22 +382,37 @@ class BucketExecutor:
                 )
                 self.last_dispatch_seconds += dt
                 bump("executor.dispatches")
-                pending.append(_Pending(bucket=bucket, out=theta, ok=ok))
+                pending.append(_Pending(bucket=bucket, out=theta, ok=ok, stacked=stacked, key=key))
                 continue
-            W0 = None
-            if warm_W is not None and self._spec.warm_startable:
-                W0 = self._warm_stack(bucket, lam, warm_W)
-            out, dt = timed_dispatch(self._spec.fn, stacked, lams, W0=W0, **opts)
+            W0 = T0 = None
+            if self._spec.warm_startable:
+                W0, T0 = self._warm_stack(
+                    bucket, key if key in reused_keys else None, lam, warm_W, warm_Theta
+                )
+            if not self._spec.meta.get("theta_warm"):
+                T0 = None
+            out, dt = timed_dispatch(self._spec.fn, stacked, lams, W0=W0, Theta0=T0, **opts)
             self.last_dispatch_seconds += dt
             bump("executor.dispatches")
-            pending.append(_Pending(bucket=bucket, out=out))
+            pending.append(
+                _Pending(bucket=bucket, out=out, stacked=stacked, key=key, warm=W0 is not None)
+            )
 
+        # oversize buckets: one blocking sharded solve per block, while the
+        # small launches above are in flight.  A bucket reused from the
+        # previous lambda seeds Theta0 with its own previous block (kept on
+        # the device), never a host inversion of the giant block.
         totals = {"dispatched": 0, "inner_iters": 0, "fallbacks": 0}
         for p in sharded_pending:
             n = len(p.bucket.comps)
+            prev = self._prev_solutions.get(p.key) if p.key in reused_keys else None
+            warm_thetas = None
+            if prev is not None:
+                warm_thetas = [prev[i, : len(c), : len(c)] for i, c in enumerate(p.bucket.comps)]
             p.out, info = solve_sharded_bucket(
                 p.bucket, np.full(n, lam), S, solver=self.solver, dtype=self.dtype,
                 device=self.device, opts=opts, tol=self.route_check_tol,
+                warm_thetas=warm_thetas,
             )
             for k in totals:
                 totals[k] += info[k]
@@ -348,11 +428,25 @@ class BucketExecutor:
                 idx, fixed = p.repair
                 p.out[idx] = fixed.cpu().numpy()
         self._verify_and_fallback(pending, lam)
+        self._repair_diverged(pending, lam)
+
+        # the kept solutions are the verified (post-fallback) ones, on the
+        # device; a call without keep_solutions frees the previous ones
+        new_solutions: dict = {}
+        new_blocks: dict = {}
+        if keep_solutions:
+            for p in pending:
+                new_solutions[p.key] = torch.as_tensor(p.out, dtype=self.dtype, device=self.device)
+                if p.stacked is not None:
+                    new_blocks[p.key] = p.stacked
+        self._prev_solutions = new_solutions
+        self._prev_blocks = new_blocks
 
         t0 = time.perf_counter()
         with span("engine.assemble", output=output):
             sols = [
-                p.out.cpu().numpy() if isinstance(p.out, torch.Tensor) else p.out
+                p.host if p.host is not None
+                else p.out.cpu().numpy() if isinstance(p.out, torch.Tensor) else p.out
                 for p in pending
             ]
             if output == "sparse":
@@ -394,3 +488,31 @@ class BucketExecutor:
             out = p.out.clone()
             out[torch.as_tensor(idx, device=out.device)] = fixed
             p.out = out
+
+    def _repair_diverged(self, pending: list[_Pending], lam: float) -> None:
+        """Re-solve cold every warm-started lane that came back non-finite.
+
+        A path's warm W0 = inv(T0) has its diagonal reset to S_ii + lam, but
+        its off-diagonal entries are only dual-feasible for the previous,
+        larger lambda; after a large drop in lambda the BCD iterate can
+        leave the positive-definite cone and return NaN (the reference
+        package does so too).  Such lanes are rare; they go down the
+        repair path with their non-finite candidates, which selects the
+        cold pair (W0 = S + lam*I), and are counted in
+        ``router.fallback.warm``.  The warm stacks come to the host here
+        once and assembly reuses the copies."""
+        repairs = []
+        for p in pending:
+            if not p.warm:
+                continue
+            p.host = p.out.cpu().numpy()
+            bad = ~np.isfinite(p.host).all(axis=(1, 2))
+            if bad.any():
+                idx = np.flatnonzero(bad)
+                bump("router.fallback.warm", int(idx.size))
+                repairs.append((p, self._dispatch_repair(p.bucket, idx, p.host[idx], lam)))
+        for p, (idx, fixed) in repairs:
+            out = p.out.clone()
+            out[torch.as_tensor(idx, device=out.device)] = fixed
+            p.out = out
+            p.host = out.cpu().numpy()

@@ -7,10 +7,10 @@ compacted edges feed one union-find pass, and only the per-component
 sub-blocks the solvers consume are computed.
 
     stream_screen          screen (X, lambda grid) out-of-core
+    plan_path_streaming    screen once + plan a whole descending lambda path
     StreamConfig           tile/batch/memory-budget knobs
 
-The path adapter (``plan_path_streaming``) and the serving ``DataSession``
-come with later slices.
+The serving ``DataSession`` comes with a later slice.
 """
 
 from repro_torch.stream.config import StreamConfig, as_config
@@ -19,6 +19,7 @@ from repro_torch.stream.materialize import (
     materialize_components,
     shard_gather,
 )
+from repro_torch.stream.path import plan_path_from_screen, plan_path_streaming
 from repro_torch.stream.screen import StreamScreen, stream_screen
 
 __all__ = [
@@ -29,4 +30,6 @@ __all__ = [
     "shard_gather",
     "StreamScreen",
     "stream_screen",
+    "plan_path_from_screen",
+    "plan_path_streaming",
 ]

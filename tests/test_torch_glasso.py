@@ -186,10 +186,16 @@ def test_names_and_unported_features_raise():
         repro_torch.glasso(S, lam, options=CPU.replace(cc_backend="nope"))
     with pytest.raises(ValueError, match="p_max"):
         repro_torch.glasso(S, lam, p_max=3, options=CPU)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        repro_torch.glasso_path(S, [lam])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        repro_torch.glasso_path(X=S, lambdas=[lam], from_data=True)
+    # the lambda path is ported: from S and from X it equals the reference's
+    from repro.core import glasso_path as jax_glasso_path
+
+    for kw in (dict(S=S), dict(X=S, from_data=True)):
+        got = repro_torch.glasso_path(lambdas=[lam, 0.5 * lam], options=CPU, **kw)
+        want = jax_glasso_path(lambdas=[lam, 0.5 * lam], **kw)
+        assert [r.lam for r in got] == [r.lam for r in want] == [lam, 0.5 * lam]
+        for g, w in zip(got, want):
+            assert np.array_equal(g.labels, w.labels) and g.route_mix == w.route_mix
+            np.testing.assert_allclose(g.Theta, np.asarray(w.Theta), rtol=0, atol=1e-7)
     # sparse results are ported: both entry points return a SparseTheta
     from repro_torch.core.sparse import AUTO_SPARSE_P, SparseTheta, resolve_output
 

@@ -243,7 +243,7 @@ def test_auto_budget_reads_what_the_allocator_can_hold(monkeypatch):
 
 def test_oversize_bucket_has_no_host_blocks():
     S, lam = _case(24, 0, 0.2)
-    plan = build_plan_incremental(S, lam, np.zeros(24, dtype=np.int64), oversize=10)
+    plan, _ = build_plan_incremental(S, lam, np.zeros(24, dtype=np.int64), oversize=10)
     big = [b for b in plan.buckets if b.structure == "oversize"]
     assert big and all(b.blocks is None for b in big)
     assert plan.block_bytes() == 0

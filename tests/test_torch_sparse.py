@@ -258,7 +258,7 @@ def test_assemble_dtype_from_S_when_no_buckets():
 
     S = np.eye(12, dtype=np.float32)
     labels, _ = thresholded_components(S, 0.5)
-    plan = build_plan_incremental(S, 0.5, labels)
+    plan, _ = build_plan_incremental(S, 0.5, labels)
     assert not plan.buckets
     Theta = blocks_mod.assemble_dense(plan, [], S)
     sp = blocks_mod.assemble_sparse(plan, [], S)

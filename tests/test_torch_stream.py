@@ -275,8 +275,21 @@ def test_glasso_argument_checks_match_reference():
     # S with from_data=True is the data matrix, as in the reference
     r = repro_torch.glasso(X, 0.1, from_data=True, options=CPU, stream={"tile": 4})
     assert r.Theta.shape == (5, 5)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        repro_torch.glasso_path(X=X, lambdas=[0.1], from_data=True)
+    # the path's argument checks are the reference's too, word for word
+    from repro.core import glasso_path as jax_glasso_path
+
+    for kw in (dict(S=S, X=X, lambdas=[0.1]), dict(from_data=True, lambdas=[0.1]),
+               dict(X=X), dict(S=S)):
+        with pytest.raises(ValueError) as e_ref:
+            jax_glasso_path(**kw)
+        with pytest.raises(ValueError) as e_port:
+            repro_torch.glasso_path(**kw, options=CPU)
+        assert str(e_port.value) == str(e_ref.value)
+    got = repro_torch.glasso_path(X=X, lambdas=[0.1], from_data=True, options=CPU,
+                                  stream={"tile": 4})
+    want = jax_glasso_path(X=X, lambdas=[0.1], from_data=True, stream={"tile": 4})
+    assert np.array_equal(got[0].labels, want[0].labels)
+    np.testing.assert_allclose(got[0].Theta, np.asarray(want[0].Theta), rtol=0, atol=1e-7)
 
 
 def test_stream_options_carry_across():
