@@ -185,6 +185,17 @@ Phases, each printing a line:
              process pool): sweeps equal lane by lane, Theta within
              BUCKET_RTOL; every tree_glasso launch likewise; all replayed
              and timed (CUDA-event and device ms);
+26b. fused  the wave packer (``EngineOptions(fused=True)``) against the
+             unfused dispatch on three workloads: a planted case of
+             chordless cycles of sizes 4..63 (every bin, every b mod 4 up to
+             32) at an exact tie lam, [main]'s p = 6000 host-screen solve and
+             [path]'s grid; labels, Theta (block by block on the path) and
+             every lane's sweeps equal bit for bit at every step,
+             ``solver.fused.dispatches`` equal to the occupied bins a step,
+             fewer bucket_glasso launches (at most as many on [main]), both
+             walls and both dispatch-stage seconds; [fused_plain] every
+             packed launch of the planted case against the plain version on
+             CPU copies, sweeps equal lane by lane;
 27. path_from_data  ``glasso_path(X=..., from_data=True)`` on [from_data]'s
              workload over 6 lambdas from 0.40 to 0.30: one streamed
              screen for the grid, every partition equal to the card's dense
@@ -256,6 +267,7 @@ from repro_torch.covariance import (  # noqa: E402
 )
 from repro_torch.engine.planner import build_plan_incremental  # noqa: E402
 from repro_torch.engine.registry import route_for  # noqa: E402
+from repro_torch.engine.waves import FUSED_BINS, fused_bin  # noqa: E402
 from repro_torch.joint import joint_glasso  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels.bucket_glasso.ops import fused_bcd_stack  # noqa: E402
@@ -470,6 +482,11 @@ SELECT_N = 150
 # with 4 subsamples
 PATH_FD_GRID = (0.40, 0.30, 6)
 STARS_SUBSAMPLES = 4
+# [fused]: the planted case's chordless cycles (structure "general"), sizes
+# covering every bin and every b mod 4 in the b <= 32 bins, coupled by
+# 0.25 at lam = 0.25, an exact tie (dyadic entries)
+FUSED_SIZES = (4, 5, 6, 7, 10, 14, 22, 27, 40, 63)
+FUSED_LAM = 0.25
 
 
 T_START = time.perf_counter()
@@ -2942,6 +2959,201 @@ def phase_path_kernels(path: dict) -> dict:
     return out
 
 
+def planted_general_blocks(sizes, seed: int = 0, cross: float = 0.0) -> np.ndarray:
+    """Block-diagonal S of chordless cycles (structure "general" from size
+    4), dyadic entries in [0.375, 0.5], consecutive blocks coupled by
+    ``cross`` (``tests/test_torch_fused.py``'s generator)."""
+    rng = np.random.default_rng(seed)
+    p = int(sum(sizes))
+    S = np.zeros((p, p))
+    off, starts = 0, []
+    for b in sizes:
+        starts.append(off)
+        for i in range(b):
+            j = (i + 1) % b
+            mag = rng.integers(24, 33) / 64.0
+            sgn = 1.0 if rng.random() < 0.5 else -1.0
+            S[off + i, off + j] = S[off + j, off + i] = sgn * mag
+        off += b
+    for a, b in zip(starts, starts[1:]):
+        S[a, b] = S[b, a] = cross
+    np.fill_diagonal(S, 1.0)
+    return S
+
+
+@contextmanager
+def fused_steps():
+    """One dict a ``BucketExecutor.solve_plan`` call made inside the
+    block: the bins its plan occupies (iterative buckets a bin fits), the
+    ``solver.fused.dispatches`` it added, and every bucket_glasso call it
+    made (arguments, Theta, sweeps)."""
+    bcd = importlib.import_module("repro_torch.core.solvers.bcd")
+    cls = importlib.import_module("repro_torch.engine.executor").BucketExecutor
+    inner_solve, inner_kernel = cls.solve_plan, bcd.fused_bcd_stack
+    steps: list[dict] = []
+
+    def solving(self, plan, *args, **kwargs):
+        bins = {fused_bin(b.size) for b in plan.buckets
+                if route_for(b.structure) == "iterative" and b.size <= FUSED_BINS[-1]}
+        before = instrument.count("solver.fused.dispatches")
+        steps.append({"bins": bins, "calls": []})
+        out = inner_solve(self, plan, *args, **kwargs)
+        steps[-1]["dispatches"] = instrument.count("solver.fused.dispatches") - before
+        return out
+
+    def kernel(*args, **kwargs):
+        theta, sweeps = inner_kernel(*args, **kwargs)
+        steps[-1]["calls"].append((args, kwargs, theta, sweeps))
+        return theta, sweeps
+
+    cls.solve_plan, bcd.fused_bcd_stack = solving, kernel
+    try:
+        yield steps
+    finally:
+        cls.solve_plan, bcd.fused_bcd_stack = inner_solve, inner_kernel
+
+
+def lane_sweeps(steps: list[dict]) -> dict:
+    """(step, lane) -> sweeps over every bucket_glasso call of a run; a
+    lane is named by its lambda and its S, W0 and T0 cut to the block's
+    own size (1 + the last row with an off-diagonal entry), which the wave
+    packer's re-padding leaves as they were."""
+    out: dict = {}
+    for k, step in enumerate(steps):
+        for args, _, _, sweeps in step["calls"]:
+            S, lams, _, W0, T0 = (a.detach().cpu() for a in args[:5])
+            for i, sw in enumerate(sweeps.cpu().tolist()):
+                off = (S[i] - torch.diag(S[i].diagonal())).abs().sum(dim=1)
+                live = int(torch.nonzero(off).max()) + 1 if bool(off.any()) else 1
+                h = hashlib.sha256(lams[i].numpy().tobytes())
+                for x in (S[i], W0[i], T0[i]):
+                    h.update(x[:live, :live].contiguous().numpy().tobytes())
+                key = (k, h.hexdigest())
+                out.setdefault(key, []).append(sw)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def same_theta(a, b) -> bool:
+    """Bit-for-bit equal results (-0.0 == +0.0): dense arrays, or sparse
+    ones block by block with their isolated values."""
+    if isinstance(a.Theta, SparseTheta):
+        if not (np.array_equal(a.Theta.isolated, b.Theta.isolated)
+                and np.array_equal(a.Theta.isolated_values, b.Theta.isolated_values)):
+            return False
+        blocks = {np.asarray(c).tobytes(): blk for c, blk in a.Theta.blocks()}
+        got = list(b.Theta.blocks())
+        return len(got) == len(blocks) and all(
+            np.array_equal(blocks.get(np.asarray(c).tobytes()), blk) for c, blk in got)
+    return np.array_equal(a.Theta, b.Theta)
+
+
+def fused_case(case: str, run, *, drop: bool) -> dict:
+    """``run(fused)`` (a list of results) without and with the wave packer:
+    labels, Theta and each lane's sweeps equal bit for bit at every step,
+    ``solver.fused.dispatches`` equal to the occupied bins a step, and
+    fewer (``drop``) or at most as many bucket_glasso launches."""
+    arms = {}
+    for fused in (False, True):
+        torch.cuda.synchronize()
+        for prefix in ("kernels.", "solver.fused."):
+            instrument.reset(prefix)
+        with fused_steps() as steps:
+            t0 = time.perf_counter()
+            res = run(fused)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        arms[fused] = dict(res=res, steps=steps, wall=wall,
+                           launches=instrument.count("kernels.bucket_glasso.launches"),
+                           counts=instrument.tail_counts("solver.fused."),
+                           dispatch_s=sum(r.stages()["dispatch"] for r in res))
+    un, fu = arms[False], arms[True]
+    if len(un["res"]) != len(fu["res"]) or len(un["steps"]) != len(fu["steps"]):
+        raise AssertionError(f"[fused] {case}: the arms ran different steps")
+    for k, (a, b) in enumerate(zip(un["res"], fu["res"])):
+        if not np.array_equal(a.labels, b.labels) or a.route_mix != b.route_mix:
+            raise AssertionError(f"[fused] {case} step {k}: labels or route mix differ")
+        if not same_theta(a, b):
+            raise AssertionError(f"[fused] {case} step {k}: Theta differs from the unfused bits")
+    sw_un, sw_fu = lane_sweeps(un["steps"]), lane_sweeps(fu["steps"])
+    if sw_un != sw_fu:
+        raise AssertionError(f"[fused] {case}: lane sweeps differ ({len(sw_un)} vs "
+                             f"{len(sw_fu)} lanes)")
+    bins = [len(st["bins"]) for st in fu["steps"]]
+    dispatches = [st["dispatches"] for st in fu["steps"]]
+    if dispatches != bins or any(st["dispatches"] for st in un["steps"]):
+        raise AssertionError(f"[fused] {case}: dispatches {dispatches} != occupied bins {bins}")
+    if not (fu["launches"] < un["launches"] if drop else fu["launches"] <= un["launches"]):
+        raise AssertionError(f"[fused] {case}: bucket_glasso launches {un['launches']} -> "
+                             f"{fu['launches']}")
+    for arm in (un, fu):
+        # each arm's bucket_glasso launches replayed in order: CUDA-event ms
+        # and the profiler's device ms, beside the bytes bound
+        calls = [c for st in arm["steps"] for c in st["calls"]]
+
+        def replay(calls=calls):
+            for args, kw, _, _ in calls:
+                fused_bcd_stack(*args, **kw)
+
+        arm["ms"] = cuda_ms(replay, 1)
+        arm["device_ms"] = profile_calls(replay, 1, name="bucket_glasso")[1] * len(calls)
+        arm["bound_ms"] = sum(4 * c[0][0].numel() * c[0][0].element_size()
+                              for c in calls) / HBM_BYTES_PER_S * 1e3
+    log("fused", case=case, steps=len(fu["steps"]), lanes=sum(len(v) for v in sw_fu.values()),
+        labels_equal=True, theta_equal=True, sweeps_equal=True,
+        bucket_glasso_launches_unfused=un["launches"], bucket_glasso_launches_fused=fu["launches"],
+        dispatches_per_step=json.dumps(dispatches), occupied_bins_per_step=json.dumps(bins),
+        fused_counts=json.dumps(fu["counts"], sort_keys=True),
+        wall_unfused_s=f"{un['wall']:.4f}", wall_fused_s=f"{fu['wall']:.4f}",
+        dispatch_unfused_s=f"{un['dispatch_s']:.4f}", dispatch_fused_s=f"{fu['dispatch_s']:.4f}",
+        kernel_ms_unfused=f"{un['ms']:.4f}", kernel_ms_fused=f"{fu['ms']:.4f}",
+        device_ms_unfused=f"{un['device_ms']:.4f}", device_ms_fused=f"{fu['device_ms']:.4f}",
+        bytes_bound_ms_unfused=f"{un['bound_ms']:.6f}",
+        bytes_bound_ms_fused=f"{fu['bound_ms']:.6f}")
+    out = dict(case=case, steps=fu["steps"])
+    for key in ("launches", "wall", "dispatch_s", "ms", "device_ms", "bound_ms"):
+        out[f"{key}_unfused"], out[f"{key}_fused"] = un[key], fu[key]
+    return out
+
+
+def phase_fused(S_main: np.ndarray, lam_main: float, path: dict) -> dict:
+    """The wave packer (``EngineOptions(fused=True)``) against the unfused
+    dispatch on the planted case, [main]'s host-screen solve and [path]'s
+    grid (``fused_case``); every fused launch of the planted case replayed
+    through the plain version on CPU copies, sweeps equal lane by lane."""
+    t_phase = time.perf_counter()
+    P = planted_general_blocks(FUSED_SIZES, seed=1, cross=FUSED_LAM)
+    cases = [
+        fused_case(f"planted sizes={list(FUSED_SIZES)} lam={FUSED_LAM}",
+                   lambda f: [glasso(P, FUSED_LAM, options=EngineOptions(fused=f))], drop=True),
+        fused_case("main structured K={} p1={} lam={}".format(*MAIN_CASE, lam_main),
+                   lambda f: [glasso(S_main, lam_main, options=EngineOptions(fused=f))],
+                   drop=False),
+        fused_case(f"path p={path['S'].shape[0]} lams={len(path['lams'])}",
+                   lambda f: glasso_path(path["S"], path["lams"],
+                                         options=path["opts"].replace(fused=f)), drop=True),
+    ]
+    calls = [c for st in cases[0]["steps"] for c in st["calls"]]
+    t0 = time.perf_counter()
+    err = 0.0
+    for args, kw, theta, sweeps in calls:
+        want, want_sw = fused_bcd_ref_stack(*(a.cpu() for a in args), **kw)
+        if not torch.equal(sweeps.cpu(), want_sw):
+            raise AssertionError(f"[fused] planted b={args[0].shape[1]}: sweeps "
+                                 f"{sweeps.tolist()} != plain {want_sw.tolist()}")
+        e = float((theta.cpu() - want).abs().max())
+        if not e <= BUCKET_RTOL * float(want.abs().max()):
+            raise AssertionError(f"[fused] planted b={args[0].shape[1]}: max|diff|={e}")
+        err = max(err, e)
+    log("fused_plain", case="planted", launches=len(calls),
+        sizes=json.dumps([int(c[0][0].shape[1]) for c in calls]),
+        lanes=sum(int(c[0][0].shape[0]) for c in calls), sweeps_equal=True,
+        max_abs_err=err, plain_cpu_s=f"{time.perf_counter() - t0:.2f}",
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    for c in cases:
+        del c["steps"]
+    return {"cases": cases, "planted_max_abs_err": err}
+
+
 def phase_path_from_data(X: np.ndarray) -> dict:
     """``glasso_path(X=..., from_data=True)`` on [from_data]'s workload over
     PATH_FD_GRID: one streamed screen (one covgram_screen call) for the
@@ -3137,6 +3349,7 @@ def main() -> int:
     del X_st
     path = phase_path()
     path_kernels = phase_path_kernels(path)
+    fused = phase_fused(S, lam, path)
     fd_path = phase_path_from_data(X_fd)
     phase_select(path, X_fd, fd_path)
     del X_fd, path
@@ -3193,6 +3406,8 @@ def main() -> int:
             "redesigned": "g = W beta carried, moving coordinates found by ballot, "
                           "W in shared memory up to b = 168 (float64)",
             "path": path_kernels["bucket_glasso"],
+            # the wave packer: one launch a bin, bits equal to unfused dispatch
+            "fused": fused,
         },
         {
             "name": "threshold_cc", "route": "cuda",

@@ -195,6 +195,48 @@ def make_bucket(
     return Bucket(size=size, comps=members, blocks=blocks, structure=structure)
 
 
+def build_plan(
+    S: np.ndarray, lam: float, labels: np.ndarray, *, dtype=np.float64, classify=None
+) -> Plan:
+    """Group components into padded same-(size, structure) buckets.
+
+    ``classify`` tags each component with its routing-ladder structure class
+    (see ``group_components``); None keeps every bucket "general".  The
+    engine plans through ``engine.planner.build_plan_incremental``, which
+    gives the same buckets."""
+    from repro_torch.core.components import component_lists
+
+    comps = component_lists(labels)
+    isolated, by_key = group_components(comps, classify=classify)
+    buckets = [
+        make_bucket(S, size, members, dtype=dtype, structure=structure)
+        for (size, structure), members in by_key.items()
+    ]
+    return Plan(p=S.shape[0], lam=float(lam), labels=labels, isolated=isolated, buckets=buckets)
+
+
+def solve_bucket(blocks, lam: float, solver, *, W0=None, device=None, **solver_opts):
+    """Solve one bucket's stacked padded blocks at one lam: a single
+    batched call of ``solver``, a registered name or a batched fn
+    ``fn(blocks (N, b, b), lams (N,), *, W0=None, **opts) -> Theta`` (the
+    ``core.solvers.SOLVERS`` contract; the reference vmaps a per-block
+    solver instead).  ``blocks`` is a tensor (solved where it lies unless
+    ``device`` is given) or an array (solved on ``device``, ``"cuda"`` by
+    default); ``W0``, if given, is a per-block stack of warm-start
+    covariance iterates."""
+    import torch
+
+    from repro_torch.core.solvers import solver_spec
+    from repro_torch.core.solvers.protocol import as_operand
+
+    fn = solver_spec(solver).fn if isinstance(solver, str) else solver
+    blocks = as_operand(blocks, device)
+    lams = torch.full((blocks.shape[0],), float(lam), dtype=blocks.dtype, device=blocks.device)
+    if W0 is not None:
+        W0 = torch.as_tensor(W0, dtype=blocks.dtype, device=blocks.device)
+    return fn(blocks, lams, W0=W0, **solver_opts)
+
+
 def assemble_dense(
     plan: Plan, bucket_solutions: list[np.ndarray], S: np.ndarray, *,
     out: np.ndarray | None = None,

@@ -123,6 +123,18 @@ def partitions_equal(a: np.ndarray, b: np.ndarray) -> bool:
     return bool(np.array_equal(canonicalize_labels(a), canonicalize_labels(b)))
 
 
+def is_refinement(fine: np.ndarray, coarse: np.ndarray) -> bool:
+    """Theorem-2 nestedness: every class of ``fine`` lies inside one class
+    of ``coarse`` (fine = larger lambda, coarse = smaller lambda)."""
+    fine = canonicalize_labels(fine)
+    coarse = np.asarray(coarse)
+    for lab in np.unique(fine):
+        members = coarse[fine == lab]
+        if not np.all(members == members[0]):
+            return False
+    return True
+
+
 def component_lists(labels: np.ndarray) -> list[np.ndarray]:
     """Members per component, largest first (scheduling order)."""
     labels = canonicalize_labels(labels)

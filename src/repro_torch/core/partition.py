@@ -4,7 +4,8 @@ The components change *only* at the distinct values of |S_ij| (paper
 Section 4.2), so one pass of incremental union-find over edges sorted by
 decreasing |S_ij| yields the partition at every threshold.  ``merge_profile``
 calibrates the synthetic experiments' lambda interval;
-``labels_at_thresholds`` is the path planner's single partition pass.
+``labels_at_thresholds`` is the path planner's single partition pass;
+``component_size_distribution`` the paper's Figure-1 histograms from it.
 """
 
 from __future__ import annotations
@@ -160,3 +161,23 @@ def labels_at_thresholds_from_edges(
         roots = np.fromiter((_find(parent, i) for i in range(p)), np.int64, p)
         out[pos] = canonicalize_labels(roots)
     return out  # type: ignore[return-value]
+
+
+def component_size_distribution(S: np.ndarray, lambdas) -> list[dict]:
+    """Figure-1 data: for each lambda, the histogram of component sizes
+    ({lambda, sizes, counts, n_components, max_comp}), from ONE union-find
+    pass over the sorted edges (``labels_at_thresholds``)."""
+    out = []
+    for lam, labels in zip(np.asarray(lambdas), labels_at_thresholds(S, lambdas)):
+        _, counts = np.unique(labels, return_counts=True)
+        sizes, freq = np.unique(counts, return_counts=True)
+        out.append(
+            {
+                "lambda": float(lam),
+                "sizes": sizes,
+                "counts": freq,
+                "n_components": int(counts.size),
+                "max_comp": int(counts.max()),
+            }
+        )
+    return out

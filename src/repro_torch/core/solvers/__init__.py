@@ -10,6 +10,9 @@ hard-coded name sets.  The batched contract is
              paper-faithful baseline; a bucket solves in one
              ``bucket_glasso`` launch.  Consumes W0 plus a Theta0 seed for
              the inner-lasso coefficients.
+``fused_bcd`` ``bcd`` with the wave packer forced on (``engine.waves``):
+             a plan step's small iterative buckets pack into one
+             ``bucket_glasso`` launch a size bin; the same bits as ``bcd``.
 ``pg``       G-ISTA-style proximal gradient — the first-order stand-in for
              SMACS [Lu 2010]; its step is the ``prox_l1`` kernel.
              Warm-starts from Theta0, not W0.
@@ -26,22 +29,24 @@ hard-coded name sets.  The batched contract is
 
 from collections.abc import Mapping as _Mapping, Set as _Set
 
-from repro_torch.core.solvers.admm import glasso_admm_info, glasso_admm_stack
-from repro_torch.core.solvers.bcd import glasso_bcd_stack
+from repro_torch.core.solvers.admm import glasso_admm, glasso_admm_info, glasso_admm_stack
+from repro_torch.core.solvers.bcd import glasso_bcd, glasso_bcd_stack
 from repro_torch.core.solvers.closed_form import (
     glasso_chordal_host,
+    glasso_forest,
     glasso_forest_stack,
     kkt_ok_stack,
     kkt_residual_host,
 )
 from repro_torch.core.solvers.kkt import kkt_residual
-from repro_torch.core.solvers.pg import glasso_pg_stack
+from repro_torch.core.solvers.pg import glasso_pg, glasso_pg_stack
 from repro_torch.core.solvers.protocol import (
     SolverSpec,
     available_solvers,
     block_solvers,
     register_solver,
     solver_spec,
+    warm_start_solvers,
 )
 from repro_torch.core.solvers.sharded import ShardedSolve, glasso_sharded
 
@@ -53,8 +58,30 @@ register_solver(
         warm_startable=True,
         description="GLASSO block coordinate descent (paper baseline)",
         # consumes the Theta-side seed alongside W0 (repairs pass the
-        # rejected candidate as Theta0 and its inverse as W0)
-        meta={"theta_warm": True},
+        # rejected candidate as Theta0 and its inverse as W0); fused_stack:
+        # the bucket_glasso kernel solves a packed megabatch with this
+        # solver's exact arithmetic, so the wave packer may fuse its buckets
+        meta={"theta_warm": True, "fused_stack": True},
+    )
+)
+register_solver(
+    SolverSpec(
+        name="fused_bcd",
+        fn=glasso_bcd_stack,
+        batched=True,
+        warm_startable=True,
+        description="bcd with the wave packer forced on: small iterative "
+                    "buckets fuse into one bucket_glasso launch per bin; "
+                    "blocks above the last bin dispatch as plain bcd",
+        # force_fused: picking this solver turns the packer on under
+        # EngineOptions(fused="auto"); the same bits as "bcd".
+        # max_fused_size is the largest bin the packer may pad into
+        meta={
+            "theta_warm": True,
+            "fused_stack": True,
+            "force_fused": True,
+            "max_fused_size": 64,
+        },
     )
 )
 register_solver(
@@ -126,16 +153,29 @@ class _WarmStartView(_Set):
 #: user-pickable single-device block solvers (live registry view)
 SOLVERS = _BlockSolversView()
 
+# Closed-form direct solvers are NOT in SOLVERS: they are exact only on the
+# structure classes the planner certifies, so they are reached through the
+# routing ladder (engine.registry.route_for), never picked for arbitrary
+# blocks.
+CLOSED_FORM_SOLVERS = {
+    "forest": glasso_forest,
+    "chordal": glasso_chordal_host,
+}
+
 #: batched solvers whose W0 covariance warm start is genuinely consumed
 WARM_START_SOLVERS = _WarmStartView()
 
 __all__ = [
+    "glasso_bcd",
+    "glasso_pg",
+    "glasso_admm",
     "glasso_bcd_stack",
     "glasso_pg_stack",
     "glasso_admm_stack",
     "glasso_admm_info",
     "glasso_sharded",
     "ShardedSolve",
+    "glasso_forest",
     "glasso_forest_stack",
     "glasso_chordal_host",
     "kkt_ok_stack",
@@ -146,6 +186,8 @@ __all__ = [
     "solver_spec",
     "available_solvers",
     "block_solvers",
+    "warm_start_solvers",
     "SOLVERS",
+    "CLOSED_FORM_SOLVERS",
     "WARM_START_SOLVERS",
 ]

@@ -37,6 +37,7 @@ import math
 
 import torch
 
+from repro_torch.core.solvers.protocol import one_block
 from repro_torch.kernels.shard_prox.ops import fused_prox_residual
 
 #: iterations between the host's reads of "is any lane still active"
@@ -181,3 +182,22 @@ def glasso_admm_stack(
         blocks, lams, rho=rho, max_iter=max_iter, tol=tol, W0=W0, Theta0=Theta0
     )
     return Theta
+
+
+def glasso_admm(
+    S,
+    lam,
+    *,
+    rho: float = 1.0,
+    max_iter: int = 2000,
+    tol: float = 1e-7,
+    W0=None,
+    Theta0=None,
+    device=None,
+) -> torch.Tensor:
+    """Single-block contract ``solve(S, lam, **opts) -> Theta``: one lane
+    of ``glasso_admm_stack``; ``device`` as in ``protocol.one_block``."""
+    S1, lams, W1, T1 = one_block(S, lam, W0, Theta0, device)
+    return glasso_admm_stack(
+        S1, lams, rho=rho, max_iter=max_iter, tol=tol, W0=W1, Theta0=T1
+    )[0]

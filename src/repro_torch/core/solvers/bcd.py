@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.solvers.protocol import one_block
 from repro_torch.kernels.bucket_glasso.ops import fused_bcd_stack
 
 
@@ -56,3 +57,26 @@ def glasso_bcd_stack(
         max_sweeps=max_sweeps, n_cd=n_cd, tol=tol, node_screen=node_screen,
     )
     return theta
+
+
+def glasso_bcd(
+    S,
+    lam,
+    *,
+    max_sweeps: int = 100,
+    n_cd: int = 100,
+    tol: float = 1e-6,
+    node_screen: bool = True,
+    W0=None,
+    Theta0=None,
+    device=None,
+) -> torch.Tensor:
+    """Solve the graphical lasso on one (b, b) block; returns Theta: one
+    lane of ``glasso_bcd_stack`` (one ``bucket_glasso`` launch on the
+    card).  ``device``: see ``protocol.one_block`` (an array S runs on the
+    card unless ``device="cpu"``)."""
+    S1, lams, W1, T1 = one_block(S, lam, W0, Theta0, device)
+    return glasso_bcd_stack(
+        S1, lams, max_sweeps=max_sweeps, n_cd=n_cd, tol=tol,
+        node_screen=node_screen, W0=W1, Theta0=T1,
+    )[0]

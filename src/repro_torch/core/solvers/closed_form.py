@@ -25,15 +25,27 @@ import numpy as np
 import torch
 
 from repro_torch.core.solvers.kkt import kkt_residual
+from repro_torch.core.solvers.protocol import one_block
 from repro_torch.kernels.tree_glasso.ops import glasso_forest_stack
 
 __all__ = [
+    "glasso_forest",
     "glasso_forest_stack",
     "glasso_chordal_host",
     "soft_threshold_host",
     "kkt_ok_stack",
     "kkt_residual_host",
 ]
+
+
+def glasso_forest(S, lam, *, W0=None, tol=None, device=None) -> torch.Tensor:
+    """Single-block contract ``solve(S, lam) -> Theta`` of the forest
+    closed form: one lane of ``glasso_forest_stack`` (W0 and tol accepted
+    for parity and ignored: the solve is direct); ``device`` as in
+    ``protocol.one_block``."""
+    del W0, tol
+    S1, lams, _, _ = one_block(S, lam, device=device)
+    return glasso_forest_stack(S1, lams)[0]
 
 
 def soft_threshold_host(S: np.ndarray, lam: float) -> np.ndarray:

@@ -12,6 +12,7 @@ inverse is its counterpart here.
 
 ``kkt_residual_sparse`` is the block-sparse twin: per-component residuals
 against gathered S blocks, never a global (p, p) product.
+``glasso_objective`` is the penalized negative log-likelihood itself.
 """
 
 from __future__ import annotations
@@ -74,3 +75,13 @@ def kkt_residual_sparse(S, Theta, lam: float) -> float:
         vals = np.asarray(Theta.isolated_values, dtype=np.float64)
         worst = max(worst, float(np.abs(1.0 / vals - d - float(lam)).max()))
     return float(worst)
+
+
+def glasso_objective(S: torch.Tensor, Theta: torch.Tensor, lam) -> torch.Tensor:
+    """-logdet(Theta) + tr(S Theta) + lam * ||Theta||_1 (diagonal
+    included), for (..., b, b) inputs; inf where Theta is not positive
+    definite."""
+    sign, logdet = torch.linalg.slogdet(Theta)
+    lam = torch.as_tensor(lam, dtype=S.dtype, device=S.device)
+    obj = -logdet + (S * Theta).sum(dim=(-2, -1)) + lam * Theta.abs().sum(dim=(-2, -1))
+    return torch.where(sign > 0, obj, torch.full_like(obj, float("inf")))

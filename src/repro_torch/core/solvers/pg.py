@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.solvers.protocol import one_block
 from repro_torch.kernels.prox_l1.ops import prox_step
 
 
@@ -118,3 +119,22 @@ def glasso_pg_stack(
         it = it + active.to(it.dtype)
         active = active & (delta > tol) & (it < max_iter)
     return 0.5 * (Theta + Theta.mT)
+
+
+def glasso_pg(
+    S,
+    lam,
+    *,
+    max_iter: int = 1000,
+    ls_iter: int = 30,
+    tol: float = 1e-7,
+    W0=None,  # API parity; pg warm-starts from Theta0
+    Theta0=None,
+    device=None,
+) -> torch.Tensor:
+    """Single-block contract ``solve(S, lam, **opts) -> Theta``: one lane
+    of ``glasso_pg_stack``; ``device`` as in ``protocol.one_block``."""
+    S1, lams, _, T1 = one_block(S, lam, None, Theta0, device)
+    return glasso_pg_stack(
+        S1, lams, max_iter=max_iter, ls_iter=ls_iter, tol=tol, Theta0=T1
+    )[0]

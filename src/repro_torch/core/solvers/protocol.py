@@ -14,12 +14,20 @@ the spec instead of hard-coded name sets:
                     result); dispatched per block down the executor's
                     "sharded" route, never batched
     iterative       eligible as the routing ladder's tail
+
+``meta`` carries the rest: ``theta_warm`` (consumes a Theta0 seed beside
+W0), ``fused_stack`` (the executor's wave packer may pack its small
+buckets into one ``bucket_glasso`` launch a bin), ``force_fused`` (picking
+the solver turns the packer on under ``EngineOptions(fused="auto")``) and
+``max_fused_size`` (the largest bin it may pad into).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable
+
+import torch
 
 _SPECS: dict[str, "SolverSpec"] = {}
 
@@ -75,3 +83,35 @@ def block_solvers() -> dict[str, Callable]:
         for name, spec in sorted(_SPECS.items())
         if spec.batched and spec.iterative and not spec.sharded
     }
+
+
+def warm_start_solvers() -> frozenset[str]:
+    """Names of the solvers that consume a W0 warm start (the
+    ``WARM_START_SOLVERS`` view)."""
+    return frozenset(n for n, s in _SPECS.items() if s.warm_startable)
+
+
+def one_block(S, lam, W0=None, Theta0=None, device=None):
+    """The single-block contract ``solve(S, lam, **opts)`` as a stack of
+    one lane: (S[None], lams (1,), W0[None] or None, Theta0[None] or None),
+    every operand a tensor on one device in S's dtype.  The device is
+    ``device`` when given, else a tensor S's own, else ``"cuda"`` (an
+    array S goes to the card unless the caller asks for the CPU)."""
+    S = as_operand(S, device)
+    lams = torch.as_tensor(lam, dtype=S.dtype, device=S.device).reshape(1)
+
+    def lane(x):
+        return None if x is None else torch.as_tensor(x, dtype=S.dtype, device=S.device)[None]
+
+    return S[None], lams, lane(W0), lane(Theta0)
+
+
+def as_operand(x, device=None) -> torch.Tensor:
+    """``x`` as a tensor on ``device``; with ``device=None`` a tensor stays
+    where it is and anything else goes to ``"cuda"``, the port's default
+    (``engine.options.resolve_device``: raises without CUDA)."""
+    from repro_torch.engine.options import resolve_device
+
+    if device is None and isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, device=resolve_device("cuda" if device is None else device))

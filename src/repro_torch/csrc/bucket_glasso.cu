@@ -51,6 +51,12 @@
 // Scalar formulas round each product explicitly (mul_rn), as the plain
 // PyTorch version does; g's updates and sums take another order than the
 // plain version's dot products, so results agree to rounding, not bitwise.
+//
+// No sum's order depends on b beyond the terms it adds: a lane solved at
+// its own size and the same lane re-padded with an identity diagonal to a
+// larger b (the wave packer's bins) give the same bits and sweep counts.
+// The padded terms are exact zeros, the maxima ignore them, and `refresh`
+// keeps term l in partial sum l % kParts for every b.
 
 #include <cuda_runtime.h>
 
@@ -181,14 +187,32 @@ __device__ void refresh(const Lane<T>& L, Owned<T, NC>& o) {
         }
       }
     }
-    for (; l < b; ++l) {
-      const T bl = L.beta[l];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int m = c * kWarp + lane;
-        if (m < b) acc[0][c] = fma_rn(L.W[(size_t)m * L.ldw + l], bl, acc[0][c]);
+    // the b % kParts left-over terms join the chains of their own index
+    // (term l in chain l % kParts), so each chain adds the same terms in
+    // the same order whatever b is: a block padded with zero rows and
+    // columns gets the same bits.  TAIL is a macro: a helper function that
+    // took a row of acc by reference, here and in the loop above, ran
+    // [main]'s launches 18 % slower
+#define TAIL(q)                                                        \
+  do {                                                                 \
+    const T bl = L.beta[l + (q)];                                      \
+    _Pragma("unroll") for (int c = 0; c < NC; ++c) {                   \
+      const int m = c * kWarp + lane;                                  \
+      if (m < b)                                                       \
+        acc[q][c] = fma_rn(L.W[(size_t)m * L.ldw + l + (q)], bl, acc[q][c]); \
+    }                                                                  \
+  } while (0)
+    if constexpr (kParts == 4) {
+      switch (b - l) {
+        case 3: TAIL(2); [[fallthrough]];
+        case 2: TAIL(1); [[fallthrough]];
+        case 1: TAIL(0); break;
+        default: break;
       }
+    } else if constexpr (kParts == 2) {
+      if (b - l == 1) TAIL(0);
     }
+#undef TAIL
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       T sum = acc[0][c];

@@ -172,7 +172,8 @@ class GlassoResult:
         if not total:
             return 1.0
         iterative = sum(
-            n for cls, n in self.route_mix.items() if route_for(cls) == "iterative"
+            n for cls, n in self.route_mix.items()
+            if route_for(cls) in ("iterative", "fused")
         )
         return 1.0 - iterative / total
 
@@ -297,11 +298,9 @@ class Engine:
     options)."""
 
     def __init__(self, *, options: EngineOptions | None = None, **legacy_engine_kwargs):
-        from repro_torch.core.solvers import WARM_START_SOLVERS
+        from repro_torch.core.solvers import WARM_START_SOLVERS, solver_spec
 
         opts = normalize_options(options, legacy_engine_kwargs, context="Engine")
-        if opts.fused is True:
-            raise NotImplementedError("the fused wave packer is not ported yet (slice 4)")
         if opts.trace == "jax":
             raise NotImplementedError("trace='jax' annotates JAX profiles; use trace=True")
         self.options = opts
@@ -317,6 +316,19 @@ class Engine:
         self.cc_backend = opts.cc_backend
         self.stream = opts.stream   # default StreamConfig for from-data runs
         self.warm_capable = self.solver in WARM_START_SOLVERS
+        # the wave packer (EngineOptions.fused): True demands the capability,
+        # "auto" turns it on only for solvers that force it ("fused_bcd");
+        # buckets ROUTED "fused" (registry.set_route) fuse regardless
+        meta = solver_spec(self.solver).meta
+        if opts.fused is True and not meta.get("fused_stack"):
+            raise ValueError(
+                f"fused=True requires a solver with the 'fused_stack' "
+                f"capability; {self.solver!r} lacks it"
+            )
+        fused = (
+            bool(meta.get("force_fused")) if opts.fused == "auto"
+            else bool(opts.fused)
+        )
         self.executor = BucketExecutor(
             solver=self.solver,
             dtype=self.dtype,
@@ -324,6 +336,7 @@ class Engine:
             solver_opts=dict(opts.solver_opts),
             route=opts.route,
             route_check_tol=opts.route_check_tol,
+            fused=fused,
         )
 
     def _trace_ctx(self, name: str, **attrs):
@@ -466,7 +479,7 @@ class Engine:
                 for b in step.plan.buckets
             ]
             if warmable and any(
-                r == "iterative" and not step.is_reused(b)
+                r in ("iterative", "fused") and not step.is_reused(b)
                 for b, r in zip(step.plan.buckets, routes)
             ):
                 # merged buckets gather their block-diagonal restriction of
@@ -475,11 +488,11 @@ class Engine:
                 # no dense (p, p) W is built on the host
                 warm_Theta = prev.Theta
             for b, route in zip(step.plan.buckets, routes):
-                if route not in ("iterative", "sharded"):
+                if route not in ("iterative", "fused", "sharded"):
                     continue
                 if warmable and step.is_reused(b):
                     bump("select.warm.reused")
-                elif warmable and route == "iterative":
+                elif warmable and route in ("iterative", "fused"):
                     bump("select.warm.merged")
                 else:
                     bump("select.warm.cold")

@@ -26,6 +26,12 @@ assemble.
   route: one blocking ``glasso_sharded`` solve per block, issued after the
   asynchronous small buckets are in flight, with its own in-place KKT
   verdict and the same fallback (``solve_sharded_bucket``).
+* **Wave packer.**  With ``fused`` on (``EngineOptions(fused=True)``, the
+  ``fused_bcd`` solver) or for buckets routed "fused", every iterative
+  bucket small enough for a bin (``engine.waves``) is deferred; after the
+  bucket loop each occupied bin is solved by ONE ``bucket_glasso`` launch
+  over the re-padded lanes of every bucket in it, and each bucket gets its
+  slice back.  Packing changes the launches, never a lane's bits.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch
 
 from repro_torch.core import blocks as blocks_mod
 from repro_torch.core.instrument import bump, timed_dispatch
-from repro_torch.core.solvers import solver_spec
+from repro_torch.core.solvers import bcd, solver_spec
 from repro_torch.core.solvers.closed_form import (
     glasso_chordal_host,
     glasso_forest_stack,
@@ -49,6 +55,7 @@ from repro_torch.core.solvers.closed_form import (
 )
 from repro_torch.engine.options import resolve_device
 from repro_torch.engine.registry import route_for
+from repro_torch.engine.waves import fused_bin, repad_stack
 from repro_torch.obs.trace import span
 
 
@@ -227,6 +234,20 @@ class _Pending:
 
 
 @dataclass
+class _FusedLane:
+    """One fused-eligible bucket deferred into a bin's megabatch; its
+    ``pending.out`` receives the bucket's (n, size, size) slice of the
+    packed result."""
+
+    pending: _Pending
+    size: int                      # source bucket size (bin >= size)
+    n: int                         # blocks in the bucket
+    lams: torch.Tensor             # (n,) lambda vector on the device
+    W0: torch.Tensor | None = None  # warm covariance stack, None when cold
+    T0: torch.Tensor | None = None  # warm Theta stack, None when cold
+
+
+@dataclass
 class BucketExecutor:
     """Solves plans on one device."""
 
@@ -236,6 +257,10 @@ class BucketExecutor:
     solver_opts: dict = field(default_factory=dict)
     route: bool = True             # structure-routed ladder; False = all iterative
     route_check_tol: float = 1e-6  # KKT acceptance for closed-form candidates
+    # wave packer: fuse every small iterative bucket of a plan into one
+    # bucket_glasso launch per size bin (resolved by the Engine from
+    # EngineOptions.fused; buckets routed "fused" fuse regardless)
+    fused: bool = False
     # assembly-stage seconds of the MOST RECENT solve_plan call
     last_assemble_seconds: float = 0.0
     # host seconds spent issuing launches in the MOST RECENT solve_plan call
@@ -254,6 +279,12 @@ class BucketExecutor:
         self._spec = solver_spec(self.solver)  # unknown names raise ValueError
         _validate_solver_opts(self.solver, self.solver_opts)
         self._np_dtype = np.dtype(str(self.dtype).removeprefix("torch."))
+        # fused eligibility: the solver declares the fused_stack capability
+        # AND every solver opt is one the kernel replays (anything else would
+        # silently change the packed solve)
+        self._fused_capable = bool(self._spec.meta.get("fused_stack")) and set(
+            self.solver_opts
+        ) <= {"max_sweeps", "n_cd", "tol", "node_screen"}
 
     def _gather_stack(self, src, bucket: blocks_mod.Bucket) -> torch.Tensor:
         """The padded restrictions of ``src`` (a dense (p, p) array or a
@@ -344,6 +375,7 @@ class BucketExecutor:
         opts = dict(self.solver_opts)
         pending: list[_Pending] = []
         sharded_pending: list[_Pending] = []
+        fused_groups: dict[int, list[_FusedLane]] = {}
         for bucket in plan.buckets:
             key = bucket_key(bucket)
             n = len(bucket.comps)
@@ -391,12 +423,28 @@ class BucketExecutor:
                 )
             if not self._spec.meta.get("theta_warm"):
                 T0 = None
+            fuse = (
+                route == "fused" or (route == "iterative" and self.fused)
+            ) and self._fused_capable
+            bin_ = fused_bin(bucket.size) if fuse else None  # None: too big
+            if bin_ is not None:
+                # wave packer: defer into the bin's megabatch, launched once
+                # a bin after this loop
+                p = _Pending(bucket=bucket, out=None, stacked=stacked, key=key,
+                             warm=W0 is not None)
+                pending.append(p)
+                fused_groups.setdefault(bin_, []).append(
+                    _FusedLane(pending=p, size=bucket.size, n=n, lams=lams, W0=W0, T0=T0)
+                )
+                continue
             out, dt = timed_dispatch(self._spec.fn, stacked, lams, W0=W0, Theta0=T0, **opts)
             self.last_dispatch_seconds += dt
             bump("executor.dispatches")
             pending.append(
                 _Pending(bucket=bucket, out=out, stacked=stacked, key=key, warm=W0 is not None)
             )
+
+        fused_sweeps = self._dispatch_fused(fused_groups, lam)
 
         # oversize buckets: one blocking sharded solve per block, while the
         # small launches above are in flight.  A bucket reused from the
@@ -423,6 +471,15 @@ class BucketExecutor:
         with span("engine.barrier"):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        for sw in fused_sweeps:
+            # what the megabatch's slowest lane would have cost every other
+            # lane had they iterated in lockstep without per-lane exit
+            sw = sw.cpu()
+            if sw.numel():
+                bump(
+                    "solver.fused.lockstep_sweeps_saved",
+                    int(sw.max()) * int(sw.numel()) - int(sw.sum()),
+                )
         for p in pending:
             if p.repair is not None:
                 idx, fixed = p.repair
@@ -456,6 +513,49 @@ class BucketExecutor:
         self.last_assemble_seconds = time.perf_counter() - t0
         bump("engine.assemble_us", int(self.last_assemble_seconds * 1e6))
         return Theta
+
+    def _dispatch_fused(self, groups: dict[int, list[_FusedLane]], lam: float) -> list:
+        """Launch every bin's megabatch: ONE ``bucket_glasso`` launch a bin,
+        its result sliced back into each lane's ``pending.out``.
+
+        Packing is bitwise-transparent (``engine.waves``): blocks re-pad
+        with an identity diagonal, W stacks with 1 + lam, cold lanes carry
+        the pair the unfused solve builds (W0 = S + lam*I at the source
+        size, Theta0 = I), and each lane's convergence scale is computed on
+        its own bucket's stack, as the unfused solve computes it.  Returns
+        the launches' sweep counts, read after the barrier for
+        ``solver.fused.lockstep_sweeps_saved``.  A launch that fails
+        raises: nothing falls back to unfused dispatch."""
+        sweeps_out = []
+        for bin_, lanes in sorted(groups.items()):
+            blk_p, lam_p, sc_p, w_p, t_p = [], [], [], [], []
+            for ln in lanes:
+                stacked = ln.pending.stacked
+                eye = torch.eye(ln.size, dtype=self.dtype, device=self.device)
+                blk_p.append(repad_stack(stacked, bin_, 1.0))
+                lam_p.append(ln.lams)
+                sc_p.append(bcd.convergence_scale(stacked))
+                # a cold lane: the unfused solve's own W0 at the source size
+                w = stacked + ln.lams[:, None, None] * eye if ln.W0 is None else ln.W0
+                w_p.append(repad_stack(w, bin_, 1.0 + lam))
+                t = eye.expand(ln.n, ln.size, ln.size) if ln.T0 is None else ln.T0
+                t_p.append(repad_stack(t, bin_, 1.0))
+            # bcd.fused_bcd_stack looked up at call time: the launch
+            # counters' wrappers patch it
+            (theta, sweeps), dt = timed_dispatch(
+                bcd.fused_bcd_stack, *(torch.cat(xs) for xs in (blk_p, lam_p, sc_p, w_p, t_p)),
+                **self.solver_opts,
+            )
+            self.last_dispatch_seconds += dt
+            bump("executor.dispatches")
+            bump("solver.fused.dispatches")
+            bump("solver.fused.blocks_packed", sum(ln.n for ln in lanes))
+            off = 0
+            for ln in lanes:
+                ln.pending.out = theta[off:off + ln.n, :ln.size, :ln.size]
+                off += ln.n
+            sweeps_out.append(sweeps)
+        return sweeps_out
 
     def _dispatch_repair(
         self, bucket: blocks_mod.Bucket, idx: np.ndarray, candidates, lam: float

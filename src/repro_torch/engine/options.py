@@ -44,7 +44,9 @@ class EngineOptions:
     ``"float32"``).  ``solver_opts`` holds the free-form per-solver knobs
     (``tol``, ``max_sweeps``, ...).  ``device`` is where the solve runs:
     ``"cuda"`` by default, ``"cpu"`` on request (the plain-PyTorch
-    versions of the kernels).
+    versions of the kernels).  ``fused`` turns the wave packer on (True:
+    the solver must have the ``fused_stack`` capability), off (False), or
+    leaves it to the solver ("auto": on for ``fused_bcd``).
     """
 
     solver: str | None = None

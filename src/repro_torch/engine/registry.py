@@ -36,6 +36,10 @@ bucket by the planner via ``engine.structure``) -> executor route:
                                   single-device cap (``oversize_threshold``),
                                   KKT-verified in place
 
+"fused" is the iterative route's wave-packed variant (``set_route(
+"general", "fused")``; ``EngineOptions(fused=True)`` packs every
+iterative bucket the same way).
+
 and the joint (K-class) union-graph classes of ``repro_torch.joint``:
 "joint_forest" -> "closed_form", "joint_chordal" -> "chordal",
 "joint_shared" -> "iterative" (one single-class bcd solve) and
@@ -119,8 +123,13 @@ def label_components(S, lam: float, *, backend: str = "host", **opts) -> np.ndar
 
 
 #: executor routes, cheapest first; "iterative" is the ladder's tail and the
-#: fallback target of every verified fast path
-ROUTES = ("assemble", "closed_form", "chordal", "iterative", "sharded")
+#: fallback target of every verified fast path.  "fused" is the iterative
+#: tail's megabatched variant: small buckets are re-packed across bucket
+#: boundaries into size-binned stacks and solved with one
+#: ``bucket_glasso`` launch a bin (``engine.waves``); buckets too large for
+#: a bin, or a solver without the ``fused_stack`` capability, take plain
+#: "iterative" — re-routing changes cost, never the answer
+ROUTES = ("assemble", "closed_form", "chordal", "iterative", "fused", "sharded")
 
 _ROUTE_OF: dict[str, str] = {
     "singleton": "assemble",

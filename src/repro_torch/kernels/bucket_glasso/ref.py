@@ -22,11 +22,31 @@ semantics (``repro.kernels.bucket_glasso.ref.fused_bcd_single``):
 
 Lanes run batched: every loop carries only the lanes still iterating, so
 each lane's result and sweep count are those of its own solve.
+
+Every dot product over a lane's row or column runs over at least
+``SUM_WIDTH`` terms, the real ones first and exact zeros after them
+(``_pad``), so a lane's bits do not depend on the stack's size: torch
+orders a reduction by its length, and a block of b <= ``SUM_WIDTH``
+re-padded with an identity diagonal (as the wave packer does,
+``engine.waves.repad_stack``) reduces the same vectors of the same length
+and keeps every value and sweep count.  The sums stay in the stack's dtype.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+#: the least length of every dot product: the largest wave-packer bin
+#: (``engine.waves.FUSED_BINS``)
+SUM_WIDTH = 64
+
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with its last dim zero-padded to ``width``, contiguous: the
+    order of a sum over the last dim depends on its layout too."""
+    n = x.shape[-1]
+    return x.contiguous() if n >= width else torch.nn.functional.pad(x, (0, width - n))
 
 
 def _lasso_cd(
@@ -42,7 +62,10 @@ def _lasso_cd(
     r - clamp(r, -t, t) (the same value).  Each coordinate changes once per
     sweep, so the sweep's largest update is max_k |beta_end - beta_start|."""
     b = beta.shape[1]
-    beta = beta.clone()
+    # the rows of W and beta padded to SUM_WIDTH once, so each update's
+    # dot product has the same length at every b up to it
+    width = max(b, SUM_WIDTH)
+    W, beta = _pad(W, width), _pad(beta, width).clone()
     runs = torch.zeros(beta.shape[0], dtype=torch.int64, device=beta.device)
     live = torch.arange(beta.shape[0], device=beta.device)
     it = 0
@@ -62,7 +85,7 @@ def _lasso_cd(
         it += 1
         keep = (bl - start).abs().amax(dim=1) > thr[live]
         if it >= n_cd or not bool(keep.any()):
-            return beta, runs
+            return beta[:, :b], runs
         live = live[keep]
 
 
@@ -73,6 +96,7 @@ def _sweep(
     """One outer sweep of every lane; returns (W, B, max|W - W_old|, inner
     sweeps run per lane)."""
     b = S.shape[1]
+    width = max(b, SUM_WIDTH)
     W_old = W
     runs = torch.zeros(S.shape[0], dtype=torch.int64, device=S.device)
     W, B = W.clone(), B.clone()
@@ -92,7 +116,7 @@ def _sweep(
                 W[solve], s12[solve], lam[solve], beta[solve], j, thr[solve], n_cd
             )
             runs[solve] += r
-        w12 = (W * beta[:, None, :]).sum(dim=2)
+        w12 = torch.linalg.vecdot(_pad(W, width), _pad(beta, width)[:, None, :])
         w12[:, j] = W[:, j, j]
         W[:, :, j] = w12
         W[:, j, :] = w12
@@ -148,7 +172,8 @@ def fused_bcd_ref_stack(
     wd = W.diagonal(dim1=1, dim2=2)
     w12 = W.clone()
     w12.diagonal(dim1=1, dim2=2).zero_()
-    t22 = 1.0 / (wd - (w12 * B).sum(dim=1))
+    width = max(b, SUM_WIDTH)
+    t22 = 1.0 / (wd - torch.linalg.vecdot(_pad(w12.mT, width), _pad(B.mT, width)))
     Theta = -B * t22[:, None, :]
     Theta.diagonal(dim1=1, dim2=2).copy_(t22)
     if cd_sweeps is not None:

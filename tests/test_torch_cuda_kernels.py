@@ -188,6 +188,70 @@ def test_bucket_glasso_matches_plain(cuda_device, b, N, dtype, data):
         assert int(cd[-1]) == 0 and (got[-1] == torch.diag_embed(got[-1].diagonal())).all()
 
 
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_bucket_glasso_lane_is_padding_invariant(cuda_device, dtype):
+    """Every s in 2-64: the kernel's lanes at their own size s and the same
+    lanes re-padded to the wave packer's bin (identity S and T0, 1 + lam on
+    W0, the scale at s) give the same bits, sweeps and inner sweeps, cold
+    and warm, and one launch of every size's lanes packed together equals
+    them too."""
+    from repro_torch.engine.waves import fused_bin, repad_stack
+
+    rng = np.random.default_rng(64)
+    for s in range(2, 65):
+        bin_ = fused_bin(s)
+        covs = [np.atleast_2d(_covariance(rng, s)) for _ in range(3)]
+        lams = np.array([_lam(c, 0.6) if s > 2 else 0.5 * abs(c[0, 1]) for c in covs])
+        S = torch.as_tensor(np.stack(covs), device=cuda_device).to(dtype)
+        lm = torch.as_tensor(lams, device=cuda_device).to(dtype)
+        scales = convergence_scale(S)
+        eye = torch.eye(s, dtype=dtype, device=cuda_device)
+        W_cold, T_cold = S + lm[:, None, None] * eye, eye.expand(3, s, s).contiguous()
+        T_warm, _ = fused_bcd_stack(S, 1.2 * lm, scales, W_cold, T_cold)
+        for W0, T0 in ((W_cold, T_cold), (torch.linalg.inv(T_warm), T_warm)):
+            cd = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+            got, sw = fused_bcd_stack(S, lm, scales, W0, T0, cd_sweeps=cd)
+            cd_bin = torch.zeros(3, dtype=torch.int64, device=cuda_device)
+            args = (repad_stack(S, bin_, 1.0), lm, scales,
+                    repad_stack(W0, bin_, 1.0 + float(lams[0])), repad_stack(T0, bin_, 1.0))
+            padded, sw_bin = fused_bcd_stack(*args, cd_sweeps=cd_bin)
+            assert torch.equal(sw, sw_bin) and torch.equal(cd, cd_bin), s
+            assert torch.equal(got, padded[:, :s, :s]), s
+            assert (padded[:, s:, :s] == 0).all() and (padded[:, :s, s:] == 0).all()
+            # the lanes packed with a lane of another size into one launch
+            other = fused_bcd_stack(*(a[:1] for a in args))[0]
+            both, sw_both = fused_bcd_stack(*(torch.cat([a, a[:1]]) for a in args))
+            assert torch.equal(both[:3], padded) and torch.equal(sw_both[:3], sw_bin)
+            assert torch.equal(both[3:], other)
+
+
+def test_fused_bucket_glasso_engine_is_bitwise_on_the_card(cuda_device):
+    """``glasso`` with the wave packer and without: labels and Theta equal
+    bit for bit on the card, one bucket_glasso launch a bin instead of one
+    a bucket."""
+    sizes = [4, 4, 5, 6, 7, 10, 14, 22, 27, 40, 63]
+    rng = np.random.default_rng(27)
+    p = sum(sizes)
+    S = np.zeros((p, p))
+    off = 0
+    for b in sizes:
+        for i in range(b):
+            j = (i + 1) % b
+            S[off + i, off + j] = S[off + j, off + i] = rng.integers(24, 33) / 64.0
+        off += b
+    np.fill_diagonal(S, 1.0)
+    instrument.reset("kernels.")
+    unfused = repro_torch.glasso(S, 0.3, options=repro_torch.EngineOptions(fused=False))
+    n_unfused = instrument.count("kernels.bucket_glasso.launches")
+    instrument.reset("kernels.")
+    instrument.reset("solver.fused.")
+    fused = repro_torch.glasso(S, 0.3, options=repro_torch.EngineOptions(fused=True))
+    assert instrument.count("kernels.bucket_glasso.launches") == 4 < n_unfused
+    assert instrument.count("solver.fused.dispatches") == 4
+    assert np.array_equal(unfused.labels, fused.labels)
+    assert np.array_equal(unfused.Theta, fused.Theta)
+
+
 # float32 instances of the five solve kernels against their float32 plain
 # versions.  prox_l1 and shard_prox's Z'/U' round every operation as the
 # plain version does: bit-equal.  tree_glasso sums rows in another order:

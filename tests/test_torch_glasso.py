@@ -180,8 +180,11 @@ def test_names_and_unported_features_raise():
     S, lam = _mixed_structure_covariance()
     with pytest.raises(ValueError, match="unknown solver 'nope'; available"):
         repro_torch.glasso(S, lam, options=CPU.replace(solver="nope"))
-    with pytest.raises(ValueError, match="available"):  # not ported yet (slice 4)
-        repro_torch.glasso(S, lam, options=CPU.replace(solver="fused_bcd"))
+    # the wave packer's solver is ported: the same bits as "bcd"
+    fused = repro_torch.glasso(S, lam, options=CPU.replace(solver="fused_bcd"))
+    plain = repro_torch.glasso(S, lam, options=CPU.replace(solver="bcd"))
+    assert np.array_equal(fused.labels, plain.labels)
+    assert np.array_equal(fused.Theta, plain.Theta)
     with pytest.raises(ValueError, match="unknown cc backend 'nope'"):
         repro_torch.glasso(S, lam, options=CPU.replace(cc_backend="nope"))
     with pytest.raises(ValueError, match="p_max"):

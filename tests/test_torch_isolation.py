@@ -31,6 +31,7 @@ import repro_torch.models.layers, repro_torch.models.attention, repro_torch.mode
 import repro_torch.models.zoo, repro_torch.models.convert, repro_torch.data.specs
 import repro_torch.train.serving, repro_torch.launch.serve
 import repro_torch.engine.planner, repro_torch.engine.executor, repro_torch.stream.path
+import repro_torch.engine.waves, repro_torch.core.blocks, repro_torch.core.partition
 import repro_torch.select.grid, repro_torch.select.homotopy, repro_torch.select.criteria
 import repro_torch.select.report, repro_torch.select.cv, repro_torch.select.stability
 for arch in repro_torch.configs.list_archs():

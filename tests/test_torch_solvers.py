@@ -347,7 +347,7 @@ def test_solvers_agree(p, seed):
     rng = np.random.default_rng(seed)
     S = random_covariance(rng, p)
     lam = lambda_between_edges(S, 0.5)
-    assert sorted(SOLVERS) == ["admm", "bcd", "pg"]
+    assert sorted(SOLVERS) == ["admm", "bcd", "fused_bcd", "pg"]
     thetas = {name: _solve(name, S, lam, tol=1e-9) for name in SOLVERS}
     objs = {
         name: float(glasso_objective(jnp.asarray(S), jnp.asarray(T), lam))
