@@ -13,7 +13,8 @@ Phases, each printing a line:
 1b. flash_attention  the kernel against its plain version at the
              prefill's shape in float32 and bf16, a ragged length and full
              MHA in both, MQA, a long causal case (against the plain
-             chunked form) and Phi-3-mini's d = 96 (its own instance), timed
+             chunked form), Phi-3-mini's d = 96 (its own instance) and head
+             dims 192 (DeepSeek-V2-Lite's query-key width) and 256, timed
              beside its bound, the plain version and SDPA, with the
              profiler's device time of each case (run first, while the
              profiler is fresh: after sessions of thousands of events it
@@ -54,15 +55,20 @@ Phases, each printing a line:
              the first solve is recorded, then held against its plain
              version and timed on its own inputs;
 1c. card_tests  the card tests of flash_attention, covgram_screen,
-             joint_prox, bucket_glasso, prox_l1, covgram and tree_glasso
-             (``tests/test_torch_cuda_kernels.py -k CARD_TESTS``) in a
-             subprocess;
+             joint_prox, bucket_glasso, prox_l1, covgram and tree_glasso,
+             of the scratch-keeping wrappers under two threads and of
+             concurrent ``GlassoServer`` submissions
+             (``tests/test_torch_cuda_kernels.py -k CARD_TESTS``) in
+             subprocesses;
 7. covgram_screen  the fused Gram + threshold kernel against its plain
              version at n = 192, tile 512 and tile 2048, on the tile pairs
              the two data paths below schedule: CUDA-event and profiler
              device ms (the tile indices on the card, as the paths pass
              them; ``ms_host_indices`` with numpy ones), the share of the
-             bound and one device event a call;
+             bound and one device event a call; then the float32 body on
+             float32 copies of the tile-2048 batch, within 1e-5 max|S| of
+             its plain version, its edges equal but for entries that near
+             lam (counted), beside the float32 library product;
 8. from_data ``glasso(X=X, lam=0.40, from_data=True)`` at p = 8000 (the
              benchmarks' dense-from-data arm): labels equal to the host
              union-find on the card's dense ``sample_covariance(X)``,
@@ -209,7 +215,20 @@ Phases, each printing a line:
              k-fold CV (k = 3) and StARS (4 subsamples) from
              [path_from_data]'s X and grid: selected lambda, warm fraction,
              walls;
-30. kernels  one JSON line: every ported kernel with its launches on its
+30. serve_glasso  one ``GlassoServer`` with default engine options on
+             the card, 12 requests submitted from four threads at once:
+             8 ``DenseSpec`` ([main]'s S at lam 0.58 .. 0.65, and lam 0.6
+             on seeds 1-4), 2 ``DataSpec`` ([from_data]'s X at lam 0.40,
+             one under a session, then ``append_rows`` of 16 rows), 1
+             ``PathSpec`` ([path]'s workload, EBIC) and 1 ``JointSpec``
+             ([joint_from_data]'s Xs); each result held to its direct solve
+             on the card (labels, route mix, Theta within 1e-9 max|Theta|
+             and its digest, KKT), the served selection to ``select_path``
+             bit for bit; walls by kind, the latency histogram's p50/p99,
+             the serve.* counters, and the launches of one coalesced batch
+             of the 8 dense requests (``solve_batch``) against the sum of
+             their direct solves';
+31. kernels  one JSON line: every ported kernel with its launches on its
              path and, summed over its recorded launches, its error, times
              and bound (with the lambda path's launches under "path");
 
@@ -318,6 +337,9 @@ KKT_RTOL = 1e-5
 # another order (FMA, 32-row slabs): entries of O(1) agree to ~1e-15; the
 # check allows 1e-12 of the largest |S_ij|, and counts must be equal
 COVGRAM_RTOL = 1e-12
+# covgram_screen's float32 body against its plain version at float32 (the
+# two sum in different orders): vals and stats within 1e-5 max|S|
+COVGRAM_F32_RTOL = 1e-5
 # the from-data and stream phases fail loudly when an |S_ij| lies closer to
 # a lambda than this (relative to max|S|): the sum order could flip it
 MARGIN_RTOL = 1e-12
@@ -458,10 +480,18 @@ FLASH_CASES = (
     ("mqa", 4, 16, 1, 2048, 2048, 128, True, torch.float32),
     ("long", 1, 16, 2, 8192, 8192, 128, True, torch.float32),
     ("phi3_mini", 4, 32, 32, 2048, 2048, 96, True, torch.float32),
+    # head dims above 128: DeepSeek-V2-Lite's query-key width (192, its 16
+    # heads, no GQA) and d = 256 (float32 as two blocks of 128 columns of O),
+    # at batch 2 (the time budget)
+    ("deepseek_qk", 2, 16, 16, 2048, 2048, 192, True, torch.float32),
+    ("deepseek_qk", 2, 16, 16, 2048, 2048, 192, True, torch.bfloat16),
+    ("d256", 2, 16, 16, 2048, 2048, 256, True, torch.float32),
+    ("d256", 2, 16, 16, 2048, 2048, 256, True, torch.bfloat16),
 )
 #: flash_attention's instances: (body, head dim), body 0 the fp32 body and
 #: 1 the wgmma body (``flash_attention_instance_info``)
-FLASH_INSTANCES = ((0, 32), (0, 64), (0, 96), (0, 128), (1, 16), (1, 32), (1, 64), (1, 128))
+FLASH_INSTANCES = ((0, 32), (0, 64), (0, 96), (0, 128), (0, 160), (0, 192), (0, 256),
+                   (1, 16), (1, 32), (1, 64), (1, 128), (1, 192), (1, 256))
 # [path] / [path_kernels] / [select]: benchmarks/bench_select.py's workload
 # at its own size, structured_synthetic(60, 40, tree_frac=0.2,
 # chordal_frac=0.2, seed=1) (p = 2400), 20 lambdas linspace(0.75, 0.32),
@@ -485,6 +515,20 @@ STARS_SUBSAMPLES = 4
 # [fused]: the planted case's chordless cycles (structure "general"), sizes
 # covering every bin and every b mod 4 in the b <= 32 bins, coupled by
 # 0.25 at lam = 0.25, an exact tie (dyadic entries)
+# [serve_glasso]: the dense requests' lambdas on [main]'s S and the seeds of
+# the other four (lam 0.6); rows appended to the session; the batching
+# window (long enough for the four threads' host screens to meet in one
+# batch); served Theta within SERVE_THETA_RTOL max|Theta| of its direct
+# solve (the same kernels on the same stacks: equal bits expected), the
+# appended solve (warm) within SERVE_APPEND_RTOL of a cold solve of the
+# stacked data (the reference's own tolerance for it)
+SERVE_GLASSO_LAMS = (0.58, 0.60, 0.62, 0.65)
+SERVE_GLASSO_SEEDS = (1, 2, 3, 4)
+SERVE_GLASSO_THREADS = 4
+SERVE_APPEND_ROWS = 16
+SERVE_GLASSO_WINDOW = 1.0
+SERVE_THETA_RTOL = 1e-9
+SERVE_APPEND_RTOL = 1e-5
 FUSED_SIZES = (4, 5, 6, 7, 10, 14, 22, 27, 40, 63)
 FUSED_LAM = 0.25
 
@@ -657,7 +701,7 @@ def phase_build() -> None:
 #: off the instances, unaligned views, K above 113, scratch reuse,
 #: bit-identical sums, b at each shared-memory limit, every form of t)
 CARD_TESTS = ("flash_attention or covgram_screen or joint_prox or bucket_glasso or prox_l1"
-              " or covgram or tree_glasso")
+              " or covgram or tree_glasso or scratch_wrappers or glasso_server")
 
 
 #: card-test processes run side by side: the bucket_glasso tests spend
@@ -1176,11 +1220,13 @@ def _kept_pairs(X: np.ndarray, tile: int, lam_min: float):
     return ti[keep].astype(np.int32), tj[keep].astype(np.int32), int((~keep).sum()), mom.mu
 
 
-def covgram_bound(N: int, P: int, B: int, bp: int) -> tuple[float, float]:
+def covgram_bound(N: int, P: int, B: int, bp: int, *, itemsize: int = 8,
+                  flops_per_s: float = FP64_FLOPS_PER_S) -> tuple[float, float]:
     """(bytes ms, operations ms): vals written and X read once; 2 N bp^2
-    flops per pair at the FP64 tensor-core peak."""
-    t_bytes = (B * bp * bp * 8 + N * P * 8 + P * 8) / HBM_BYTES_PER_S * 1e3
-    t_ops = 2.0 * N * bp * bp * B / FP64_FLOPS_PER_S * 1e3
+    flops per pair at the FP64 tensor-core peak (float32: the FP32 rate
+    outside the tensor cores, 4-byte values)."""
+    t_bytes = (B * bp * bp + N * P + P) * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * N * bp * bp * B / flops_per_s * 1e3
     return t_bytes, t_ops
 
 
@@ -1260,11 +1306,78 @@ def covgram_case(label: str, X: np.ndarray, tile: int, lam: float, max_pairs: in
     return r
 
 
-def phase_covgram_screen(X_fd: np.ndarray, X_st: np.ndarray) -> None:
+def covgram_case_f32(label: str, X: np.ndarray, tile: int, lam: float,
+                     max_pairs: int) -> dict:
+    """The float32 body of covgram_screen on float32 copies of one batch of
+    a data path's pairs, against its plain version at float32: stats and
+    the values of common edges within COVGRAM_F32_RTOL max|S|, edges and
+    counts equal except at entries within that of lam (counted, from the
+    float64 plain version's |S_ij|); timed beside its bound (FP32 FMAs,
+    4-byte values), the plain version and the float32 library product."""
+    n, p = X.shape
+    ti, tj, _, mu = _kept_pairs(X, tile, lam)
+    ti = torch.as_tensor(ti[:max_pairs], device=DEV)
+    tj = torch.as_tensor(tj[:max_pairs], device=DEV)
+    x_pad, mu_pad = pad_for_screen(torch.as_tensor(X, dtype=torch.float32, device=DEV),
+                                   mu, block_n=CHUNK, block_p=tile)
+    args, kw = (x_pad, mu_pad, ti, tj, lam), dict(n_true=n, p_true=p, block_p=tile)
+    instrument.reset("kernels.")
+    got = covgram_screen_tiles(*args, **kw)
+    want = covgram_screen_ref(*args, **kw)
+    if instrument.count("kernels.covgram_screen.launches") != 1 or got[0].dtype != torch.float32:
+        raise AssertionError(f"covgram_screen {label}: not one float32 launch")
+    exact = covgram_screen_ref(x_pad.double(), mu_pad.double(), ti, tj, 0.0, **kw)[0].abs()
+    scale = float(want[2][:, 0].max())
+    tol = COVGRAM_F32_RTOL * scale
+    both = (got[0] != 0) & (want[0] != 0)
+    err = max(float((got[2] - want[2]).abs().max()),
+              float((got[0] - want[0])[both].abs().max()) if bool(both.any()) else 0.0)
+    near_lam = (exact - lam).abs() < tol
+    flipped = (got[0] != 0) != (want[0] != 0)
+    if not err <= tol or bool((flipped & ~near_lam).any()):
+        raise AssertionError(f"covgram_screen {label}: max|diff| {err} > {tol}, or an edge "
+                             "away from lam differs")
+    n_near = int(near_lam.sum())
+    count_diff = int((got[1] - want[1]).abs().sum())
+    if count_diff > n_near:
+        raise AssertionError(f"covgram_screen {label}: counts differ by {count_diff} with "
+                             f"{n_near} entries near lam")
+    del got, want, exact
+    ms = cuda_ms(lambda: covgram_screen_tiles(*args, **kw), 5)
+    _, device_ms = profile_calls(lambda: covgram_screen_tiles(*args, **kw), 20, "covgram_screen")
+    plain_ms = cuda_ms(lambda: covgram_screen_ref(*args, **kw), 2)
+    N, P = x_pad.shape
+    nt = P // tile
+    xt, mt = x_pad.reshape(N, nt, tile), mu_pad.reshape(nt, tile)
+    A = (xt[:, ti.long(), :] - mt[ti.long()]).permute(1, 2, 0).contiguous()
+    Bm = (xt[:, tj.long(), :] - mt[tj.long()]).permute(1, 0, 2).contiguous()
+
+    def library():
+        G = torch.matmul(A, Bm).div_(n)
+        return torch.where(G.abs() > lam, G, 0.0)
+
+    library_ms = cuda_ms(library, 5)
+    del A, Bm
+    t_bytes, t_ops = covgram_bound(N, P, len(ti), tile, itemsize=4, flops_per_s=FP32_FLOPS_PER_S)
+    bound = max(t_bytes, t_ops)
+    log("covgram_screen", case=label, dtype="float32", n=n, p=p, tile=tile, pairs=len(ti),
+        lam=lam, max_abs_err=err, tol=tol, entries_near_lam=n_near, flipped_edges=int(
+            flipped.sum()), count_diff=count_diff, ms=f"{ms:.4f}",
+        device_ms=f"{device_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+        library_ms=f"{library_ms:.4f}", bytes_ms=f"{t_bytes:.4f}", ops_ms=f"{t_ops:.4f}",
+        bound_share=f"{bound / device_ms:.3f}" if device_ms else "not measured")
+    torch.cuda.empty_cache()
+    return dict(err=err, ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by="operations" if t_ops > t_bytes else "bytes",
+                entries_near_lam=n_near)
+
+
+def phase_covgram_screen(X_fd: np.ndarray, X_st: np.ndarray) -> dict:
     """Both fixed shapes: the first batch of the pairs each data path
-    schedules."""
+    schedules; then the float32 body on [from_data]'s batch (returned)."""
     covgram_case("from_data", X_fd, FROM_DATA_TILE, FROM_DATA_LAM, PAIR_BATCH)
     covgram_case("stream", X_st, STREAM_TILE, min(STREAM_GRID), PAIR_BATCH)
+    return covgram_case_f32("from_data_f32", X_fd, FROM_DATA_TILE, FROM_DATA_LAM, PAIR_BATCH)
 
 
 def covgram_launches_on_path(calls: list) -> dict:
@@ -1736,7 +1849,8 @@ def phase_joint_from_data() -> dict:
     """joint_glasso(Xs=...) on the card, K classes of the from-data workload:
     streamed labels equal to the port's dense joint screen on each class's
     ``sample_covariance`` and to the rule computed here, zero fallbacks,
-    zeros and KKT; returns the launches of the first solve."""
+    zeros and KKT; returns the launches of the first solve, the Xs and
+    their covariances (for [serve_glasso])."""
     from repro_torch.joint import joint_thresholded_components
 
     Xs = [workload(FROM_DATA_P, load=0.9, noise=0.44, seed=k) for k in range(JOINT_FROM_DATA_K)]
@@ -1769,7 +1883,7 @@ def phase_joint_from_data() -> dict:
         first = first or launches
     if first.get("covgram_screen.launches", 0) <= 0:
         raise AssertionError("covgram_screen was not launched on the [joint_from_data] path")
-    return first
+    return dict(launches=first, Xs=Xs, Ss=Ss)
 
 
 # ---------------------------------------------------------- phases 15-19
@@ -2566,14 +2680,16 @@ def phase_flash_attention() -> dict:
             sdpa_max_abs_err=lib_err, bytes_ms=f"{t_bytes:.4f}", ops_ms=f"{t_ops:.4f}",
             bound_ms=f"{bound:.4f}", share_of_bound=f"{bound / ms:.3f}",
             sdpa_over_kernel=f"{library_ms / ms:.3f}")
+        row = dict(err=err, ms=ms, device_ms=device_ms or None, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound,
+                   bound_by="operations" if t_ops > t_bytes else "bytes")
         if label == "full_width":
-            row = dict(err=err, ms=ms, device_ms=device_ms or None, plain_ms=plain_ms,
-                       library_ms=library_ms, bound_ms=bound,
-                       bound_by="operations" if t_ops > t_bytes else "bytes")
             if dtype == torch.float32:
                 out.update(row)
             else:
                 out["bf16"] = row
+        elif d > 128:
+            out.setdefault("wide", {})[f"{str(dtype).removeprefix('torch.')}_d{d}"] = row
         del q, k, v
         torch.cuda.empty_cache()
     return out
@@ -2774,17 +2890,10 @@ def per_step(steps: list[dict], kernel: str) -> list[int]:
 
 
 def block_diff(a, b) -> float:
-    """max |Theta_a - Theta_b| over the blocks of two SparseThetas of one
+    """max |Theta_a - Theta_b| over the blocks of two sparse results of one
     partition, matched by component (the path's lifetime bucketing orders
     components differently from a single solve's plan)."""
-    by_comp = {np.asarray(c).tobytes(): blk for c, blk in a.Theta.blocks()}
-    worst = 0.0
-    for c, blk in b.Theta.blocks():
-        worst = max(worst, float(np.abs(by_comp[np.asarray(c).tobytes()] - blk).max()))
-    iso_a = dict(zip(a.Theta.isolated.tolist(), a.Theta.isolated_values.tolist()))
-    for i, v in zip(b.Theta.isolated.tolist(), b.Theta.isolated_values.tolist()):
-        worst = max(worst, abs(iso_a[i] - v))
-    return worst
+    return sparse_diff(a.Theta, b.Theta)
 
 
 def phase_path() -> dict:
@@ -3296,6 +3405,302 @@ def phase_select(path: dict, X: np.ndarray, fd: dict) -> None:
             wall_s=f"{wall:.3f}")
 
 
+def sparse_diff(ta: SparseTheta, tb: SparseTheta) -> float:
+    """max |Theta_a - Theta_b| over the blocks and isolated values of two
+    SparseThetas of one partition, matched by component; a component of b
+    that a lacks raises."""
+    by_comp = {np.asarray(c).tobytes(): blk for c, blk in ta.blocks()}
+    worst = 0.0
+    for c, blk in tb.blocks():
+        worst = max(worst, float(np.abs(by_comp[np.asarray(c).tobytes()] - blk).max()))
+    iso_a = dict(zip(ta.isolated.tolist(), ta.isolated_values.tolist()))
+    for i, v in zip(tb.isolated.tolist(), tb.isolated_values.tolist()):
+        worst = max(worst, abs(iso_a[i] - v))
+    return worst
+
+
+def class_views(theta) -> list:
+    """The single-class SparseThetas of a result: itself, or a joint
+    result's class views."""
+    if isinstance(theta, SparseTheta):
+        return [theta]
+    return [theta.class_view(k) for k in range(theta.K)]
+
+
+def theta_digest(theta) -> str:
+    """The first 16 hex digits of the sha256 of a sparse result's
+    component ids, blocks and isolated values (every class of a joint
+    result), or of a dense Theta's bytes: two results with one digest hold
+    the same bits."""
+    h = hashlib.sha256()
+    if isinstance(theta, np.ndarray):
+        h.update(np.ascontiguousarray(theta).tobytes())
+        return h.hexdigest()[:16]
+    for view in class_views(theta):
+        for comp, blk in view.blocks():
+            h.update(np.ascontiguousarray(comp).tobytes())
+            h.update(np.ascontiguousarray(blk).tobytes())
+        h.update(np.ascontiguousarray(view.isolated_values).tobytes())
+    return h.hexdigest()[:16]
+
+
+def held_to_direct(kind: str, served, direct, rtol: float) -> dict:
+    """A served sparse result against its direct solve: labels and route
+    mix equal, Theta within ``rtol`` max|Theta|; returns the error and both
+    digests."""
+    if not np.array_equal(np.asarray(served.labels), np.asarray(direct.labels)):
+        raise AssertionError(f"[serve_glasso] {kind}: labels differ from the direct solve")
+    if served.route_mix != direct.route_mix:
+        raise AssertionError(f"[serve_glasso] {kind}: route mix {served.route_mix} != "
+                             f"{direct.route_mix}")
+    if isinstance(direct.Theta, np.ndarray):  # append_rows: the server's output
+        err = float(np.abs(served.Theta - direct.Theta).max())
+        scale = float(np.abs(direct.Theta).max())
+    else:
+        views_a, views_b = class_views(served.Theta), class_views(direct.Theta)
+        err = max(sparse_diff(a, b) for a, b in zip(views_a, views_b))
+        scale = max(max((float(np.abs(blk).max()) for _, blk in v.blocks()), default=0.0)
+                    for v in views_b)
+        scale = max([scale] + [float(np.abs(v.isolated_values).max()) for v in views_b
+                               if v.isolated.size])
+    if not err <= rtol * scale:
+        raise AssertionError(f"[serve_glasso] {kind}: max|Theta - direct| {err} > "
+                             f"{rtol}*{scale}")
+    return dict(err=err, digest=theta_digest(served.Theta),
+                digest_direct=theta_digest(direct.Theta))
+
+
+def kkt_sparse_checked(kind: str, S, res) -> float:
+    """The KKT residual of a sparse result block by block (its
+    cross-component zeros hold by construction; a dense Theta on the card),
+    at most KKT_RTOL max|S|."""
+    if isinstance(res.Theta, np.ndarray):
+        kkt = float(kkt_residual(torch.as_tensor(S, device=DEV),
+                                 torch.as_tensor(res.Theta, device=DEV), res.lam))
+    else:
+        kkt = kkt_residual_sparse(S, res.Theta, res.lam)
+    smax = float(np.abs(S).max())
+    if not kkt <= KKT_RTOL * smax:
+        raise AssertionError(f"[serve_glasso] {kind}: KKT residual {kkt} > {KKT_RTOL}*{smax}")
+    return kkt
+
+
+def joint_kkt_sparse(Ss: list, res, *, penalty: str) -> float:
+    """The joint KKT residual of a sparse joint result, component by
+    component (``joint_kkt_residual`` on the K blocks) and at the isolated
+    vertices, at most KKT_RTOL max|S|."""
+    from repro_torch.joint import joint_kkt_residual
+
+    views = class_views(res.Theta)
+    worst = 0.0
+    for blocks in zip(*(list(v.blocks()) for v in views)):
+        comp = np.asarray(blocks[0][0])
+        ix = np.ix_(comp, comp)
+        worst = max(worst, joint_kkt_residual(
+            [S[ix] for S in Ss], np.stack([blk for _, blk in blocks]), res.lam1, res.lam2,
+            penalty=penalty))
+    for S, v in zip(Ss, views):
+        if v.isolated.size:
+            worst = max(worst, float(np.abs(1.0 / v.isolated_values
+                                            - S[v.isolated, v.isolated] - res.lam1).max()))
+    smax = max(float(np.abs(S).max()) for S in Ss)
+    if not worst <= KKT_RTOL * smax:
+        raise AssertionError(f"[serve_glasso] joint: KKT residual {worst} > {KKT_RTOL}*{smax}")
+    return worst
+
+
+def phase_serve_glasso(S_main: np.ndarray, X_fd: np.ndarray, joint_fd: dict,
+                       path_case: tuple) -> dict:
+    """``GlassoServer`` on the card with default engine options: 12 requests
+    of four kinds from SERVE_GLASSO_THREADS threads at once, each asking for
+    a sparse result (``RequestMeta(output="sparse")``, so no (p, p) copy is
+    assembled or compared), every result held to its direct solve on the
+    card; then one synchronous coalesced batch of the 8 dense requests,
+    planned from their direct solves' labels, against the sum of their
+    direct solves' launches.  Returns the counters and launch counts it
+    printed."""
+    import threading
+
+    from repro_torch.launch.control_plane import (
+        DataSpec, DenseSpec, JointSpec, PathSpec, RequestMeta)
+    from repro_torch.launch.serve_glasso import GlassoRequest, GlassoServer
+    from repro_torch.obs.metrics import REGISTRY
+
+    opts = EngineOptions()
+    sparse = EngineOptions(output="sparse")
+    stream = {"tile": FROM_DATA_TILE, "chunk": CHUNK}
+    dense = [(S_main, lam) for lam in SERVE_GLASSO_LAMS]
+    dense += [(structured_synthetic(*MAIN_CASE, seed=seed), SCREEN_LAM)
+              for seed in SERVE_GLASSO_SEEDS]
+    path_S, path_lams = path_case
+    Xs, Ss = joint_fd["Xs"], joint_fd["Ss"]
+    specs = [("dense", DenseSpec(S, lam)) for S, lam in dense]
+    specs += [("data", DataSpec(X_fd, FROM_DATA_LAM, session="s", stream=stream)),
+              ("data", DataSpec(X_fd, FROM_DATA_LAM, stream=stream)),
+              ("path", PathSpec(S=path_S, grid=path_lams, criterion="ebic", n=SELECT_N)),
+              ("joint", JointSpec(Xs=Xs, lam1=JOINT_LAM1, lam2=JOINT_LAM2, penalty="group",
+                                  stream=stream))]
+    # thread t submits requests t, t + 4, t + 8: two dense and one other each
+    futures: list = [None] * len(specs)
+    walls: list = [None] * len(specs)
+    errors: list[BaseException] = []
+    for prefix in ("serve.", "kernels.", "stream.", "joint.", "select."):
+        instrument.reset(prefix)
+    REGISTRY.reset("serve.request_seconds")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with GlassoServer(options=opts, max_delay=SERVE_GLASSO_WINDOW) as server:
+        def client(t: int) -> None:
+            try:
+                for i in range(t, len(specs), SERVE_GLASSO_THREADS):
+                    t_sub = time.perf_counter()
+                    fut = server.submit(specs[i][1], meta=RequestMeta(tenant=f"client{t}",
+                                                                      output="sparse"))
+                    fut.add_done_callback(
+                        lambda _f, i=i, t_sub=t_sub: walls.__setitem__(
+                            i, time.perf_counter() - t_sub))
+                    futures[i] = fut
+            except BaseException as e:  # re-raised below, after the join
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(SERVE_GLASSO_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"[serve_glasso] a client failed: {errors}")
+        served = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - t0
+        threaded = instrument.counts("serve.")
+        threaded_launches = instrument.tail_counts("kernels.")
+        quantiles = {q: REGISTRY.quantile("serve.request_seconds", q) for q in (0.5, 0.99)}
+        t_app = time.perf_counter()
+        Y = workload(FROM_DATA_P, load=0.9, noise=0.44, seed=99)[:SERVE_APPEND_ROWS]
+        instrument.reset("stream.")
+        appended = server.append_rows("s", Y).result(timeout=600)
+        append_wall = time.perf_counter() - t_app
+        append_counts = instrument.counts("stream.")
+
+        # the direct solves on the card, each with its own launch counts
+        direct_launches: dict[str, int] = {}
+        direct_dispatches = 0
+        direct_dense = []
+        for S, lam in dense:
+            instrument.reset("kernels.")
+            instrument.reset("executor.")
+            direct_dense.append(glasso(S, lam, options=sparse))
+            for k, v in instrument.tail_counts("kernels.").items():
+                direct_launches[k] = direct_launches.get(k, 0) + v
+            direct_dispatches += instrument.count("executor.dispatches")
+
+        # one coalesced batch of the 8 dense requests, planned from the
+        # direct solves' labels as the server plans a screened request,
+        # the launch counters zeroed just before and read just after
+        batch = []
+        for (S, lam), ref in zip(dense, direct_dense):
+            plan, _ = build_plan_incremental(S, lam, ref.labels, oversize=server.oversize)
+            batch.append(GlassoRequest(S=S, lam=lam, labels=ref.labels, stats=ref.screen,
+                                       plan=plan, output="sparse"))
+        instrument.reset("serve.")
+        instrument.reset("kernels.")
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        server.solve_batch(batch)
+        torch.cuda.synchronize()
+        batch_wall = time.perf_counter() - t_b
+        batch_counts = instrument.counts("serve.")
+        batch_launches = instrument.tail_counts("kernels.")
+        batch_results = [r.future.result(timeout=0) for r in batch]
+
+    checks = []
+    for i, ((S, lam), res, ref) in enumerate(zip(dense, served, direct_dense)):
+        held = held_to_direct(f"dense {i}", res, ref, SERVE_THETA_RTOL)
+        held["kkt"] = kkt_sparse_checked(f"dense {i}", S, res)
+        held["batch_digest"] = held_to_direct(f"dense {i} (batch)", batch_results[i], ref,
+                                              SERVE_THETA_RTOL)["digest"]
+        checks.append(("dense", i, held))
+    data_direct = glasso(X=X_fd, lam=FROM_DATA_LAM, from_data=True, stream=stream,
+                         options=sparse)
+    S_fd = sample_covariance(X_fd).cpu().numpy()
+    for i in (8, 9):
+        held = held_to_direct(f"data {i - 8}", served[i], data_direct, SERVE_THETA_RTOL)
+        held["kkt"] = kkt_sparse_checked(f"data {i - 8}", S_fd, served[i])
+        checks.append(("data", i, held))
+    del S_fd
+    # append_rows answers in the server's own output ("auto": dense here)
+    X2 = np.vstack([X_fd, Y])
+    append_direct = glasso(X=X2, lam=FROM_DATA_LAM, from_data=True, stream=stream,
+                           options=opts)
+    held = held_to_direct("append", appended, append_direct, SERVE_APPEND_RTOL)
+    held["kkt"] = kkt_sparse_checked("append", sample_covariance(X2).cpu().numpy(), appended)
+    checks.append(("append", 12, held))
+    offline = select_path(path_S, grid=path_lams, criterion="ebic", n=SELECT_N, options=opts,
+                          output="sparse")
+    sel = served[10]
+    if (sel.report.scores != offline.report.scores
+            or sel.report.selected_index != offline.report.selected_index
+            or sel.report.lambdas != offline.report.lambdas):
+        raise AssertionError("[serve_glasso] path: the served selection differs from "
+                             "select_path")
+    held = held_to_direct("path", sel.result, offline.result, 0.0)
+    if held["digest"] != held["digest_direct"]:
+        raise AssertionError("[serve_glasso] path: Theta's digest differs from select_path's")
+    held["kkt"] = kkt_sparse_checked("path", path_S, sel.result)
+    checks.append(("path", 10, held))
+    joint_direct = joint_glasso(Xs=Xs, lam1=JOINT_LAM1, lam2=JOINT_LAM2, penalty="group",
+                                stream=stream, options=sparse)
+    held = held_to_direct("joint", served[11], joint_direct, SERVE_THETA_RTOL)
+    held["kkt"] = joint_kkt_sparse(Ss, served[11], penalty="group")
+    checks.append(("joint", 11, held))
+
+    for kind, i, held in checks:
+        extra = {}
+        if "batch_digest" in held:
+            extra["batch_digest_equal"] = held["batch_digest"] == held["digest_direct"]
+        log("serve_glasso_check", kind=kind, request=i,
+            wall_s=f"{walls[i]:.3f}" if i < len(walls) else f"{append_wall:.3f}",
+            max_abs_err=held["err"], digest=held["digest"],
+            digest_equal=held["digest"] == held["digest_direct"], kkt=held["kkt"], **extra)
+    by_kind: dict[str, list] = {}
+    for (kind, _), w in zip(specs, walls):
+        by_kind.setdefault(kind, []).append(w)
+    if batch_counts.get("serve.coalesced_blocks", 0) <= 0:
+        raise AssertionError(f"[serve_glasso] the batch coalesced nothing: {batch_counts}")
+    if batch_counts.get("serve.dispatches", 0) >= direct_dispatches:
+        raise AssertionError(f"[serve_glasso] the batch dispatched {batch_counts} against "
+                             f"{direct_dispatches} direct dispatches")
+    for name in ("tree_glasso", "bucket_glasso", "covgram_screen", "joint_prox"):
+        if threaded_launches.get(f"{name}.launches", 0) <= 0:
+            raise AssertionError(f"[serve_glasso] {name} was not launched by the server")
+    log("serve_glasso", requests=len(specs), threads=SERVE_GLASSO_THREADS,
+        window_s=SERVE_GLASSO_WINDOW, wall_s=f"{wall:.3f}",
+        wall_by_kind=json.dumps({k: [round(w, 3) for w in v] for k, v in by_kind.items()}),
+        request_seconds_p50=quantiles[0.5], request_seconds_p99=quantiles[0.99],
+        dispatches=threaded.get("serve.dispatches", 0),
+        batches=threaded.get("serve.batches", 0),
+        coalesced_blocks=threaded.get("serve.coalesced_blocks", 0),
+        fastpath_requests=threaded.get("serve.fastpath_requests", 0),
+        serve=json.dumps(threaded, sort_keys=True),
+        launches=json.dumps(threaded_launches, sort_keys=True))
+    log("serve_glasso_append", rows=SERVE_APPEND_ROWS, wall_s=f"{append_wall:.3f}",
+        tiles_revalidated=append_counts.get("stream.tiles_revalidated", 0),
+        tiles_rescreened=append_counts.get("stream.tiles_rescreened", 0),
+        components_touched=append_counts.get("stream.session_components_touched", 0))
+    log("serve_glasso_batch", dense_requests=len(dense), wall_s=f"{batch_wall:.3f}",
+        dispatches=batch_counts.get("serve.dispatches", 0),
+        coalesced_blocks=batch_counts.get("serve.coalesced_blocks", 0),
+        direct_dispatches=direct_dispatches,
+        tree_glasso_launches=batch_launches.get("tree_glasso.launches", 0),
+        tree_glasso_launches_direct=direct_launches.get("tree_glasso.launches", 0),
+        bucket_glasso_launches=batch_launches.get("bucket_glasso.launches", 0),
+        bucket_glasso_launches_direct=direct_launches.get("bucket_glasso.launches", 0),
+        launches=json.dumps(batch_launches, sort_keys=True),
+        launches_direct=json.dumps(direct_launches, sort_keys=True))
+    return dict(threaded=threaded, launches=threaded_launches, batch=batch_counts,
+                batch_launches=batch_launches, direct_launches=direct_launches)
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3342,7 +3747,7 @@ def main() -> int:
     del pg_kept
     X_fd = workload(FROM_DATA_P, load=0.9, noise=0.44)
     X_st = workload(STREAM_P, load=0.75, noise=0.66)
-    phase_covgram_screen(X_fd, X_st)
+    cov_f32 = phase_covgram_screen(X_fd, X_st)
     fd_launches, cov = phase_from_data(X_fd)
     phase_stream(X_st)
     phase_from_data_sparse(X_st)
@@ -3352,13 +3757,16 @@ def main() -> int:
     fused = phase_fused(S, lam, path)
     fd_path = phase_path_from_data(X_fd)
     phase_select(path, X_fd, fd_path)
-    del X_fd, path
+    path_case = (path["S"], path["lams"])
+    del path
     cg = phase_covgram()
     ls_launches, _ = phase_large_scale()
 
     joint_launches, joint_prox = phase_joint("joint", JOINT_CASE, "group", JOINT_ROUTES)
     _, fused_prox = phase_joint("joint_fused", JOINT_FUSED_CASE, "fused", JOINT_FUSED_ROUTES)
-    phase_joint_from_data()
+    joint_fd = phase_joint_from_data()
+    sg = phase_serve_glasso(S, X_fd, joint_fd, path_case)
+    del X_fd, joint_fd, path_case
     jp = {}
     for label, recorded, penalty in (("joint", joint_prox, "group"),
                                      ("joint_fused", fused_prox, "fused")):
@@ -3392,6 +3800,9 @@ def main() -> int:
             "redesigned": "one launch a call, lam by pointer or value, "
                           "at most ceil(B / SMs) blocks a program",
             "path": path_kernels["tree_glasso"],
+            # [serve_glasso]: one coalesced batch of 8 requests vs their direct solves
+            "serve": {"launches": sg["batch_launches"].get("tree_glasso.launches", 0),
+                      "launches_direct": sg["direct_launches"].get("tree_glasso.launches", 0)},
         },
         {
             "name": "bucket_glasso", "route": "cuda",
@@ -3408,6 +3819,9 @@ def main() -> int:
             "path": path_kernels["bucket_glasso"],
             # the wave packer: one launch a bin, bits equal to unfused dispatch
             "fused": fused,
+            "serve": {"launches": sg["batch_launches"].get("bucket_glasso.launches", 0),
+                      "launches_direct": sg["direct_launches"].get("bucket_glasso.launches",
+                                                                   0)},
         },
         {
             "name": "threshold_cc", "route": "cuda",
@@ -3426,6 +3840,8 @@ def main() -> int:
             "bound_by": "operations" if cov["ops_ms"] > cov["bytes_ms"] else "bytes",
             "library_ms": cov["library_ms"], "device_ms": cov["device_ms"],
             "redesigned": f"FP64 tensor cores (mma.sync {MMA}), cp.async three-stage ring",
+            # the float32 body (FP32 FMAs) on float32 copies of [from_data]'s batch
+            "float32": cov_f32,
             "path": {"launches": fd_path["launches"].get("covgram_screen.launches", 0)},
         },
         {
@@ -3482,6 +3898,8 @@ def main() -> int:
             "library_ms": fa["library_ms"], "device_ms": fa["device_ms"],
             "redesigned": "float32: register-tiled FP32 FMAs, swizzled float4 shared loads, "
                           "cp.async K/V ring; bf16: wgmma fed by TMA",
+            # head dims 192 and 256 (float32 and bf16) at the prefill's length
+            "wide": fa.get("wide", {}),
             # the bf16 instance (the wgmma body) on [prefill_bf16]'s path
             "bf16": {
                 "launches": bf16_launches["flash_attention.wgmma_launches"],

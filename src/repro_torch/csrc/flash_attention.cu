@@ -3,14 +3,16 @@
 // output in q's dtype.  One hand-written body per dtype, chosen by dtype in
 // the wrapper (kernels/flash_attention/ops.py), each with instances at a few
 // head dims:
-//   - the float32 body (register-tiled FP32 FMAs): d in {32, 64, 96, 128};
-//   - the wgmma body (bf16 tensor cores): d in {16, 32, 64, 128} (wgmma's
-//     depth is 16 bf16 values).
-// The wrapper pads any other d <= 128 with zero columns of q, k and v up to
+//   - the float32 body (register-tiled FP32 FMAs): d in {32, 64, 96, 128,
+//     160, 192, 256};
+//   - the wgmma body (bf16 tensor cores): d in {16, 32, 64, 128, 192, 256}
+//     (wgmma's depth is 16 bf16 values).
+// The wrapper pads any other d <= 256 with zero columns of q, k and v up to
 // the next instance (a zero column adds nothing to q . k, and the output
 // columns it adds are sliced away), keeping the unpadded d's scale: in
 // float32, d < 32 runs the d = 32 instance and d = 80 the d = 96 one; in
-// bf16, d < 16 runs d = 16 and d = 80 and 96 run d = 128.  The float32 body
+// bf16, d < 16 runs d = 16, d = 80 and 96 run d = 128, and 129 .. 191 run
+// d = 192 (in float32, 129 .. 159 run d = 160).  The float32 body
 // takes any multiple of 32 cheaply (d = 96, Phi-3-mini's, runs without a
 // padded copy); it has no d = 16 instance, where a lane would own one
 // output column.
@@ -76,6 +78,13 @@
 // thread, and a thread's 64 output and 32 score accumulators give each
 // warp independent FMAs enough to cover the FMA pipe's latency.  Float32
 // stays float32 FMAs: no TF32 and no tensor cores.
+//   Above d = 128 one block fits an SM (160 KB of shared memory at
+// d = 192).  At d = 160 and 192 a thread's output tile is 8 x 10 and
+// 8 x 12; at d = 256 it would be 8 x 16, 128 accumulators beside the 32
+// scores, which spill, so each (bh, query block) runs as two blocks (grid
+// z) that both compute S over the whole d and each keep 128 columns of V
+// and O (f32_dv): 1.5x the FLOPs of one pass, a thread's tile that of
+// d = 128.
 //
 // wgmma body (bf16): a block of two warpgroups (256 threads) per (bh,
 // 128-row query block), longest causal blocks first, each warpgroup owning
@@ -105,6 +114,9 @@
 //   at d = 128), so two blocks (four warpgroups) fit an SM.  The driver's
 //   cuTensorMapEncodeTiled is taken through
 //   cudaGetDriverEntryPointByVersion, so the library links without -lcuda.
+//   At d = 192 and 256 (145 and 193 KB of shared memory) one block fits an
+//   SM, its O fragment 96 and 128 floats a thread (the launch bound lets a
+//   thread take 255 registers).
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
@@ -143,7 +155,7 @@ struct Tile {
   // wgmma descriptor layout type (cute::GmmaDescriptor: 128B = 1, 64B = 2,
   // 32B = 3) and TMA swizzle of the same width
   static constexpr uint8_t kLayout = kSwizzle == 128 ? 1 : (kSwizzle == 64 ? 2 : 3);
-  static_assert(D % 16 == 0 && D <= 128, "wgmma body: d in {16, 32, 64, 128}");
+  static_assert(D % 16 == 0 && D <= 256, "wgmma body: d in {16, 32, 64, 128, 192, 256}");
 };
 
 template <int D>
@@ -368,9 +380,84 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41,"
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125,"
+      "%126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 
 template <int D>
-__global__ void __launch_bounds__(kWG * 128, 2)
+__global__ void __launch_bounds__(kWG * 128, D <= 128 ? 2 : 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
@@ -599,9 +686,18 @@ constexpr int kKeysT = kBK / kLanes;                // keys a thread in S: 4
 constexpr int kF32Threads = kBQ / kRowsT * kLanes;  // 128
 static_assert(kBQ == kBK, "copy_tile stages 64-row tiles of Q, K and V alike");
 
+// the output columns a block of the float32 body owns: all of d up to 192;
+// half of it at d = 256, where a thread's 8 x 16 accumulator would not fit
+// its registers, so two blocks (grid z) each take 128 columns of O and V
+// and both compute the whole of S
+template <int D>
+__host__ __device__ constexpr int f32_dv() {
+  return D > 192 ? D / 2 : D;
+}
+
 template <int D>
 constexpr size_t f32_smem_bytes() {
-  return (size_t)(3 * kBK * D + kBK * kBQ) * sizeof(float);  // Q, K, V, P^T
+  return (size_t)(2 * kBK * D + kBK * f32_dv<D>() + kBK * kBQ) * sizeof(float);  // Q, K, V, P^T
 }
 
 // 16 bytes from global to shared memory, of which the first `bytes` (16 or
@@ -628,10 +724,11 @@ __device__ __forceinline__ int chunk_at(int c, int r) {
   return kSw == kPlain ? c : (kSw == kByRow ? c ^ (r & 7) : c ^ ((r >> 3) & 7));
 }
 
-// rows r0 .. r0 + 63 of a (len, D) row-major float32 matrix into the 64 x D
-// tile at `dst`, zero past len.  Thread x copies 16-byte chunk x % 8 of
-// each 32-column group of rows x / 8 + 16 i (8 threads a 128-byte line).
-template <int D, Swizzle kSw>
+// rows r0 .. r0 + 63 of W columns of a (len, Ld) row-major float32 matrix
+// into the 64 x W tile at `dst`, zero past len.  Thread x copies 16-byte
+// chunk x % 8 of each 32-column group of rows x / 8 + 16 i (8 threads a
+// 128-byte line).
+template <int W, Swizzle kSw, int Ld = W>
 __device__ __forceinline__ void copy_tile(uint32_t dst, const float* __restrict__ src,
                                           int r0, int len) {
   constexpr int kRowStep = kF32Threads / 8;
@@ -641,31 +738,34 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const float* __restrict_
   for (int i = 0; i < kBK / kRowStep; ++i) {
     const int row = r + kRowStep * i;
     const bool in = r0 + row < len;
-    const float* from = src + (long long)(in ? r0 + row : 0) * D + 4 * c;
+    const float* from = src + (long long)(in ? r0 + row : 0) * Ld + 4 * c;
 #pragma unroll
-    for (int grp = 0; grp < D / 32; ++grp)
-      cp_async16(dst + (uint32_t)(row * D + 4 * chunk_at<kSw>(c + 8 * grp, row)) * 4u,
+    for (int grp = 0; grp < W / 32; ++grp)
+      cp_async16(dst + (uint32_t)(row * W + 4 * chunk_at<kSw>(c + 8 * grp, row)) * 4u,
                  from + 32 * grp, in ? 16 : 0);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kF32Threads, 2)
+__global__ void __launch_bounds__(kF32Threads, D <= 128 ? 2 : 1)
     flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, float* __restrict__ o,
                                int group, int sq, int skv, float scale_log2, int causal) {
-  static_assert(D % 32 == 0 && D <= 128, "float32 body: d in {32, 64, 96, 128}");
-  // a lane's output columns: 4 (t + 16 u) .. + 3 for u < kVec4, then
-  // 64 kVec4 + 2 t and + 1 when d is an odd multiple of 32
-  constexpr int kVec4 = D / 64;
-  constexpr bool kVec2 = D % 64 != 0;
-  constexpr int kColsT = 4 * kVec4 + 2 * kVec2;  // D / 16
-  constexpr int kTile = kBK * D;                 // floats of a Q, K or V tile
+  static_assert(D % 32 == 0 && D <= 256, "float32 body: d a multiple of 32 up to 256");
+  // this block's output columns: DV of them from column col0 (grid z)
+  constexpr int DV = f32_dv<D>();
+  const int col0 = blockIdx.z * DV;
+  // a lane's output columns (within DV): 4 (t + 16 u) .. + 3 for
+  // u < kVec4, then 64 kVec4 + 2 t and + 1 when DV is an odd multiple of 32
+  constexpr int kVec4 = DV / 64;
+  constexpr bool kVec2 = DV % 64 != 0;
+  constexpr int kColsT = 4 * kVec4 + 2 * kVec2;  // DV / 16
+  constexpr int kTile = kBK * D;                 // floats of a Q or K tile
   extern __shared__ __align__(16) float smem_f32[];
   float* Qs = smem_f32;
   float* Ks = Qs + kTile;
-  float* Vs = Ks + kTile;
-  float* Ps = Vs + kTile;  // P^T: [key][query row], chunks swizzled by key
+  float* Vs = Ks + kTile;       // 64 x DV
+  float* Ps = Vs + kBK * DV;    // P^T: [key][query row], chunks swizzled by key
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
@@ -698,7 +798,7 @@ __global__ void __launch_bounds__(kF32Threads, 2)
     const int k0 = kb * kBK;
     cp_async_wait_all();
     __syncthreads();  // K(kb) (and Q) in place; every read of V(kb - 1) and P done
-    copy_tile<D, kPlain>(smem_u32(Vs), vh, k0, skv);
+    copy_tile<DV, kPlain, D>(smem_u32(Vs), vh + col0, k0, skv);
     cp_async_commit();
 
     float s[kRowsT][kKeysT];
@@ -776,7 +876,7 @@ __global__ void __launch_bounds__(kF32Threads, 2)
       const float4 p_lo = *reinterpret_cast<const float4*>(p_row + 4 * ((2 * g) ^ (j & 7)));
       const float4 p_hi = *reinterpret_cast<const float4*>(p_row + 4 * ((2 * g + 1) ^ (j & 7)));
       const float p[kRowsT] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
-      const float* v_row = Vs + j * D;
+      const float* v_row = Vs + j * DV;
       float vv[kColsT];
 #pragma unroll
       for (int u = 0; u < kVec4; ++u) {
@@ -809,7 +909,7 @@ __global__ void __launch_bounds__(kF32Threads, 2)
     const int row = q0 + kRowsT * g + i;
     if (row >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* out = o + ((long long)bh * sq + row) * D;
+    float* out = o + ((long long)bh * sq + row) * D + col0;
 #pragma unroll
     for (int u = 0; u < kVec4; ++u)
       *reinterpret_cast<float4*>(out + 4 * (t + kLanes * u)) =
@@ -840,7 +940,7 @@ int launch_f32_d(const void* q, const void* k, const void* v, void* o, int bh, i
                  int sq, int skv, float scale, int causal, void* stream) {
   const cudaError_t e = f32_attributes<D>();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)bh, (unsigned)((sq + kBQ - 1) / kBQ));
+  const dim3 grid((unsigned)bh, (unsigned)((sq + kBQ - 1) / kBQ), (unsigned)(D / f32_dv<D>()));
   flash_attention_f32_kernel<D><<<grid, kF32Threads, f32_smem_bytes<D>(),
                                   (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, group, sq, skv,
@@ -885,8 +985,8 @@ int wgmma_info(int* info) {
 }  // namespace
 
 // q, o: (bh, sq, d) row-major; k, v: (bh / group, skv, d) row-major; all
-// float32 and 16-byte aligned (cp.async).  d in {32, 64, 96, 128}: the
-// float32 body.
+// float32 and 16-byte aligned (cp.async).  d in {32, 64, 96, 128, 160, 192,
+// 256}: the float32 body.
 extern "C" int flash_attention_launch_f32(const void* q, const void* k,
                                           const void* v, void* o, int bh,
                                           int group, int sq, int skv, int d,
@@ -902,11 +1002,15 @@ extern "C" int flash_attention_launch_f32(const void* q, const void* k,
     case 64: return launch_f32_d<64>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 96: return launch_f32_d<96>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 128: return launch_f32_d<128>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 160: return launch_f32_d<160>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 192: return launch_f32_d<192>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 256: return launch_f32_d<256>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// the same layout in bf16 through the wgmma body, d in {16, 32, 64, 128};
+// the same layout in bf16 through the wgmma body, d in {16, 32, 64, 128,
+// 192, 256};
 // every pointer 16-byte aligned (TMA)
 extern "C" int flash_attention_wgmma_launch_bf16(const void* q, const void* k,
                                                  const void* v, void* o, int bh,
@@ -921,6 +1025,8 @@ extern "C" int flash_attention_wgmma_launch_bf16(const void* q, const void* k,
     case 32: return launch_wgmma_d<32>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 64: return launch_wgmma_d<64>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 128: return launch_wgmma_d<128>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 192: return launch_wgmma_d<192>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
+    case 256: return launch_wgmma_d<256>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -936,10 +1042,15 @@ extern "C" int flash_attention_instance_info(int body, int d, int* info) {
     case 64: return f32_info<64>(info);
     case 96: return f32_info<96>(info);
     case 128: return f32_info<128>(info);
+    case 160: return f32_info<160>(info);
+    case 192: return f32_info<192>(info);
+    case 256: return f32_info<256>(info);
     case 1016: return wgmma_info<16>(info);
     case 1032: return wgmma_info<32>(info);
     case 1064: return wgmma_info<64>(info);
     case 1128: return wgmma_info<128>(info);
+    case 1192: return wgmma_info<192>(info);
+    case 1256: return wgmma_info<256>(info);
     default: return (int)cudaErrorInvalidValue;
   }
 }

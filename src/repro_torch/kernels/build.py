@@ -63,9 +63,11 @@ _SIGNATURES = {
     "threshold_cc_step_launch": (
         _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _I, _P],
     ),
-    "covgram_screen_launch": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_double, _P],
-    ),
+    **{
+        name: (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, lam_t, _P])
+        for name, lam_t in (("covgram_screen_launch", ctypes.c_double),
+                            ("covgram_screen_launch_f32", ctypes.c_float))
+    },
     **{f"covgram_launch_{t}": (_I, [_P, _P, _P, _I, _I, _P]) for t in ("f32", "bf16")},
     "covgram_division_mismatches": (_I, [_I, _P, _P]),
     **{

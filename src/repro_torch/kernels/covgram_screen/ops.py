@@ -12,15 +12,18 @@ the card.
 A kernel call on the card with the tile indices already there as int32
 tensors, as the screening paths pass them (each uploads its tile schedule
 once), is one launch: the kernel writes vals, counts and stats whole, and
-combines each pair's count and maxima in accumulators cached per device
-that it leaves zeroed, so no output is zero-filled first.  Sharing them
-between calls is safe because launches on one stream run in order; calls
-on two streams at once would need a buffer each."""
+combines each pair's count and maxima in accumulators cached per (device,
+stream) that it leaves zeroed, so no output is zero-filled first.  Calls
+on one stream share a buffer because its launches run in order; each
+stream has its own, and a lock keeps one thread's lookup and launch from
+interleaving with another's (the server solves on its batcher thread and
+on callers' threads at once)."""
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -56,24 +59,30 @@ def pad_for_screen(
 #: H100: PERF.md section 6)
 MMA = "m16n8k8"
 
-#: device -> the per-pair accumulators (count, two maxima, ticket), zeroed
-#: once when allocated and left zeroed by every launch
-_ACC: dict[torch.device, torch.Tensor] = {}
+#: (device, raw stream) -> the per-pair accumulators (count, two maxima,
+#: ticket), zeroed once when allocated and left zeroed by every launch
+_ACC: dict[tuple[torch.device, int], torch.Tensor] = {}
+#: held from a call's accumulator lookup until its launch is enqueued
+_LOCK = threading.Lock()
+
+#: X's dtype -> the body's entry point (float64: FP64 tensor cores;
+#: float32: FP32 FMAs on the CUDA cores)
+_ENTRIES = {torch.float64: "covgram_screen_launch", torch.float32: "covgram_screen_launch_f32"}
 
 
-def _accumulators(dev: torch.device, npairs: int) -> torch.Tensor:
-    """The cached accumulators for ``npairs`` pairs, reallocated only when a
-    call needs more."""
-    acc = _ACC.get(dev)
+def _accumulators(dev: torch.device, stream: int, npairs: int) -> torch.Tensor:
+    """The cached accumulators of one stream for ``npairs`` pairs,
+    reallocated only when a call needs more; called under ``_LOCK``."""
+    acc = _ACC.get((dev, stream))
     if acc is None or acc.numel() < 4 * npairs:
         acc = torch.zeros(4 * npairs, dtype=torch.int64, device=dev)
-        _ACC[dev] = acc
+        _ACC[(dev, stream)] = acc
     return acc
 
 
 @functools.cache
-def _launcher():
-    return library().covgram_screen_launch
+def _launcher(entry: str):
+    return getattr(library(), entry)
 
 
 def covgram_screen_tiles(
@@ -94,8 +103,9 @@ def covgram_screen_tiles(
     x_pad/mu_pad follow ``pad_for_screen``; the tile indices are sequences
     or int tensors (int32 ones on x's device are used in place, others are
     copied there).  A CPU x runs the plain version; a CUDA x launches
-    ``csrc/covgram_screen.cu`` (float64) or raises.  Each launch bumps
-    ``kernels.covgram_screen.launches``."""
+    ``csrc/covgram_screen.cu`` (its float64 or float32 body, by x's dtype;
+    vals and stats come back in that dtype, lam compared in it) or raises.
+    Each launch bumps ``kernels.covgram_screen.launches``."""
     dev = x_pad.device
     i_idx = torch.as_tensor(i_idx, dtype=torch.int32, device=dev).contiguous()
     j_idx = torch.as_tensor(j_idx, dtype=torch.int32, device=dev).contiguous()
@@ -106,9 +116,10 @@ def covgram_screen_tiles(
         )
     if dev.type != "cuda":
         raise ValueError(f"covgram_screen: no kernel for device {dev}")
-    if x_pad.dtype != torch.float64 or mu_pad.dtype != torch.float64:
+    if x_pad.dtype not in _ENTRIES or mu_pad.dtype != x_pad.dtype:
         raise TypeError(
-            f"covgram_screen: the CUDA kernel takes float64, got {x_pad.dtype}/{mu_pad.dtype}"
+            "covgram_screen: the CUDA kernel takes float64 or float32 x and mu of one "
+            f"dtype, got {x_pad.dtype}/{mu_pad.dtype}"
         )
     N, P = x_pad.shape
     if mu_pad.shape != (P,) or mu_pad.device != dev or P % block_p:
@@ -128,14 +139,14 @@ def covgram_screen_tiles(
     stats = torch.empty((B, 2), dtype=x_pad.dtype, device=dev)
     if B == 0:
         return vals, counts, stats
-    acc = _accumulators(dev, B)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     other = dev.index != torch.cuda.current_device()
-    with torch.cuda.device(dev) if other else contextlib.nullcontext():
-        status = _launcher()(
+    with _LOCK, torch.cuda.device(dev) if other else contextlib.nullcontext():
+        acc = _accumulators(dev, stream, B)
+        status = _launcher(_ENTRIES[x_pad.dtype])(
             x_pad.data_ptr(), mu_pad.data_ptr(), i_idx.data_ptr(), j_idx.data_ptr(),
             vals.data_ptr(), counts.data_ptr(), stats.data_ptr(), acc.data_ptr(), B, N, P,
-            block_p, int(n_true), int(p_true), float(lam),
-            torch._C._cuda_getCurrentRawStream(dev.index),
+            block_p, int(n_true), int(p_true), float(lam), stream,
         )
     check(status, "covgram_screen")
     bump("kernels.covgram_screen.launches")

@@ -29,10 +29,15 @@ _BODIES = {
     torch.bfloat16: "flash_attention_wgmma_launch_bf16",
 }
 #: the head dims each body has an instance for (wgmma's depth is 16 bf16
-#: values; the float32 body takes multiples of 32)
-HEAD_DIMS = {torch.float32: (32, 64, 96, 128), torch.bfloat16: (16, 32, 64, 128)}
+#: values; the float32 body takes multiples of 32).  Above 128: 192 is
+#: DeepSeek-V2's query-key width (qk_nope_dim + qk_rope_dim) and 256 is
+#: wgmma's widest n; float32 adds 160
+HEAD_DIMS = {
+    torch.float32: (32, 64, 96, 128, 160, 192, 256),
+    torch.bfloat16: (16, 32, 64, 128, 192, 256),
+}
 #: the largest head dim the kernel takes
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def instance_head_dim(d: int, dtype: torch.dtype) -> int:

@@ -11,16 +11,18 @@ A call on the card is one kernel launch and nothing else: the cross-block
 sums finish inside the same launch, the outputs (Z_new, U_new, rp2, rd2)
 are views of one allocation the kernel writes whole, and the partials, the
 shared-memory shape's work region and the per-lane counters live in a
-scratch buffer cached per (device, dtype) that only grows.  The counters
-are zeroed once, when the buffer is allocated, and every launch leaves
-them at zero.  Sharing the buffer between calls is safe because launches
-on one stream run in order and the ADMM calls from one stream; calls on
-two streams at once would need a buffer each."""
+scratch buffer cached per (device, dtype, stream) that only grows.  The
+counters are zeroed once, when the buffer is allocated, and every launch
+leaves them at zero.  Calls on one stream share a buffer because its
+launches run in order; each stream has its own, and a lock keeps one
+thread's lookup and launch from interleaving with another's (the server
+solves on its batcher thread and on callers' threads at once)."""
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import torch
 
@@ -33,8 +35,11 @@ from repro_torch.kernels.joint_prox.ref import PENALTIES, joint_prox_ref
 #: shared-memory shape, which takes any K
 MAX_CLASSES = 16
 
-#: (device, dtype) -> (partials and work region, per-lane counters)
-_SCRATCH: dict[tuple[torch.device, torch.dtype], tuple[torch.Tensor, torch.Tensor]] = {}
+#: (device, dtype, raw stream) -> (partials and work region, per-lane
+#: counters)
+_SCRATCH: dict[tuple[torch.device, torch.dtype, int], tuple[torch.Tensor, torch.Tensor]] = {}
+#: held from a call's scratch lookup until its launch is enqueued
+_LOCK = threading.Lock()
 
 
 @functools.cache
@@ -44,15 +49,17 @@ def scratch_values(n: int, K: int, b: int, smem_shape: bool, itemsize: int) -> i
     return int(library().joint_prox_scratch_values(n, K, b, int(smem_shape), itemsize))
 
 
-def scratch(dev: torch.device, dtype: torch.dtype, n: int, values: int):
-    """The cached (scratch, counters) for ``values`` values of ``dtype`` and
-    n zeroed int32 counters, reallocated only when a call needs more."""
-    buf, tickets = _SCRATCH.get((dev, dtype), (None, None))
+def scratch(dev: torch.device, dtype: torch.dtype, stream: int, n: int, values: int):
+    """One stream's cached (scratch, counters) for ``values`` values of
+    ``dtype`` and n zeroed int32 counters, reallocated only when a call
+    needs more; called under ``_LOCK``."""
+    key = (dev, dtype, stream)
+    buf, tickets = _SCRATCH.get(key, (None, None))
     if buf is None or buf.numel() < values:
         buf = torch.empty(values, dtype=dtype, device=dev)
     if tickets is None or tickets.numel() < n:
         tickets = torch.zeros(n, dtype=torch.int32, device=dev)
-    _SCRATCH[(dev, dtype)] = (buf, tickets)
+    _SCRATCH[key] = (buf, tickets)
     return buf, tickets
 
 
@@ -111,16 +118,16 @@ def joint_prox_step(
     if n == 0 or K == 0 or b == 0:
         return z_new, u_new, rp2.zero_(), rd2.zero_()
     smem_shape = K > MAX_CLASSES
-    buf, tickets = scratch(
-        dev, theta.dtype, n, scratch_values(n, K, b, smem_shape, theta.element_size())
-    )
+    values = scratch_values(n, K, b, smem_shape, theta.element_size())
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     other = dev.index != torch.cuda.current_device()
-    with torch.cuda.device(dev) if other else contextlib.nullcontext():
+    with _LOCK, torch.cuda.device(dev) if other else contextlib.nullcontext():
+        buf, tickets = scratch(dev, theta.dtype, stream, n, values)
         status = _launcher(suffix)(
             theta.data_ptr(), u.data_ptr(), z_old.data_ptr(), t.data_ptr(),
             z_new.data_ptr(), u_new.data_ptr(), rp2.data_ptr(), rd2.data_ptr(),
             buf.data_ptr(), tickets.data_ptr(), n, K, b, int(penalty == "fused"),
-            int(smem_shape), torch._C._cuda_getCurrentRawStream(dev.index),
+            int(smem_shape), stream,
         )
     check(status, "joint_prox")
     bump("kernels.joint_prox.launches")

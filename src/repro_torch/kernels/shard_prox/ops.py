@@ -11,16 +11,18 @@ A call on the card is one kernel launch and nothing else: t is read in
 place through a pointer and a lane stride (or passed by value for a Python
 scalar), the cross-block sums finish inside the same launch, and the
 partials and per-lane counters live in a scratch buffer cached per
-(device, dtype) that only grows.  The counters are zeroed once, when the
-buffer is allocated, and every launch leaves them at zero.  Sharing the
-buffer between calls is safe because launches on one stream run in order
-and both solvers call from one stream; calls on two streams at once would
-need a buffer each."""
+(device, dtype, stream) that only grows.  The counters are zeroed once,
+when the buffer is allocated, and every launch leaves them at zero.  Calls
+on one stream share a buffer because its launches run in order; each
+stream has its own, and a lock keeps one thread's lookup and launch from
+interleaving with another's (the server solves on its batcher thread and
+on callers' threads at once)."""
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import torch
 
@@ -31,21 +33,25 @@ from repro_torch.kernels.shard_prox.ref import fused_prox_ref
 #: entries a partial sum covers (a tile: ``kThreads`` in csrc/shard_prox.cu)
 TILE = 256
 
-#: (device, dtype) -> (partials, per-lane counters)
-_SCRATCH: dict[tuple[torch.device, torch.dtype], tuple[torch.Tensor, torch.Tensor]] = {}
+#: (device, dtype, raw stream) -> (partials, per-lane counters)
+_SCRATCH: dict[tuple[torch.device, torch.dtype, int], tuple[torch.Tensor, torch.Tensor]] = {}
+#: held from a call's scratch lookup until its launch is enqueued
+_LOCK = threading.Lock()
 
 
-def scratch(dev: torch.device, dtype: torch.dtype, n: int, entries: int):
-    """The cached (partials, counters) for n lanes of ``entries`` values:
-    2 n ceil(entries / TILE) values of ``dtype`` and n zeroed int32
-    counters, reallocated only when a call needs more."""
+def scratch(dev: torch.device, dtype: torch.dtype, stream: int, n: int, entries: int):
+    """One stream's cached (partials, counters) for n lanes of ``entries``
+    values: 2 n ceil(entries / TILE) values of ``dtype`` and n zeroed int32
+    counters, reallocated only when a call needs more; called under
+    ``_LOCK``."""
     values = 2 * n * -(-entries // TILE)
-    partial, tickets = _SCRATCH.get((dev, dtype), (None, None))
+    key = (dev, dtype, stream)
+    partial, tickets = _SCRATCH.get(key, (None, None))
     if partial is None or partial.numel() < values:
         partial = torch.empty(values, dtype=dtype, device=dev)
     if tickets is None or tickets.numel() < n:
         tickets = torch.zeros(n, dtype=torch.int32, device=dev)
-    _SCRATCH[(dev, dtype)] = (partial, tickets)
+    _SCRATCH[key] = (partial, tickets)
     return partial, tickets
 
 
@@ -93,18 +99,17 @@ def fused_prox_residual(
         return z_new, u_new, x.new_zeros(sums), x.new_zeros(sums)
     rp2 = torch.empty(sums, dtype=dtype, device=dev)
     rd2 = torch.empty(sums, dtype=dtype, device=dev)
-    partial, tickets = scratch(dev, dtype, n, entries)
+    # the device's current stream as a raw handle, as Triton's launcher
+    # reads it (torch.cuda.current_stream builds a Stream object each call)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
     other = dev.index != torch.cuda.current_device()
-    with torch.cuda.device(dev) if other else contextlib.nullcontext():
+    with _LOCK, torch.cuda.device(dev) if other else contextlib.nullcontext():
+        partial, tickets = scratch(dev, dtype, stream, n, entries)
         status = _launcher(suffix)(
             x.data_ptr(), uu.data_ptr(), zo.data_ptr(),
             None if t_x is None else t_x.data_ptr(), t_stride, t_value,
             z_new.data_ptr(), u_new.data_ptr(), rp2.data_ptr(), rd2.data_ptr(),
-            partial.data_ptr(), tickets.data_ptr(), n, entries,
-            # the device's current stream as a raw handle, as Triton's
-            # launcher reads it (torch.cuda.current_stream builds a Stream
-            # object each call)
-            torch._C._cuda_getCurrentRawStream(dev.index),
+            partial.data_ptr(), tickets.data_ptr(), n, entries, stream,
         )
     check(status, "shard_prox")
     bump("kernels.shard_prox.launches")

@@ -8,9 +8,8 @@ sub-blocks the solvers consume are computed.
 
     stream_screen          screen (X, lambda grid) out-of-core
     plan_path_streaming    screen once + plan a whole descending lambda path
+    DataSession            incremental re-screen for appended data rows
     StreamConfig           tile/batch/memory-budget knobs
-
-The serving ``DataSession`` comes with a later slice.
 """
 
 from repro_torch.stream.config import StreamConfig, as_config
@@ -21,6 +20,7 @@ from repro_torch.stream.materialize import (
 )
 from repro_torch.stream.path import plan_path_from_screen, plan_path_streaming
 from repro_torch.stream.screen import StreamScreen, stream_screen
+from repro_torch.stream.session import DataSession, SessionUpdate
 
 __all__ = [
     "StreamConfig",
@@ -32,4 +32,6 @@ __all__ = [
     "stream_screen",
     "plan_path_from_screen",
     "plan_path_streaming",
+    "DataSession",
+    "SessionUpdate",
 ]

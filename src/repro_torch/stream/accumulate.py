@@ -11,8 +11,8 @@ without recomputing it:
 
 A tile whose [max_below + delta, min_above - delta] interval still brackets
 lam after an update provably kept its edge SET (weights may be stale, the
-partition at lam is not) — what the reference's ``DataSession`` re-screen
-of appended data rows checks (not ported yet).
+partition at lam is not) — what ``DataSession``'s re-screen of appended
+data rows checks.
 """
 
 from __future__ import annotations

@@ -59,7 +59,7 @@ class StreamConfig:
 
     def resolved_pair_batch(self, itemsize: int) -> int:
         """Tile pairs per kernel call; ``itemsize`` is the real element size
-        of the tiles (8 for float64 — the port's kernel is float64)."""
+        of the tiles (8: the screen promotes X to float64)."""
         if self.memory_budget_mb is None:
             return max(1, int(self.pair_batch))
         budget = self.memory_budget_mb * 2**20

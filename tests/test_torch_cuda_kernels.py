@@ -523,16 +523,74 @@ def test_covgram_screen_call_is_one_device_event(cuda_device):
         assert float((got[0] - want[0]).abs().max()) <= 1e-12 * scale
         assert float((got[2] - want[2]).abs().max()) <= 1e-12 * scale
         assert torch.equal(got[1], want[1])
-        assert int(_ACC[x_pad.device].abs().sum()) == 0
+        stream = torch.cuda.current_stream().cuda_stream
+        assert int(_ACC[(x_pad.device, stream)].abs().sum()) == 0
+
+
+# the float32 body sums float32 FMAs in row order where the plain version
+# runs the library's float32 product: integer data whose Gram sums are
+# exact in float32 (n = 64, a power of two, so the division is exact too)
+# agrees bit for bit; Gaussian data within 1e-5 of max|S| in vals and
+# stats, with edges and counts equal except at entries within 1e-5 max|S|
+# of lam (counted; a diagonal tile pair holds both orientations of an
+# entry).  tile 33 takes the 4-byte copy path.
+@pytest.mark.parametrize("tile", [33, 64, 128, 512])
+@pytest.mark.parametrize("integer", [True, False])
+def test_covgram_screen_float32_matches_plain(cuda_device, tile, integer):
+    from repro_torch.kernels.covgram_screen import covgram_screen_ref, covgram_screen_tiles
+
+    rng = np.random.default_rng(100 + tile)
+    n, p = (64, 300) if integer else (100, 300)
+    if integer:
+        X = rng.integers(-2, 3, size=(n, p)).astype(np.float32)
+    else:
+        X = (rng.standard_normal((n, p)) * (0.1 + rng.random(p))).astype(np.float32)
+    x_pad, mu_pad, ti, tj = _screen_inputs(X, tile, chunk=67)
+    assert x_pad.dtype == mu_pad.dtype == torch.float32
+    S = np.abs(np.cov(X.astype(np.float64), rowvar=False, bias=True))
+    vals = np.unique(S[np.triu_indices(p, 1)])
+    lam = float(vals[int(0.9 * vals.size)])  # an existing |S_ij|, up to rounding
+    instrument.reset("kernels.")
+    got = covgram_screen_tiles(x_pad, mu_pad, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    want = covgram_screen_ref(x_pad, mu_pad, ti, tj, lam, n_true=n, p_true=p, block_p=tile)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.covgram_screen.launches") == 1
+    assert got[0].dtype == got[2].dtype == torch.float32
+    if integer:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        return
+    scale = float(want[2][:, 0].max())
+    tol = 1e-5 * scale
+    assert float((got[2] - want[2]).abs().max()) <= tol
+    # vals agree where both are edges; elsewhere only at entries near lam
+    both = (got[0] != 0) & (want[0] != 0)
+    assert float((got[0] - want[0])[both].abs().max()) <= tol
+    near = (want[0] - got[0]).abs() > 0
+    near &= ~both
+    dense = covgram_screen_ref(x_pad.double(), mu_pad.double(), ti, tj, 0.0, n_true=n,
+                               p_true=p, block_p=tile)[0].abs()
+    near_lam = ((dense - lam).abs() < tol).to(cuda_device)
+    assert bool((near <= near_lam).all())
+    n_near = int(near_lam.sum())
+    # the exemption stays a sliver of the comparison: at most 1 in 1000
+    assert n_near <= near_lam.numel() // 1000, n_near
+    assert int((got[1] - want[1]).abs().sum()) <= n_near
 
 
 def test_covgram_screen_rejects_what_the_kernel_does_not_take(cuda_device):
     from repro_torch.kernels.covgram_screen import covgram_screen_tiles
 
-    x = torch.zeros((8, 16), dtype=torch.float32, device=cuda_device)
-    mu = torch.zeros(16, dtype=torch.float32, device=cuda_device)
-    with pytest.raises(TypeError, match="float64"):
+    x = torch.zeros((8, 16), dtype=torch.float16, device=cuda_device)
+    mu = torch.zeros(16, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError, match="float64 or float32"):
         covgram_screen_tiles(x, mu, [0], [0], 0.1, n_true=8, p_true=16, block_p=16)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        covgram_screen_tiles(x.int(), mu.int(), [0], [0], 0.1, n_true=8, p_true=16,
+                             block_p=16)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        covgram_screen_tiles(x.float(), mu.double(), [0], [0], 0.1, n_true=8, p_true=16,
+                             block_p=16)
     with pytest.raises(ValueError, match="multiple of block_p"):
         covgram_screen_tiles(x.double(), mu.double(), [0], [0], 0.1, n_true=8,
                              p_true=16, block_p=12)
@@ -735,7 +793,8 @@ def test_joint_prox_scratch_is_reused_across_shapes(cuda_device):
                 for g, w in zip(got[2:], want[2:]):
                     assert g.shape == w.shape == (n,)
                     np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
-                _, tickets = _SCRATCH[(ops[0].device, dtype)]
+                stream = torch.cuda.current_stream().cuda_stream
+                _, tickets = _SCRATCH[(ops[0].device, dtype, stream)]
                 assert int(tickets.abs().sum()) == 0
 
 
@@ -883,7 +942,8 @@ def test_shard_prox_scratch_is_reused_across_lane_counts_and_sizes(cuda_device):
             for g, w in zip(got[2:], want[2:]):
                 assert g.shape == w.shape
                 np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=rtol)
-            _, tickets = _SCRATCH[(x.device, dtype)]
+            stream = torch.cuda.current_stream().cuda_stream
+            _, tickets = _SCRATCH[(x.device, dtype, stream)]
             assert int(tickets.abs().sum()) == 0
 
 
@@ -1147,6 +1207,30 @@ def test_flash_attention_matches_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d, caus
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+# head dims above 128: float32's own instances at 160, 192 and 256 (d = 256
+# as two blocks of 128 output columns each), bf16's at 192 and 256; d = 129
+# runs padded (to 160 in float32, 192 in bf16).  The same tolerances.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [129, 160, 192, 256])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(1, 4, 4, 150, 170), (2, 4, 2, 100, 130)])
+def test_flash_attention_wide_head_dims_match_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d,
+                                                    causal, dtype):
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+
+    rng = np.random.default_rng(d * 10 + Hkv)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), device=cuda_device).to(dtype)
+               for s in ((B, Hq, Sq, d), (B, Hkv, Skv, d), (B, Hkv, Skv, d)))
+    instrument.reset("kernels.")
+    got = flash_attention(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.flash_attention.launches") == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_takes_unaligned_and_strided_views(cuda_device, dtype):
     """Views starting off a 16-byte boundary, and a non-contiguous q, run
@@ -1180,8 +1264,8 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="head_dim 160"):
-        z = torch.zeros((1, 4, 8, 160), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 257"):
+        z = torch.zeros((1, 4, 8, 257), device=cuda_device)
         flash_attention(z, z, z)
     with pytest.raises(AssertionError, match="multiple of Hkv"):
         flash_attention(q, q[:, :3], q[:, :3])
@@ -1234,3 +1318,132 @@ def test_bf16_prefill_runs_the_wgmma_body(cuda_device):
     assert torch.isfinite(logits.float()).all()
     scale = float(dense.float().abs().max())
     assert float((logits.float() - dense.float()).abs().max()) <= 5e-2 * scale
+
+
+# ----------------------------------------------------- scratch under threads
+
+
+def _thread_calls(calls, *, side_stream: bool):
+    """Run ``calls`` (closures) 50 times from each of two threads at once,
+    the second on a stream of its own when ``side_stream``; returns each
+    thread's results."""
+    import threading
+
+    out: list[list] = [[], []]
+    errors: list[BaseException] = []
+    streams = [None, torch.cuda.Stream() if side_stream else None]
+    start = torch.cuda.current_stream()
+    barrier = threading.Barrier(2)
+
+    def work(slot):
+        try:
+            st = streams[slot]
+            if st is not None:
+                st.wait_stream(start)
+            with torch.cuda.stream(st) if st is not None else torch.cuda.device(0):
+                barrier.wait(timeout=60)
+                for _ in range(50):
+                    out[slot].append([fn() for fn in calls])
+                torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("side_stream", [False, True])
+def test_scratch_wrappers_are_safe_from_two_threads(cuda_device, side_stream):
+    """covgram_screen, joint_prox and shard_prox keep scratch per (device,
+    stream) and enqueue under a lock: two threads x 50 calls of each, on
+    one stream or on two, give the bits of the same calls made from one
+    thread, and every launch is counted."""
+    from repro_torch.kernels.covgram_screen import covgram_screen_tiles
+    from repro_torch.kernels.joint_prox import joint_prox_step
+    from repro_torch.kernels.shard_prox import fused_prox_residual
+
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((90, 700))
+    x_pad, mu_pad, ti, tj = _screen_inputs(X, 128)
+    i_dev, j_dev = (torch.as_tensor(a, device=cuda_device) for a in (ti, tj))
+    jops = _joint_lanes(rng, 7, 4, 40, cuda_device)
+    sx, su, sz = (torch.as_tensor(rng.standard_normal((6, 64, 64)), device=cuda_device)
+                  for _ in range(3))
+    st = torch.as_tensor(rng.uniform(0.05, 1.0, 6), device=cuda_device)
+    calls = [
+        lambda: covgram_screen_tiles(x_pad, mu_pad, i_dev, j_dev, 0.1, n_true=90,
+                                     p_true=700, block_p=128),
+        lambda: joint_prox_step(*jops, penalty="group"),
+        lambda: fused_prox_residual(sx, su, sz, st),
+    ]
+    want = [fn() for fn in calls]
+    torch.cuda.synchronize()
+    instrument.reset("kernels.")
+    got = _thread_calls(calls, side_stream=side_stream)
+    for name in ("covgram_screen", "joint_prox", "shard_prox"):
+        assert instrument.count(f"kernels.{name}.launches") == 100
+    for per_thread in got:
+        assert len(per_thread) == 50
+        for results in per_thread:
+            for g, w in zip(results, want):
+                for a, b in zip(g, w):
+                    assert torch.equal(a, b)
+
+
+def test_glasso_server_serves_concurrent_submissions_on_the_card(cuda_device):
+    """Two client threads submit at once to one ``GlassoServer`` on the
+    card: a data request (the covgram_screen kernel on the caller's
+    thread), a closed-form request (the admission fast path, tree_glasso
+    on the caller's thread) and two requests with general blocks (the
+    batcher thread, bucket_glasso).  Every result has the bits of its
+    direct solve on the card."""
+    import threading
+
+    from repro_torch.covariance import structured_synthetic
+    from repro_torch.launch.control_plane import DataSpec, DenseSpec
+    from repro_torch.launch.serve_glasso import GlassoServer
+
+    rng = np.random.default_rng(3)
+    S_gen = structured_synthetic(20, 24, seed=0)
+    S_tree = np.eye(12) * 2.0
+    for i in range(11):
+        S_tree[i, i + 1] = S_tree[i + 1, i] = rng.uniform(0.5, 0.8)
+    X = rng.standard_normal((64, 300)) * (0.1 + rng.random(300))
+    specs = [[DenseSpec(S_gen, 0.6), DataSpec(X, 0.2, stream={"tile": 128, "chunk": 64})],
+             [DenseSpec(S_gen, 0.62), DenseSpec(S_tree, 0.3)]]
+    results: dict = {}
+    errors: list = []
+    instrument.reset("kernels.")
+    with GlassoServer(max_delay=0.05) as server:
+        def client(t):
+            try:
+                futs = [server.submit(spec) for spec in specs[t]]
+                results[t] = [f.result(timeout=300) for f in futs]
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    assert not errors and not any(th.is_alive() for th in threads)
+    for name in ("tree_glasso", "bucket_glasso", "covgram_screen"):
+        assert instrument.count(f"kernels.{name}.launches") > 0, name
+    direct = [[repro_torch.glasso(S_gen, 0.6),
+               repro_torch.glasso(X=X, lam=0.2, from_data=True,
+                                  stream={"tile": 128, "chunk": 64})],
+              [repro_torch.glasso(S_gen, 0.62), repro_torch.glasso(S_tree, 0.3)]]
+    for t in range(2):
+        for got, want in zip(results[t], direct[t]):
+            assert np.array_equal(got.labels, want.labels)
+            assert got.route_mix == want.route_mix
+            assert np.array_equal(got.Theta, want.Theta)

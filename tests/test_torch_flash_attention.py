@@ -162,13 +162,14 @@ def test_wrapper_asserts_grouped_heads_and_rejects_other_devices():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [4, 12, 80, 96])
+@pytest.mark.parametrize("d", [4, 12, 80, 96, 192])
 def test_padded_head_dim_matches_reference_kernel(d, causal, dtype):
     """The card runs d off its instances padded with zero columns to the
     next one, at the unpadded d's scale: the plain version on the padded
     tensors, sliced back, against the reference's kernel at d itself (GQA,
     ragged cross lengths).  The padded output columns are exactly zero.
-    (float32 d = 96 has an instance of its own: its padding is none.)"""
+    (float32 d = 96, and d = 192 in both dtypes, DeepSeek-V2's query-key
+    width, have instances of their own: their padding is none.)"""
     (q, k, v), (jq, jk, jv) = _both(_inputs(7, 1, 4, 2, 40, 56, d), dtype)
     to = instance_head_dim(d, dtype)
     qp, kp, vp = pad_head_dim(q, k, v, to)
@@ -183,10 +184,11 @@ def test_padded_head_dim_matches_reference_kernel(d, causal, dtype):
 
 def test_instance_head_dims():
     """Each dtype's body runs d on its smallest instance at or above d;
-    none takes d outside 1 .. 128."""
+    none takes d outside 1 .. 256."""
     want = {1: (32, 16), 4: (32, 16), 12: (32, 16), 16: (32, 16), 17: (32, 32),
             32: (32, 32), 33: (64, 64), 64: (64, 64), 80: (96, 128), 96: (96, 128),
-            97: (128, 128), 128: (128, 128)}
+            97: (128, 128), 128: (128, 128), 129: (160, 192), 160: (160, 192),
+            161: (192, 192), 192: (192, 192), 193: (256, 256), 256: (256, 256)}
     for d, (f32, bf16) in want.items():
         assert instance_head_dim(d, torch.float32) == f32
         assert instance_head_dim(d, torch.bfloat16) == bf16
@@ -197,10 +199,11 @@ def test_instance_head_dims():
 
 
 def test_head_dim_above_128_raises_off_the_cpu():
-    """d = 160 has no instance: a tensor off the CPU raises ValueError naming
-    d before any device dispatch (the plain version on the CPU takes any d)."""
-    m = torch.zeros((1, 4, 8, 160), device="meta")
-    with pytest.raises(ValueError, match="head_dim 160"):
+    """d = 257, above ``MAX_HEAD_DIM`` (256), has no instance: a tensor off
+    the CPU raises ValueError naming d before any device dispatch (the
+    plain version on the CPU takes any d)."""
+    m = torch.zeros((1, 4, 8, 257), device="meta")
+    with pytest.raises(ValueError, match="head_dim 257"):
         flash_attention(m, m, m)
-    c = torch.zeros((1, 4, 8, 160))
+    c = torch.zeros((1, 4, 8, 257))
     assert flash_attention(c, c, c).shape == c.shape

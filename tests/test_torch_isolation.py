@@ -34,6 +34,9 @@ import repro_torch.engine.planner, repro_torch.engine.executor, repro_torch.stre
 import repro_torch.engine.waves, repro_torch.core.blocks, repro_torch.core.partition
 import repro_torch.select.grid, repro_torch.select.homotopy, repro_torch.select.criteria
 import repro_torch.select.report, repro_torch.select.cv, repro_torch.select.stability
+import repro_torch.stream.session, repro_torch.launch.control_plane
+import repro_torch.launch.serve_glasso, repro_torch.launch
+repro_torch.launch.GlassoServer, repro_torch.launch.DenseSpec
 for arch in repro_torch.configs.list_archs():
     repro_torch.configs.get_arch(arch)
 import chip_smoke
