@@ -13,8 +13,9 @@ Phases, each printing a line:
 1b. flash_attention  the kernel against its plain version at the
              prefill's shape in float32 and bf16, a ragged length and full
              MHA in both, MQA, a long causal case (against the plain
-             chunked form), Phi-3-mini's d = 96 (its own instance) and head
-             dims 192 (DeepSeek-V2-Lite's query-key width) and 256, timed
+             chunked form), Phi-3-mini's d = 96 (its own instance), head
+             dims 192 (DeepSeek-V2-Lite's query-key width) and 256, and
+             320 and 512 (each body's wide instance), timed
              beside its bound, the plain version and SDPA, with the
              profiler's device time of each case (run first, while the
              profiler is fresh: after sessions of thousands of events it
@@ -130,6 +131,18 @@ Phases, each printing a line:
              also run through the kernels' float32 instances (float32
              copies of the same inputs, held to the float32 plain versions)
              and are timed (ms_f32);
+16b. multidevice  the paper pillar over a mesh of 4 devices, here
+             [cuda:0] * 4 (every shard's launches and every copy between
+             shards on the one card): [large_scale]'s R screened through
+             "shard_map" (labels equal to "pallas"', 4 row-slab
+             threshold_cc launches a round, one slab past row 0 held to
+             its plain version and timed beside its bound, ms against the
+             one-device screen); [oversize]'s giant block at d = 4 warm
+             from the d = 1 solution (padded to sharded_pad_size(b, 4),
+             the in-place KKT, Theta within 1e-6 max|Theta| of d = 1, 4
+             shard_prox launches an outer iteration); [main]'s p = 6000
+             solve through Engine(devices=[cuda:0] * 4), Theta bit-equal
+             to the one-device solve, its buckets placed on all 4 indices;
 17. shard_prox  the first, a middle and the last shard_prox launch of the
              [admm] and [oversize] solves, held against the plain version
              (rp2/rd2 also against a second call, bit for bit) and timed;
@@ -271,6 +284,8 @@ from repro_torch.core.components import (  # noqa: E402
     partitions_equal,
 )
 from repro_torch.core.distributed import device_memory_budget_mb  # noqa: E402
+from repro_torch.core.solvers.sharded import glasso_sharded, sharded_pad_size  # noqa: E402
+from repro_torch.engine.executor import BucketExecutor  # noqa: E402
 from repro_torch.core.partition import lambda_for_max_component  # noqa: E402
 from repro_torch.core.screening import count_edges, thresholded_components  # noqa: E402
 from repro_torch.core.solvers.bcd import convergence_scale  # noqa: E402
@@ -300,6 +315,8 @@ from repro_torch.kernels.covgram_screen import (  # noqa: E402
 from repro_torch.kernels.covgram_screen.ops import MMA  # noqa: E402
 from repro_torch.kernels.threshold_cc import (  # noqa: E402
     connected_components_kernel,
+    labelprop_rows,
+    labelprop_rows_ref,
     labelprop_step,
     labelprop_step_ref,
 )
@@ -487,11 +504,19 @@ FLASH_CASES = (
     ("deepseek_qk", 2, 16, 16, 2048, 2048, 192, True, torch.bfloat16),
     ("d256", 2, 16, 16, 2048, 2048, 256, True, torch.float32),
     ("d256", 2, 16, 16, 2048, 2048, 256, True, torch.bfloat16),
+    # above 256, the wide instances (O in blocks of 128 columns, q . k over
+    # d in chunks of 128), at batch 1
+    ("d320", 1, 16, 16, 2048, 2048, 320, True, torch.float32),
+    ("d320", 1, 16, 16, 2048, 2048, 320, True, torch.bfloat16),
+    ("d512", 1, 16, 16, 2048, 2048, 512, True, torch.float32),
+    ("d512", 1, 16, 16, 2048, 2048, 512, True, torch.bfloat16),
 )
 #: flash_attention's instances: (body, head dim), body 0 the fp32 body and
-#: 1 the wgmma body (``flash_attention_instance_info``)
+#: 1 the wgmma body (``flash_attention_instance_info``); d = 320 names each
+#: body's wide instance (every d above 256)
 FLASH_INSTANCES = ((0, 32), (0, 64), (0, 96), (0, 128), (0, 160), (0, 192), (0, 256),
-                   (1, 16), (1, 32), (1, 64), (1, 128), (1, 192), (1, 256))
+                   (0, 320), (1, 16), (1, 32), (1, 64), (1, 128), (1, 192), (1, 256),
+                   (1, 320))
 # [path] / [path_kernels] / [select]: benchmarks/bench_select.py's workload
 # at its own size, structured_synthetic(60, 40, tree_frac=0.2,
 # chordal_frac=0.2, seed=1) (p = 2400), 20 lambdas linspace(0.75, 0.32),
@@ -532,6 +557,13 @@ SERVE_APPEND_RTOL = 1e-5
 FUSED_SIZES = (4, 5, 6, 7, 10, 14, 22, 27, 40, 63)
 FUSED_LAM = 0.25
 
+
+#: [multidevice]: d row shards on the one card (cuda:0 repeated), every
+#: shard's work and every copy between shards on that card
+MULTI_D = 4
+#: the giant block at d = MULTI_D starts from the d = 1 solution at this
+#: multiple of its lambda, never from the answer it is held to
+GIANT_NEIGHBOUR = 1.05
 
 T_START = time.perf_counter()
 
@@ -701,7 +733,8 @@ def phase_build() -> None:
 #: off the instances, unaligned views, K above 113, scratch reuse,
 #: bit-identical sums, b at each shared-memory limit, every form of t)
 CARD_TESTS = ("flash_attention or covgram_screen or joint_prox or bucket_glasso or prox_l1"
-              " or covgram or tree_glasso or scratch_wrappers or glasso_server")
+              " or covgram or tree_glasso or scratch_wrappers or glasso_server"
+              " or threshold_cc_row_slab")
 
 
 #: card-test processes run side by side: the bucket_glasso tests spend
@@ -2212,7 +2245,8 @@ def phase_oversize() -> tuple[dict, dict]:
             f"[oversize] route mix {res.route_mix}: expected one oversize block")
     if res.oversize.get("dispatched") != 1 or res.oversize.get("fallbacks") != 0:
         raise AssertionError(f"[oversize] {res.oversize}: expected 1 dispatch, 0 fallbacks")
-    (S_pad, *_), _, sol = solves[0]
+    (S_shards, *_), _, sol = solves[0]
+    (S_pad,) = S_shards  # one row shard on one card
     kkt_bound = ROUTE_CHECK_TOL * max(1.0, sol.s_max)
     if not sol.kkt_residual <= kkt_bound:
         raise AssertionError(f"[oversize] in-place KKT {sol.kkt_residual} > {kkt_bound}")
@@ -2257,9 +2291,179 @@ def phase_oversize() -> tuple[dict, dict]:
     log("oversize_split", bp=S_pad.shape[0],
         ns_steps_per_iteration=f"{sol.inner_iters / sol.iters:.2f}",
         **{k: f"{v:.4f}" for k, v in split.items()})
-    del solves, dense_calls, S_pad, mid_args
+    del solves, dense_calls, S_pad, S_shards, mid_args
     torch.cuda.empty_cache()
-    return launches, kept
+    comp = max(component_lists(components_from_covariance_host(S, lam)), key=len)
+    giant = dict(block=S[np.ix_(comp, comp)], lam=lam, theta=sol.Theta, sol=sol,
+                 solve_s=res.stages()["solve"], dense=dense.Theta[np.ix_(comp, comp)],
+                 dense_bound=theta_bound)
+    return launches, kept, giant
+
+
+def row_slab_case(call: tuple) -> dict:
+    """One recorded row-slab threshold_cc launch of the sharded screen (a
+    shard past row 0): the kernel against its plain version on the same
+    slab, and both timed beside the slab's bound (the slab read once)."""
+    (S_rows, labels, lam, row0), _ = call
+    got = labelprop_rows(S_rows, labels, lam, row0)
+    want = labelprop_rows_ref(S_rows, labels, lam, row0)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"[multidevice] the row-slab step at row0={row0} differs from plain")
+    rows, pp = S_rows.shape
+    return dict(shape=[rows, pp], row0=row0, max_abs_err=0.0,
+                ms=cuda_ms(lambda: labelprop_rows(S_rows, labels, lam, row0), 10),
+                plain_ms=cuda_ms(lambda: labelprop_rows_ref(S_rows, labels, lam, row0), 2),
+                bound_ms=rows * pp * S_rows.element_size() / HBM_BYTES_PER_S * 1e3)
+
+
+def phase_multidevice(large: dict, giant: dict, S_main: np.ndarray, lam_main: float,
+                      main_res) -> dict:
+    """The paper pillar over a mesh of MULTI_D devices, here MULTI_D row
+    shards on the one card (``[cuda:0] * 4``): every shard's kernels run
+    there and every copy between shards is a device copy; NVLink between
+    cards is not measured.
+
+    1. screen: [large_scale]'s R (p = 16000, float64, four slabs of 512 MB)
+       through ``"shard_map"`` at its capacity lambda: labels equal to the
+       ``"pallas"`` backend's, MULTI_D row-slab launches a round, ms
+       against the one-device screen; one row-slab launch past row 0 held
+       to its plain version and timed beside its bound;
+    2. oversize: [oversize]'s giant block at d = MULTI_D, warm-started from
+       the d = 1 solution at GIANT_NEIGHBOUR * lambda (a start far from the
+       answer): padded to ``sharded_pad_size(b, d)``, in-place KKT within
+       route_check_tol * max(1, s_max), Theta within 1e-6 max|Theta| of
+       d = 1 and within [oversize]'s bound of its dense admm solve, MULTI_D
+       shard_prox launches an outer iteration, the first, a middle and the
+       last of them on their (bp/d, bp) shards held to the plain version;
+    3. buckets: [main]'s p = 6000 solve through ``Engine(devices=mesh)``:
+       Theta bit-equal to the one-device solve, its buckets LPT-placed over
+       all MULTI_D indices.
+    Launch counters are zeroed just before each case and read just after."""
+    mesh = [DEV] * MULTI_D
+    out = {}
+
+    # 1. the row-sharded screen
+    R, lam = large["R"], large["lam"]
+    torch.cuda.synchronize()
+    instrument.reset("kernels.")
+    instrument.reset("screen.")
+    with record_calls("repro_torch.kernels.threshold_cc.ops", "labelprop_rows") as slabs:
+        t0 = time.perf_counter()
+        labels, stats = thresholded_components(R, lam, backend="shard_map", mesh=mesh)
+        t_shard = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    rounds = instrument.count("screen.labelprop_rounds")
+    n_slab = launches.get("threshold_cc.launches", 0)
+    if n_slab != MULTI_D * rounds or len(slabs) != n_slab:
+        raise AssertionError(f"[multidevice] {n_slab} row-slab launches for {rounds} rounds")
+    if not np.array_equal(labels, large["labels"]):
+        raise AssertionError("[multidevice] the shard_map screen's labels differ from pallas'")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    thresholded_components(R, lam, backend="pallas", device=DEV)
+    t_one = time.perf_counter() - t0
+    slab = row_slab_case(slabs[-1])
+    del slabs
+    torch.cuda.empty_cache()
+    log("multidevice", case="screen", d=MULTI_D, p=R.shape[0], lam=f"{lam:.6g}",
+        rounds=rounds, row_slab_launches=n_slab, n_components=stats.n_components,
+        n_edges=stats.n_edges, labels_equal_pallas=True,
+        ms=f"{t_shard * 1e3:.1f}", one_device_ms=f"{t_one * 1e3:.1f}",
+        slab=json.dumps(slab["shape"]), slab_row0=slab["row0"], slab_ms=f"{slab['ms']:.4f}",
+        slab_plain_ms=f"{slab['plain_ms']:.4f}", slab_bound_ms=f"{slab['bound_ms']:.4f}")
+    out["screen"] = dict(launches=n_slab, rounds=rounds, **slab)
+
+    # 2. the giant block at d shards, from the neighbouring lambda's d = 1
+    # solution
+    B, theta1, sol1 = giant["block"], giant["theta"], giant["sol"]
+    b, lam_g = B.shape[0], giant["lam"]
+    theta_bound = 1e-6 * float(np.abs(theta1).max())
+    t0 = time.perf_counter()
+    start = glasso_sharded(B, GIANT_NEIGHBOUR * lam_g, mesh=[DEV], Theta0=theta1,
+                           kkt_target=ROUTE_CHECK_TOL)
+    start_s = time.perf_counter() - t0
+    start_gap = float(np.abs(start.Theta - theta1).max())
+    if not start_gap > 1000 * theta_bound:
+        raise AssertionError(f"[multidevice] the start is {start_gap} from the answer")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    instrument.reset("kernels.")
+    with record_prox_launches("repro_torch.core.solvers.sharded", "fused_prox_residual") as kept:
+        t0 = time.perf_counter()
+        sol = glasso_sharded(B, lam_g, mesh=mesh, Theta0=start.Theta, kkt_target=ROUTE_CHECK_TOL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    peak = torch.cuda.max_memory_allocated()
+    if (sol.padded, sol.n_shards) != (sharded_pad_size(b, MULTI_D), MULTI_D):
+        raise AssertionError(f"[multidevice] padded {sol.padded} on {sol.n_shards} shards")
+    kkt_bound = ROUTE_CHECK_TOL * max(1.0, sol.s_max)
+    if not sol.kkt_residual <= kkt_bound:
+        raise AssertionError(f"[multidevice] in-place KKT {sol.kkt_residual} > {kkt_bound}")
+    diff = float(np.abs(sol.Theta - theta1).max())
+    if not diff <= theta_bound:
+        raise AssertionError(f"[multidevice] max|Theta_d - Theta_1| = {diff} > {theta_bound}")
+    diff_dense = float(np.abs(sol.Theta - giant["dense"]).max())
+    if not diff_dense <= giant["dense_bound"]:
+        raise AssertionError(
+            f"[multidevice] max|Theta_d - Theta_dense| = {diff_dense} > {giant['dense_bound']}")
+    n_prox = launches.get("shard_prox.launches", 0)
+    if n_prox != MULTI_D * sol.iters or kept["n"] != n_prox:
+        raise AssertionError(f"[multidevice] {launches} for {sol.iters} outer iterations")
+    sp = shard_prox_on_path(kept)
+    if {tuple(shape[1:]) for shape in sp["shapes"]} != {(sol.padded // MULTI_D, sol.padded)}:
+        raise AssertionError(f"[multidevice] shard_prox checked on shapes {sp['shapes']}")
+    del kept
+    torch.cuda.empty_cache()
+    log("multidevice", case="oversize", d=MULTI_D, b=b, padded=sol.padded,
+        padded_d1=sol1.padded, start=f"d = 1 at {GIANT_NEIGHBOUR} lam", start_iters=start.iters,
+        start_s=f"{start_s:.3f}", start_gap=start_gap, iters=sol.iters,
+        iters_d1_cold=sol1.iters, inner_iters=sol.inner_iters, retries=sol.retries,
+        shard_prox_launches=n_prox, kkt_inplace=sol.kkt_residual, kkt_bound=kkt_bound,
+        theta_vs_d1=diff, theta_bound=theta_bound, theta_vs_dense=diff_dense,
+        theta_dense_bound=giant["dense_bound"], device_bytes=sol.device_bytes,
+        max_memory_allocated=peak, wall_s=f"{wall:.3f}",
+        s_per_iter=f"{wall / max(sol.iters, 1):.5f}",
+        s_per_iter_d1=f"{giant['solve_s'] / max(sol1.iters, 1):.5f}")
+    log_shard_prox("multidevice", sp, launches)
+    out["oversize"] = dict(
+        launches=n_prox, iters=sol.iters, launches_checked=sp["n"], shapes=sp["shapes"],
+        max_abs_err=sp["err"], rel_err_sums=sp["rel_sums"], ms=sp["ms"],
+        plain_ms=sp["plain_ms"], bound_ms=sp["bound_ms"], library_ms=sp["library_ms"])
+
+    # 3. the buckets placed over the mesh
+    placements: list = []
+    place = BucketExecutor._place
+
+    def recording(self, buckets, priorities=None):
+        placed = place(self, buckets, priorities)
+        placements.append(placed)
+        return placed
+
+    torch.cuda.synchronize()
+    instrument.reset("kernels.")
+    BucketExecutor._place = recording
+    try:
+        t0 = time.perf_counter()
+        res = Engine(options=EngineOptions(), devices=mesh).run(S_main, lam_main)
+        wall = time.perf_counter() - t0
+    finally:
+        BucketExecutor._place = place
+    launches = instrument.tail_counts("kernels.")
+    used = sorted({w for w in placements[0] if w is not None}) if placements else []
+    if used != list(range(MULTI_D)):
+        raise AssertionError(f"[multidevice] buckets placed on {used}")
+    if not (np.array_equal(res.labels, main_res.labels)
+            and np.array_equal(res.Theta, main_res.Theta)):
+        raise AssertionError("[multidevice] Engine(devices=mesh) differs from one device")
+    log("multidevice", case="buckets", d=MULTI_D, p=S_main.shape[0],
+        buckets=len(placements[0]), placed=json.dumps(placements[0]),
+        route_mix=json.dumps(res.route_mix, sort_keys=True),
+        launches=json.dumps(launches, sort_keys=True), theta_bits_equal=True,
+        sha256=sha(torch.as_tensor(res.Theta)), wall_s=f"{wall:.3f}")
+    out["buckets"] = dict(launches=launches)
+    return out
 
 
 # ---------------------------------------------------------- phases 20-24
@@ -2433,8 +2637,8 @@ def phase_large_scale() -> tuple[dict, dict]:
         run_s=f"{t_run:.3f}", plan_s=f"{span_seconds(res, 'engine.plan'):.4f}",
         solve_s=f"{stages['solve']:.4f}", dispatch_s=f"{stages['dispatch']:.4f}",
         assemble_s=f"{stages['assemble']:.4f}", wall_s=f"{wall:.3f}")
-    del R, res
-    return launches, dict(lam=lam)
+    del res
+    return launches, dict(R=R, lam=lam, labels=labels, screen_s=t_screen)
 
 
 def phase_from_data_sparse(X: np.ndarray) -> dict:
@@ -3760,7 +3964,7 @@ def main() -> int:
     path_case = (path["S"], path["lams"])
     del path
     cg = phase_covgram()
-    ls_launches, _ = phase_large_scale()
+    ls_launches, large = phase_large_scale()
 
     joint_launches, joint_prox = phase_joint("joint", JOINT_CASE, "group", JOINT_ROUTES)
     _, fused_prox = phase_joint("joint_fused", JOINT_FUSED_CASE, "fused", JOINT_FUSED_ROUTES)
@@ -3779,7 +3983,9 @@ def main() -> int:
             host_ms=f"{r['host_ms']:.4f}", ms_a_launch=f"{r['ms'] / max(r['n'], 1):.4f}",
             plain_ms=f"{r['plain_ms']:.4f}", bound_ms=f"{r['bound_ms']:.6f}",
             ms_f32=f"{r['ms_f32']:.4f}", device_events_per_call=json.dumps(r["events"]))
-    oversize_launches, sp_kept = phase_oversize()
+    oversize_launches, sp_kept, giant = phase_oversize()
+    md = phase_multidevice(large, giant, S, lam, host_res)
+    del large, giant
     oversize_path = phase_path_oversize()
     sp = shard_prox_on_path(sp_kept)
     log_shard_prox("oversize", sp, oversize_launches)
@@ -3830,6 +4036,10 @@ def main() -> int:
             "launches": screen_launches["threshold_cc.launches"], "max_abs_err": thr["err"],
             "ms": thr["ms"], "plain_ms": thr["plain_ms"],
             "bound_ms": thr["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            # [multidevice]: the row-slab launch of the sharded screen (four
+            # slabs of [large_scale]'s R a round)
+            "multidevice": {key: md["screen"][key] for key in (
+                "launches", "rounds", "shape", "ms", "plain_ms", "bound_ms", "max_abs_err")},
         },
         {
             "name": "covgram_screen", "route": "cuda",
@@ -3875,6 +4085,8 @@ def main() -> int:
             "bound_by": "bytes", "library_ms": sp["library_ms"],
             "path": {"launches": sum(oversize_path["launches"]),
                      "per_step": oversize_path["launches"]},
+            # [multidevice]: the giant block at d = MULTI_D, a launch a shard
+            "multidevice": md["oversize"],
         },
         {
             "name": "covgram", "route": "cuda",

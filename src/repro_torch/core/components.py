@@ -61,6 +61,7 @@ def propagate_labels(
     p: int,
     *,
     device: torch.device,
+    max_rounds: int | None = None,
 ) -> tuple[torch.Tensor, int]:
     """Drive a hook step to a fixed point; returns (int32 labels, rounds).
 
@@ -68,9 +69,9 @@ def propagate_labels(
     two pointer jumps ``l <- l[l]``.  Labels are always vertex indices of a
     member of one's own component, so a jump is well defined, and the fixed
     point labels every vertex with its component's smallest vertex.  The
-    loop stops at the first round that changes nothing, capped at
-    ``p + 2`` rounds as in the reference; each convergence test reads one
-    flag back from the device."""
+    loop stops at the first round that changes nothing, capped after the
+    first round at ``max_rounds`` more (``p + 2`` by default) as in the
+    reference; each convergence test reads one flag back from the device."""
     if p >= 2**31:
         raise ValueError(f"int32 labels cover p < 2**31 vertices, got p={p}")
     if p == 0:
@@ -83,7 +84,8 @@ def propagate_labels(
 
     prev = torch.arange(p, dtype=torch.int32, device=device)
     labels, rounds = round_(prev), 1
-    while rounds <= p + 2 and bool((labels != prev).any()):
+    limit = p + 2 if max_rounds is None else max_rounds
+    while rounds <= limit and bool((labels != prev).any()):
         labels, prev = round_(labels), labels
         rounds += 1
     return labels, rounds

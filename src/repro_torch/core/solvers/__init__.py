@@ -22,7 +22,7 @@ hard-coded name sets.  The batched contract is
              Z0 = W0^{-1}, U0 = (W0 - S)/rho (see admm.py).
 ``sharded``  matmul-only ADMM for OVERSIZE blocks (``sharded.py``): the
              eigh is replaced by Newton-Schulz + CG inner iterations on the
-             row-sharded layout (one device in the port).  Different
+             row-sharded layout over a mesh of devices.  Different
              calling convention (``ShardedSolve`` result) — reached through
              the executor's "sharded" route, never batched.
 """

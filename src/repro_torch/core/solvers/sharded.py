@@ -5,10 +5,13 @@ iterate and an O(b^3) eigh workspace.  For moderate rho the paper's largest
 component stays near size p, so that cap on b is the system's scale cap.
 This solver is the reference's mesh-spanning one (``sharded.py``):
 
-* the (b, b) iterates are ROW-SHARDED (``core.distributed``: ring matmul,
-  one-shard transposes, distributed matvec power iterations).  The port
-  runs the one-device case (d = 1), where every shard is the whole padded
-  matrix on the card and each operator is its local product;
+* the (b, b) iterates are ROW-SHARDED across a mesh of d devices for the
+  whole solve (``core.distributed``: ring matmuls, one-shard all-to-all
+  transposes, distributed matvec power iterations, psum/pmax
+  reductions); no stage ever forms the full (b, b) matrix on one device.
+  The mesh is a tuple of devices and may repeat one (d logical shards on
+  one card); at d = 1 every operator is its local product, so the
+  one-device solve keeps its bits;
 
 * the outer loop is the SAME ADMM as the single-device oracle (Boyd 6.5,
   adaptive rho 3.4.1), but the eigh of its Theta-update
@@ -23,7 +26,8 @@ This solver is the reference's mesh-spanning one (``sharded.py``):
   and late ones exact;
 
 * the Z/U prox tail (soft-threshold + dual update + both residual
-  reductions) is one ``shard_prox`` launch (its plain version on the CPU);
+  reductions) is one ``shard_prox`` launch a shard (its plain version on a
+  CPU shard), the residuals psum-reduced;
 
 * the returned Z (exactly sparse) is KKT-verified IN PLACE: a warm-started
   column-wise block-CG solves Z W = I (CG also detects a non-PD candidate
@@ -38,9 +42,11 @@ Newton-Schulz pass fails to contract (non-finite or err growth), reverting
 that outer step.
 
 Every ``while_loop`` of the reference is a Python loop here with its state
-on the device; the host reads each loop's condition once per step (an NS
-or CG step is two or three (bp, bp) products; an outer step is a power
-iteration, one product for M^2, the NS steps and the prox).
+on the devices (a replicated scalar or vector on the mesh's first device);
+the host reads each loop's condition once per step (an NS or CG step is
+two or three ring matmuls; an outer step is a power iteration, one ring
+matmul for M^2, the NS steps and the prox).  Iteration counts at d > 1 may
+differ from d = 1's by a few: the reductions add in another order.
 
 Counters:  solver.oversize.dispatched / .cg_iters (inner matrix-iteration
 steps: Newton-Schulz + verification CG), plus the
@@ -56,10 +62,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.distributed import (
+    as_mesh,
+    eye_rows,
+    local_device_mesh,
     matvec_rowsharded,
+    pall,
     pmax,
     psum,
+    replica,
     ring_matmul,
+    split_rows,
     transpose_rowsharded,
 )
 from repro_torch.core.instrument import bump, set_peak
@@ -72,9 +84,6 @@ _ZERO_TOL = 1e-12
 #: (Z, U), the Theta-update working set (M, M^2 + 4 rho I, Y, Zc, T) and the
 #: prox outputs — the memory-model constant behind the bytes watermark
 _BUFFERS_PER_DEVICE = 12
-
-#: the port's device count for the sharded solve
-N_SHARDS = 1
 
 
 def sharded_pad_size(b: int, n_shards: int) -> int:
@@ -103,37 +112,44 @@ class ShardedSolve:
     device_bytes: int          # accounting-model per-device peak
 
 
-def pad_rowsharded(S: np.ndarray, *, device="cuda", dtype=None) -> torch.Tensor:
-    """Identity-pad a host (b, b) block to the sharded pad size and place it
-    on ``device`` (the one shard at d = 1).  Dense-host convenience: the
-    streamed oversize path uses ``stream.materialize.shard_gather``."""
-    from repro_torch.engine.options import resolve_device  # lazy: import cycle
-
+def pad_rowsharded(S: np.ndarray, mesh=None, *, dtype=None, device="cuda") -> list:
+    """Identity-pad a host (b, b) block to the sharded pad size and place
+    it row-sharded on ``mesh`` (``local_device_mesh(device)`` by default):
+    a list of d (bp/d, bp) tensors.  Dense-host convenience: the streamed
+    oversize path uses ``stream.materialize.shard_gather``."""
+    mesh = local_device_mesh(device) if mesh is None else as_mesh(mesh)
     b = S.shape[0]
-    bp = sharded_pad_size(b, N_SHARDS)
+    bp = sharded_pad_size(b, len(mesh))
     np_dtype = np.dtype(dtype or S.dtype)
     S_pad = np.eye(bp, dtype=np_dtype)
     S_pad[:b, :b] = S
-    return torch.as_tensor(S_pad).to(resolve_device(device))
+    return split_rows(S_pad, mesh)
 
 
 def _solve(
-    S_rows: torch.Tensor, lam: float, rho: float, tol: float, kkt_rel: float, *,
+    S_rows: list, lam: float, rho: float, tol: float, kkt_rel: float, *,
     max_iter: int, ns_max: int, cg_max: int, pow_steps: int,
-    theta0_rows: torch.Tensor | None,
+    theta0_rows: list | None,
 ):
-    """The reference's ``_build_sharded`` body at d = 1; returns (Z, it,
-    inner, res, s_max, rho, retries) with the counts as ints."""
-    d = N_SHARDS
-    bp = S_rows.shape[1]
-    rl = bp // d
-    dev, dtype = S_rows.device, S_rows.dtype
-    gi = torch.arange(rl, device=dev)
-    eye_loc = gi[:, None] == torch.arange(bp, device=dev)[None, :]
-    eyef = eye_loc.to(dtype)
+    """The reference's ``_build_sharded`` body over the d row shards of
+    ``S_rows``; returns (Z shards, it, inner, res, s_max, rho, retries)
+    with the counts as ints.  Per-shard work runs on each shard's device;
+    the replicated scalars and vectors live on the first shard's device
+    and are copied to a shard where it uses them (``rep``)."""
+    rl, bp = S_rows[0].shape
+    devs = [s.device for s in S_rows]
+    home, dtype = devs[0], S_rows[0].dtype
+    eye_loc = [
+        eye_rows(k * rl, rl, bp, dtype=torch.bool, device=dev) for k, dev in enumerate(devs)
+    ]
+    eyef = [e.to(dtype) for e in eye_loc]
 
     def scalar(x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=dev)
+        return torch.as_tensor(x, dtype=dtype, device=home)
+
+    def rep(x: torch.Tensor, k: int) -> torch.Tensor:
+        """A replicated value on shard k's device."""
+        return replica(x, devs[k])
 
     inf = scalar(float("inf"))
 
@@ -150,78 +166,90 @@ def _solve(
 
         Requires spectrum(A / c) in (0, 3); the caller scales c from the
         power-iteration bound with margin.  Returns (sqrt, steps, ok)."""
-        Y, Zc = A_rows / c, eyef
+        Y = [a / rep(c, k) for k, a in enumerate(A_rows)]
+        Zc = eyef
         err, prev_err, k = inf, inf, 0
         while k < ns_max and bool((err > ns_tol) & (err <= prev_err * 4.0)):
-            T = 0.5 * (3.0 * eyef - ring_matmul(Zc, Y))
-            err_new = pmax(torch.max(torch.abs(T - eyef)))
+            T = [0.5 * (3.0 * e - zy) for e, zy in zip(eyef, ring_matmul(Zc, Y))]
+            err_new = pmax([torch.max(torch.abs(t - e)) for t, e in zip(T, eyef)])
             Y, Zc, err, prev_err, k = ring_matmul(Y, T), ring_matmul(T, Zc), err_new, err, k + 1
-        ok = (err <= ns_tol) & torch.isfinite(Y).all()
-        return torch.sqrt(c) * Y, k, ok
+        ok = (err <= ns_tol) & pall([torch.isfinite(y).all() for y in Y])
+        root = torch.sqrt(c)
+        return [rep(root, j) * y for j, y in enumerate(Y)], k, ok
 
     def cg_inverse(A_rows, W_init, cg_tol):
         """Column-wise block-CG on A W = I; returns (W, iters, neg)."""
-        R = eyef - ring_matmul(A_rows, W_init)
-        rs = psum(torch.sum(R * R, dim=0))
+        R = [e - aw for e, aw in zip(eyef, ring_matmul(A_rows, W_init))]
+        rs = psum([torch.sum(r * r, dim=0) for r in R])
         tol2 = cg_tol * cg_tol
         W, Pc, it = W_init, R, 0
-        neg = torch.zeros((), dtype=torch.bool, device=dev)
+        neg = torch.zeros((), dtype=torch.bool, device=home)
         while it < cg_max and bool(torch.any(rs > tol2) & ~neg):
             AP = ring_matmul(A_rows, Pc)
-            pAp = psum(torch.sum(Pc * AP, dim=0))
+            pAp = psum([torch.sum(pc * ap, dim=0) for pc, ap in zip(Pc, AP)])
             active = rs > tol2
             neg = neg | torch.any(active & (pAp <= 0.0))
             alpha = torch.where(
                 active & (pAp > 0.0), rs / torch.where(pAp > 0.0, pAp, 1.0), 0.0
             )
-            W = W + Pc * alpha[None, :]
-            Rn = R - AP * alpha[None, :]
-            rsn = psum(torch.sum(Rn * Rn, dim=0))
+            W = [w + pc * rep(alpha, k)[None, :] for k, (w, pc) in enumerate(zip(W, Pc))]
+            Rn = [r - ap * rep(alpha, k)[None, :] for k, (r, ap) in enumerate(zip(R, AP))]
+            rsn = psum([torch.sum(rn * rn, dim=0) for rn in Rn])
             beta = torch.where(active, rsn / torch.where(rs > 0.0, rs, 1.0), 0.0)
-            Pc = Rn + Pc * beta[None, :]
+            Pc = [rn + pc * rep(beta, k)[None, :] for k, (rn, pc) in enumerate(zip(Rn, Pc))]
             R, rs, it = Rn, rsn, it + 1
         return W, it, neg
 
     lam_t = scalar(lam)
     rho0 = scalar(rho)
-    diag_own = torch.sum(torch.where(eye_loc, S_rows, 0.0), dim=1)
-    cold = torch.where(eye_loc, (1.0 / (diag_own + lam_t))[:, None], 0.0)
+    diag_own = [torch.sum(torch.where(e, s, 0.0), dim=1) for e, s in zip(eye_loc, S_rows)]
+    cold = [
+        torch.where(e, (1.0 / (dg + rep(lam_t, k)))[:, None], 0.0)
+        for k, (e, dg) in enumerate(zip(eye_loc, diag_own))
+    ]
     if theta0_rows is not None:
         # At the ADMM fixed point U* = (Theta*^{-1} - S) / rho: seeding BOTH
         # Z and U from Theta0 makes an exact warm start a fixed point; one
         # CG inverse buys that dual (the dense ``admm`` W0 argument).
-        diag_t0 = torch.sum(torch.where(eye_loc, theta0_rows, 0.0), dim=1)
-        Wt0 = torch.where(eye_loc, (1.0 / diag_t0)[:, None], 0.0)
+        Wt0 = [
+            torch.where(e, (1.0 / torch.sum(torch.where(e, t0, 0.0), dim=1))[:, None], 0.0)
+            for e, t0 in zip(eye_loc, theta0_rows)
+        ]
         Wt, _, neg0 = cg_inverse(theta0_rows, Wt0, 1e-8)
-        usable = ~neg0 & torch.isfinite(Wt).all()
-        Z = torch.where(usable, theta0_rows, cold)
-        U = torch.where(usable, (Wt - S_rows) / rho0, torch.zeros_like(S_rows))
+        usable = ~neg0 & pall([torch.isfinite(w).all() for w in Wt])
+        Z = [torch.where(rep(usable, k), t0, c)
+             for k, (t0, c) in enumerate(zip(theta0_rows, cold))]
+        U = [torch.where(rep(usable, k), (w - s) / rep(rho0, k), torch.zeros_like(s))
+             for k, (w, s) in enumerate(zip(Wt, S_rows))]
     else:
-        Z, U = cold, torch.zeros_like(S_rows)
-    v = torch.ones(bp, dtype=dtype, device=dev) / torch.sqrt(scalar(float(bp)))
+        Z, U = cold, [torch.zeros_like(s) for s in S_rows]
+    v = torch.ones(bp, dtype=dtype, device=home) / torch.sqrt(scalar(float(bp)))
 
     def kkt_of(Zf, W_warm, inner_tol):
         """eq.-(11)/(12) residual of a symmetrized iterate."""
         Wz, cg_k, neg = cg_inverse(Zf, W_warm, inner_tol)
-        Wz = 0.5 * (Wz + transpose_rowsharded(Wz))
-        zero = torch.abs(Zf) <= _ZERO_TOL
-        off = ~eye_loc
-        v_zero = torch.max(torch.where(
-            zero & off, torch.clamp(torch.abs(S_rows - Wz) - lam_t, min=0.0), 0.0))
-        v_act = torch.max(torch.where(
-            ~zero & off, torch.abs(Wz - S_rows - lam_t * torch.sign(Zf)), 0.0))
-        v_diag = torch.max(torch.where(eye_loc, torch.abs(Wz - S_rows - lam_t), 0.0))
-        res = pmax(torch.maximum(torch.maximum(v_zero, v_act), v_diag))
-        return torch.where(neg, inf, res), Wz, cg_k
+        Wz = [0.5 * (w + wt) for w, wt in zip(Wz, transpose_rowsharded(Wz))]
+        local = []
+        for k, (z, w, s, e) in enumerate(zip(Zf, Wz, S_rows, eye_loc)):
+            lam_k = rep(lam_t, k)
+            zero = torch.abs(z) <= _ZERO_TOL
+            off = ~e
+            v_zero = torch.max(torch.where(
+                zero & off, torch.clamp(torch.abs(s - w) - lam_k, min=0.0), 0.0))
+            v_act = torch.max(torch.where(
+                ~zero & off, torch.abs(w - s - lam_k * torch.sign(z)), 0.0))
+            v_diag = torch.max(torch.where(e, torch.abs(w - s - lam_k), 0.0))
+            local.append(torch.maximum(torch.maximum(v_zero, v_act), v_diag))
+        return torch.where(neg, inf, pmax(local)), Wz, cg_k
 
-    s_max = pmax(torch.max(torch.abs(S_rows)))
+    s_max = pmax([torch.max(torch.abs(s)) for s in S_rows])
     kkt_target = kkt_rel * torch.clamp(s_max, min=1.0)
     two, half, one = scalar(2.0), scalar(0.5), scalar(1.0)
 
     rho_t, boost = rho0, scalar(1.5)
     rp, rd = inf, inf
     it = inner = 0
-    retries = torch.zeros((), dtype=torch.int32, device=dev)
+    retries = torch.zeros((), dtype=torch.int32, device=home)
     eps = tol * bp
     W_warm = cold
     res = inf
@@ -235,22 +263,27 @@ def _solve(
         and bool((retries < 30) & ((res > kkt_target) | (att == 0)))
     ):
         while it < max_iter and bool((retries < 30) & ((rp > eps) | (rd > eps))):
-            M = rho_t * (Z - U) - S_rows
+            M = [rep(rho_t, k) * (z - u) - s for k, (z, u, s) in enumerate(zip(Z, U, S_rows))]
             m, vn = power_norm(M, v)
             cscale = boost * (m * m + 4.0 * rho_t)
             ns_tol = torch.clamp(1e-3 * rp / bp, 1e-11, 1e-2)
-            A = ring_matmul(M, M) + 4.0 * rho_t * eyef
+            A = [mm + 4.0 * rep(rho_t, k) * e
+                 for k, (mm, e) in enumerate(zip(ring_matmul(M, M), eyef))]
             R_sqrt, ns_k, ns_ok = sqrt_ns(A, cscale, ns_tol)
-            Theta = (M + R_sqrt) / (2.0 * rho_t)
-            Zn, Un, rp2_l, rd2_l = fused_prox_residual(Theta, U, Z, lam_t / rho_t)
-            rp_n = torch.sqrt(psum(rp2_l))
-            rd_n = rho_t * torch.sqrt(psum(rd2_l))
+            t = lam_t / rho_t
+            prox = [
+                fused_prox_residual((mk + r) / (2.0 * rep(rho_t, k)), u, z, rep(t, k))
+                for k, (mk, r, u, z) in enumerate(zip(M, R_sqrt, U, Z))
+            ]
+            rp_n = torch.sqrt(psum([x[2] for x in prox]))
+            rd_n = rho_t * torch.sqrt(psum([x[3] for x in prox]))
             factor = torch.where(
                 rp_n > 10.0 * rd_n, two, torch.where(rd_n > 10.0 * rp_n, half, one)
             )
             ok = ns_ok & torch.isfinite(rp_n) & torch.isfinite(rd_n)
-            Z = torch.where(ok, Zn, Z)
-            U = torch.where(ok, Un / factor, U)
+            Z = [torch.where(rep(ok, k), x[0], z) for k, (x, z) in enumerate(zip(prox, Z))]
+            U = [torch.where(rep(ok, k), x[1] / rep(factor, k), u)
+                 for k, (x, u) in enumerate(zip(prox, U))]
             v = vn
             rho_t = torch.where(ok, rho_t * factor, rho_t)
             boost = torch.where(ok, boost, 2.0 * boost)
@@ -259,7 +292,7 @@ def _solve(
             it += 1
             inner += ns_k
             retries = retries + (~ok).to(retries.dtype)
-        Z = 0.5 * (Z + transpose_rowsharded(Z))
+        Z = [0.5 * (z + zt) for z, zt in zip(Z, transpose_rowsharded(Z))]
         res, W_warm, cg_k = kkt_of(Z, W_warm, min(1e-8, tol))
         inner += cg_k
         eps = 0.05 * eps
@@ -271,6 +304,7 @@ def glasso_sharded(
     S,
     lam: float,
     *,
+    mesh=None,
     b: int | None = None,
     rho: float = 1.0,
     max_iter: int = 6000,
@@ -283,14 +317,18 @@ def glasso_sharded(
     Theta0: np.ndarray | torch.Tensor | None = None,
     device="cuda",
 ) -> ShardedSolve:
-    """Solve one oversize block; see the module docstring.
+    """Solve one oversize block across ``mesh``; see the module docstring.
 
-    ``S`` is either a host (b, b) array (padded and placed on ``device``
-    here: the card unless ``device="cpu"``) or an already padded (bp, bp)
-    tensor, which stays on its own device (then ``b`` gives the true block
-    size — the shard-direct gather's calling convention).  ``Theta0``
-    warm-starts Z and U (a previous (b, b) solution on the same support,
-    host array or tensor).
+    ``S`` is a host (b, b) array, identity-padded and placed row-sharded on
+    the mesh here (``mesh=None``: ``local_device_mesh(device)``, the card,
+    or every card, unless ``device="cpu"``); or an already padded
+    row-sharded block (then ``b`` gives the true block size — the
+    shard-direct gather's calling convention): the list of its d row
+    shards, which stay on their own devices, or one (bp, bp) tensor, a
+    single shard.  A pre-sharded S whose shard count differs from
+    ``mesh``'s, or whose padded size is not ``sharded_pad_size(b, d)``,
+    raises.  ``Theta0`` warm-starts Z and U (a previous (b, b) solution on
+    the same support, host array or tensor).
     ``kkt_target`` is the caller's RELATIVE acceptance tolerance (the
     executor's ``route_check_tol``): after the ADMM loop reaches ``tol``,
     the in-place KKT residual is checked against
@@ -298,41 +336,55 @@ def glasso_sharded(
     20x and continues warm (up to 4 attempts within ``max_iter``).  Returns
     a ``ShardedSolve``; ``Theta`` is the host (b, b) solution and
     ``kkt_residual`` the in-place eq.-(11)/(12) verification."""
-    d = N_SHARDS
-    if isinstance(S, torch.Tensor):
-        bp = S.shape[0]
+    t_dtype = None if dtype is None else getattr(torch, np.dtype(dtype).name)
+    if isinstance(S, (torch.Tensor, list, tuple)):
+        shards = [S] if isinstance(S, torch.Tensor) else list(S)
+        d = len(shards)
+        if mesh is not None and len(as_mesh(mesh)) != d:
+            raise ValueError(
+                f"pre-sharded S has {d} row shards; the mesh has {len(as_mesh(mesh))}"
+            )
+        bp = shards[0].shape[1]
         if b is None:
             raise ValueError("pre-sharded S needs the true block size (b=...)")
-        if bp != sharded_pad_size(b, d):
+        if bp != sharded_pad_size(b, d) or any(s.shape != (bp // d, bp) for s in shards):
             raise ValueError(
-                f"pre-sharded S is {bp}x{bp}; expected padded size "
-                f"{sharded_pad_size(b, d)} for b={b} on {d} shards"
+                f"pre-sharded S is {d} shards of {tuple(shards[0].shape)}; expected padded "
+                f"size {sharded_pad_size(b, d)} for b={b} on {d} shards"
             )
-        S_sh = S if dtype is None else S.to(getattr(torch, np.dtype(dtype).name))
+        S_rows = shards if t_dtype is None else [s.to(t_dtype) for s in shards]
     else:
         S = np.asarray(S)
         b = S.shape[0]
-        S_sh = pad_rowsharded(S, device=device, dtype=dtype or np.float64)
-        bp = S_sh.shape[0]
+        S_rows = pad_rowsharded(S, mesh, dtype=dtype or np.float64, device=device)
+        d = len(S_rows)
+        bp = S_rows[0].shape[1]
     if cg_max is None:
         cg_max = bp
+    rl = bp // d
     theta0 = None
     if Theta0 is not None:
-        # a device tensor (a path's kept solution) stays on the device
-        theta0 = torch.eye(bp, dtype=S_sh.dtype, device=S_sh.device) / (1.0 + float(lam))
-        theta0[:b, :b] = torch.as_tensor(Theta0, device=S_sh.device)
+        # a device tensor (a path's kept solution) stays on the devices
+        theta0 = []
+        for k, s in enumerate(S_rows):
+            lo, hi = k * rl, (k + 1) * rl
+            t0 = eye_rows(lo, rl, bp, dtype=s.dtype, device=s.device) / (1.0 + float(lam))
+            if lo < b:
+                t0[: min(hi, b) - lo, :b] = torch.as_tensor(Theta0[lo:min(hi, b)], device=s.device)
+            theta0.append(t0)
     Z, it, inner, res, s_max, rho_f, retries = _solve(
-        S_sh, float(lam), float(rho), float(tol),
+        S_rows, float(lam), float(rho), float(tol),
         float("inf") if kkt_target is None else float(kkt_target),
         max_iter=int(max_iter), ns_max=int(ns_max), cg_max=int(cg_max),
         pow_steps=int(pow_steps), theta0_rows=theta0,
     )
-    device_bytes = _BUFFERS_PER_DEVICE * (bp // d) * bp * S_sh.element_size()
+    device_bytes = _BUFFERS_PER_DEVICE * rl * bp * S_rows[0].element_size()
     bump("solver.oversize.dispatched")
     bump("solver.oversize.cg_iters", int(inner))
     set_peak("solver.oversize.device_bytes_peak", device_bytes)
+    Theta = np.concatenate([z[:, :b].cpu().numpy() for z in Z[: -(-b // rl)]])[:b]
     return ShardedSolve(
-        Theta=Z[:b, :b].cpu().numpy(),
+        Theta=Theta,
         iters=int(it),
         inner_iters=int(inner),
         retries=int(retries),

@@ -673,6 +673,243 @@ int launch_wgmma_d(const void* q, const void* k, const void* v, void* o, int bh,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ the wgmma body above d = 256
+//
+// A block of two warpgroups per (bh, 128-row query block, 128 output
+// columns): grid z splits O's and V's columns into ceil(d / 128) blocks of
+// 128, each running the d = 128 instance's P V (m64n128k16, O a thread's 64
+// floats).  S = Q K^T runs over the whole d in 128-column chunks: a step of
+// the ring brings one chunk of Q (both warpgroups' rows) and of K (the key
+// tile) by TMA, and eight m64n64k16 products add it into the scores, so
+// no block holds more than one chunk of Q or K.  V's tile (this block's
+// 128 columns) has a ring of its own.  Columns past d, and rows past S,
+// are zero-filled by the TMA; the stores stop at d.  Shared memory: two
+// stages of three 16 KB chunks and two 16 KB V tiles, 129 KB: one block an
+// SM.  Q is read again for every key tile (from L2): the price of any d.
+
+constexpr int kWideDC = 128;                             // d values a chunk, columns a block
+constexpr int kWideStages = 2;                           // Q/K-chunk ring, and V ring
+constexpr uint32_t kWideQK = (kWG + 1) * Tile<kWideDC>::kBytes;  // a stage: Q, Q, K
+
+constexpr size_t wgmma_wide_smem_bytes() {
+  return (size_t)kWideStages * (kWideQK + Tile<kWideDC>::kBytes) + 1024;
+}
+
+// columns [c0, c0 + 128) of rows [r0, r0 + 64) of head `h`: two boxes
+__device__ __forceinline__ void load_chunk(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                           int c0, int r0, int h) {
+  using T = Tile<kWideDC>;
+#pragma unroll
+  for (int a = 0; a < T::kAtoms; ++a)
+    tma_load(dst + a * T::kAtomBytes, map, bar, c0 + a * T::kAtomCols, r0, h);
+}
+
+__global__ void __launch_bounds__(kWG * 128, 1)
+    flash_attention_wgmma_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                                      const __grid_constant__ CUtensorMap k_map,
+                                      const __grid_constant__ CUtensorMap v_map,
+                                      __nv_bfloat16* __restrict__ o, int d, int group,
+                                      int sq, int skv, float scale_log2, int causal) {
+  using T = Tile<kWideDC>;
+  constexpr int kS = kBK / 2;       // score accumulators a thread (m64n64)
+  constexpr int kO = kWideDC / 2;   // output accumulators a thread (m64n128)
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kWideStages];  // Q/K stages, then V's
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_ring = base + kWideStages * kWideQK;
+  const int bh = blockIdx.x;
+  const int hkv = bh / group;
+  const int q_block = (gridDim.y - 1 - blockIdx.y) * kBQ * kWG;
+  const int col0 = blockIdx.z * kWideDC;
+  const int nc = (d + kWideDC - 1) / kWideDC;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int q0 = q_block + wg * kBQ;
+  const int warp = tid % 128 / 32, lane = tid % 32;
+  const int quad = lane % 4;
+  const int row0 = q0 + 16 * warp + lane / 4;  // rows row0 and row0 + 8
+
+  int nk = (skv + kBK - 1) / kBK;
+  if (causal) nk = min(nk, (q_block + kWG * kBQ - 1) / kBK + 1);
+  int nk_wg = q0 < sq ? nk : 0;
+  if (causal) nk_wg = min(nk_wg, (q0 + kBQ - 1) / kBK + 1);
+  const int steps = nk * nc;  // (key tile, d chunk) pairs, key tile outermost
+
+  // step st into Q/K stage st % 2: chunk st % nc of Q and of key tile st / nc
+  auto issue_qk = [&](int st) {
+    const uint32_t stage = base + (st % kWideStages) * kWideQK;
+    const uint32_t bar = smem_u32(&bars[st % kWideStages]);
+    const int c0 = (st % nc) * kWideDC;
+    mbar_expect_tx(bar, kWideQK);
+    for (int w = 0; w < kWG; ++w)
+      load_chunk(stage + w * T::kBytes, &q_map, bar, c0, q_block + w * kBQ, bh);
+    load_chunk(stage + kWG * T::kBytes, &k_map, bar, c0, (st / nc) * kBK, hkv);
+  };
+  // this block's 128 columns of V's key tile kb into V stage kb % 2
+  auto issue_v = [&](int kb) {
+    const uint32_t bar = smem_u32(&bars[kWideStages + kb % kWideStages]);
+    mbar_expect_tx(bar, T::kBytes);
+    load_chunk(v_ring + (kb % kWideStages) * T::kBytes, &v_map, bar, col0, kb * kBK, hkv);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 2 * kWideStages; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int st = 0; st < kWideStages && st < steps; ++st) issue_qk(st);
+    for (int kb = 0; kb < kWideStages && kb < nk; ++kb) issue_v(kb);
+  }
+
+  float acc[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};  // log2 units
+  float l[2] = {0.0f, 0.0f};        // this thread's columns only, until the end
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * kBK;
+    const bool active = kb < nk_wg;  // uniform across the warpgroup
+    float sc[kS];
+#pragma unroll
+    for (int i = 0; i < kS; ++i) sc[i] = 0.0f;
+    for (int dc = 0; dc < nc; ++dc) {
+      const int st = kb * nc + dc;
+      const uint32_t stage = base + (st % kWideStages) * kWideQK;
+      mbar_wait(smem_u32(&bars[st % kWideStages]), (st / kWideStages) & 1);
+      if (active) {
+        fence_regs(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < kWideDC / 16; ++k)
+          wgmma_ss_n64(sc, kmajor_desc<kWideDC>(stage + wg * T::kBytes, k),
+                       kmajor_desc<kWideDC>(stage + kWG * T::kBytes, k), dc > 0 || k > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+      }
+      __syncthreads();  // both warpgroups' reads of the stage are done
+      if (tid == 0 && st + kWideStages < steps) issue_qk(st + kWideStages);
+    }
+
+    const uint32_t v_tile = v_ring + (kb % kWideStages) * T::kBytes;
+    mbar_wait(smem_u32(&bars[kWideStages + kb % kWideStages]), (kb / kWideStages) & 1);
+    if (active) {
+      // sc[4 j + e]: row row0 + 8 (e / 2), key k0 + 8 j + 2 quad + e % 2
+      const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + 2 * quad + (e & 1);
+            const int qpos = row0 + 8 * (e >> 1);
+            const bool keep = kpos < skv && (!causal || kpos <= qpos);
+            sc[4 * j + e] = keep ? sc[4 * j + e] * scale_log2 : kNegInf;
+          }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kS; ++i) sc[i] *= scale_log2;
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kS; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float alpha[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        alpha[r] = fast_exp2(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kS; ++i) {
+        sc[i] = fast_exp2(sc[i] - m[(i >> 1) & 1]);
+        sum[(i >> 1) & 1] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int i = 0; i < kO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs<kWideDC>(acc, pa[kk], mnmajor_desc<kWideDC>(v_tile, kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncthreads();  // both warpgroups' reads of V's stage are done
+    if (tid == 0 && kb + kWideStages < nk) issue_v(kb + kWideStages);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= sq) continue;
+    const float den = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* out = o + ((long long)bh * sq + row) * d + col0 + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < kWideDC / 8; ++j)
+      if (col0 + 8 * j + 2 * quad < d)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] / den, acc[4 * j + 2 * r + 1] / den);
+  }
+}
+
+// a 3-D map over a (heads, rows, d) bf16 tensor, d a multiple of 8, whose
+// box is 64 rows of one 64-column swizzle atom; columns past d and rows
+// past `rows` read as zeros
+bool make_wide_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, int rows,
+                   int d) {
+  using T = Tile<kWideDC>;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)T::kAtomCols, 64, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, int bh, int group,
+                      int sq, int skv, int d, float scale, int causal, void* stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap maps[3];
+  const int kv_rows = skv > 0 ? skv : 1;
+  if (!make_wide_map(encode, &maps[0], q, bh, sq, d) ||
+      !make_wide_map(encode, &maps[1], k, bh / group, kv_rows, d) ||
+      !make_wide_map(encode, &maps[2], v, bh / group, kv_rows, d))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wgmma_wide_smem_bytes();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wgmma_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)bh, (unsigned)((sq + kWG * kBQ - 1) / (kWG * kBQ)),
+                  (unsigned)((d + kWideDC - 1) / kWideDC));
+  flash_attention_wgmma_wide_kernel<<<grid, kWG * 128, smem, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], (__nv_bfloat16*)o, d, group, sq, skv, scale * kLog2e,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 
@@ -948,6 +1185,229 @@ int launch_f32_d(const void* q, const void* k, const void* v, void* o, int bh, i
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------- the float32 body above d = 256
+//
+// d a multiple of 4 above 256: one block of 128 threads per (bh, 64-row
+// query block, 128 output columns), grid z splitting O's and V's columns
+// into ceil(d / 128) blocks of 128 (the d = 256 instance's split, widened).
+// S = Q K^T runs over the whole d in 128-column chunks: each chunk of Q and
+// of the key tile comes through shared memory (the d = 128 instance's
+// swizzled tiles) and adds into the 8 x 4 score tile, so no block holds
+// more than one chunk of Q or K; V's tile is this block's 128 columns.
+// Columns past d are zero-filled by the copies and the stores stop at d.
+// A thread's tiles are those of d = 128 (8 x 8 outputs, 8 x 4 scores), and
+// shared memory is too (112 KB: two blocks an SM).  Q is read again for
+// every key tile (from L2), and each block computes S over all of d:
+// ceil(d / 128) times the score FLOPs of one pass.
+
+template <int W, Swizzle kSw>
+__device__ __forceinline__ void copy_tile_cols(uint32_t dst, const float* __restrict__ src,
+                                               int r0, int len, int ld, int cols) {
+  // rows r0 .. r0 + 63 of the W columns at `src` of a (len, ld) row-major
+  // matrix, of which the first `cols` (a multiple of 4) exist, into the
+  // 64 x W tile at `dst`; zero past len and past cols
+  constexpr int kRowStep = kF32Threads / 8;
+  const int c = threadIdx.x % 8;
+  const int r = threadIdx.x / 8;
+#pragma unroll
+  for (int i = 0; i < kBK / kRowStep; ++i) {
+    const int row = r + kRowStep * i;
+    const bool in = r0 + row < len;
+    const float* from = src + (long long)(in ? r0 + row : 0) * ld;
+#pragma unroll
+    for (int grp = 0; grp < W / 32; ++grp) {
+      const int col = 32 * grp + 4 * c;
+      const bool ok = in && col < cols;
+      cp_async16(dst + (uint32_t)(row * W + 4 * chunk_at<kSw>(c + 8 * grp, row)) * 4u,
+                 ok ? from + col : src, ok ? 16 : 0);
+    }
+  }
+}
+
+constexpr int kF32WideDC = 128;  // d values a chunk, output columns a block
+
+constexpr size_t f32_wide_smem_bytes() {
+  return (size_t)(3 * kBK * kF32WideDC + kBK * kBQ) * sizeof(float);  // Q, K, V chunks, P^T
+}
+
+__global__ void __launch_bounds__(kF32Threads, 2)
+    flash_attention_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, float* __restrict__ o, int d,
+                                    int group, int sq, int skv, float scale_log2, int causal) {
+  constexpr int DC = kF32WideDC;
+  constexpr int kVec4 = DC / 64;
+  constexpr int kColsT = 4 * kVec4;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* Qs = smem_f32;        // a chunk of Q, chunks swizzled by row group
+  float* Ks = Qs + kBK * DC;   // a chunk of K, chunks swizzled by row
+  float* Vs = Ks + kBK * DC;   // this block's 128 columns of V
+  float* Ps = Vs + kBK * DC;   // P^T: [key][query row], chunks swizzled by key
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int col0 = blockIdx.z * DC;
+  const int nc = (d + DC - 1) / DC;
+  const float* qh = q + (long long)bh * sq * d;
+  const float* kh = k + (long long)(bh / group) * skv * d;
+  const float* vh = v + (long long)(bh / group) * skv * d;
+  const int t = threadIdx.x % kLanes;
+  const int g = threadIdx.x / kLanes;
+  const int sw = t & 7;
+  const float* q_rows = Qs + kRowsT * g * DC;
+  const float* k_rows = Ks + t * DC;
+
+  int nk = (skv + kBK - 1) / kBK;
+  if (causal) nk = min(nk, (q0 + kBQ - 1) / kBK + 1);
+
+  float acc[kRowsT][kColsT], m[kRowsT], l[kRowsT];  // m in log2 units
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < kColsT; ++c) acc[i][c] = 0.0f;
+  }
+
+  for (int kb = 0; kb < nk; ++kb) {
+    const int k0 = kb * kBK;
+    float s[kRowsT][kKeysT];
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) s[i][j] = 0.0f;
+    for (int dc = 0; dc < nc; ++dc) {
+      const int c0 = dc * DC;
+      __syncthreads();  // every read of the last chunk (and of V and P) done
+      copy_tile_cols<DC, kByRowGroup>(smem_u32(Qs), qh + c0, q0, sq, d, d - c0);
+      copy_tile_cols<DC, kByRow>(smem_u32(Ks), kh + c0, k0, skv, d, d - c0);
+      if (dc == 0) copy_tile_cols<DC, kPlain>(smem_u32(Vs), vh + col0, k0, skv, d, d - col0);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < DC / 4; ++c) {
+        const int q_at = 4 * (c ^ (g & 7)), k_at = 4 * (c ^ sw);
+        float4 qv[kRowsT];
+#pragma unroll
+        for (int i = 0; i < kRowsT; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(q_rows + i * DC + q_at);
+#pragma unroll
+        for (int j = 0; j < kKeysT; ++j) {
+          const float4 kv = *reinterpret_cast<const float4*>(k_rows + kLanes * j * DC + k_at);
+#pragma unroll
+          for (int i = 0; i < kRowsT; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+    }
+
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i) {
+      const int qpos = q0 + kRowsT * g + i;
+      float mx = m[i];
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) {
+        const int kpos = k0 + t + kLanes * j;
+        const bool keep = !edge || (kpos < skv && (!causal || kpos <= qpos));
+        s[i][j] = keep ? s[i][j] * scale_log2 : kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int w = 1; w < kLanes; w <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+      const float alpha = fast_exp2(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kKeysT; ++j) {
+        s[i][j] = fast_exp2(s[i][j] - mx);
+        sum += s[i][j];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < kColsT; ++c) acc[i][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < kKeysT; ++j) {
+      float* p_row = Ps + (t + kLanes * j) * kBQ;
+      *reinterpret_cast<float4*>(p_row + 4 * ((2 * g) ^ sw)) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(p_row + 4 * ((2 * g + 1) ^ sw)) =
+          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    __syncthreads();  // P in place (V came with the first chunk)
+
+#pragma unroll 8
+    for (int j = 0; j < kBK; ++j) {
+      const float* p_row = Ps + j * kBQ;
+      const float4 p_lo = *reinterpret_cast<const float4*>(p_row + 4 * ((2 * g) ^ (j & 7)));
+      const float4 p_hi = *reinterpret_cast<const float4*>(p_row + 4 * ((2 * g + 1) ^ (j & 7)));
+      const float p[kRowsT] = {p_lo.x, p_lo.y, p_lo.z, p_lo.w, p_hi.x, p_hi.y, p_hi.z, p_hi.w};
+      const float* v_row = Vs + j * DC;
+      float vv[kColsT];
+#pragma unroll
+      for (int u = 0; u < kVec4; ++u) {
+        const float4 x = *reinterpret_cast<const float4*>(v_row + 4 * (t + kLanes * u));
+        vv[4 * u] = x.x;
+        vv[4 * u + 1] = x.y;
+        vv[4 * u + 2] = x.z;
+        vv[4 * u + 3] = x.w;
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsT; ++i)
+#pragma unroll
+        for (int c = 0; c < kColsT; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+#pragma unroll
+    for (int w = 1; w < kLanes; w <<= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], w);
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsT; ++i) {
+    const int row = q0 + kRowsT * g + i;
+    if (row >= sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* out = o + ((long long)bh * sq + row) * d + col0;
+#pragma unroll
+    for (int u = 0; u < kVec4; ++u)
+      if (col0 + 4 * (t + kLanes * u) < d)
+        *reinterpret_cast<float4*>(out + 4 * (t + kLanes * u)) =
+            make_float4(acc[i][4 * u] / den, acc[i][4 * u + 1] / den, acc[i][4 * u + 2] / den,
+                        acc[i][4 * u + 3] / den);
+  }
+}
+
+cudaError_t f32_wide_attributes() {
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_f32_wide_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)f32_wide_smem_bytes());
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flash_attention_f32_wide_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, int bh, int group,
+                    int sq, int skv, int d, float scale, int causal, void* stream) {
+  const cudaError_t e = f32_wide_attributes();
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)bh, (unsigned)((sq + kBQ - 1) / kBQ),
+                  (unsigned)((d + kF32WideDC - 1) / kF32WideDC));
+  flash_attention_f32_wide_kernel<<<grid, kF32Threads, f32_wide_smem_bytes(),
+                                    (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, d, group, sq, skv,
+      scale * kLog2e, causal);
+  return (int)cudaGetLastError();
+}
+
 // registers and local bytes a thread, dynamic shared bytes, and resident
 // blocks an SM, as the runtime reports them for `kernel`
 template <typename Kernel>
@@ -982,11 +1442,27 @@ int wgmma_info(int* info) {
                        info);
 }
 
+int f32_wide_info(int* info) {
+  const cudaError_t e = f32_wide_attributes();
+  if (e != cudaSuccess) return (int)e;
+  return instance_info(flash_attention_f32_wide_kernel, kF32Threads, f32_wide_smem_bytes(),
+                       info);
+}
+
+int wgmma_wide_info(int* info) {
+  const cudaError_t e = cudaFuncSetAttribute(flash_attention_wgmma_wide_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)wgmma_wide_smem_bytes());
+  if (e != cudaSuccess) return (int)e;
+  return instance_info(flash_attention_wgmma_wide_kernel, kWG * 128, wgmma_wide_smem_bytes(),
+                       info);
+}
+
 }  // namespace
 
 // q, o: (bh, sq, d) row-major; k, v: (bh / group, skv, d) row-major; all
 // float32 and 16-byte aligned (cp.async).  d in {32, 64, 96, 128, 160, 192,
-// 256}: the float32 body.
+// 256}, or any multiple of 4 above 256 (the wide instance): the float32 body.
 extern "C" int flash_attention_launch_f32(const void* q, const void* k,
                                           const void* v, void* o, int bh,
                                           int group, int sq, int skv, int d,
@@ -1005,13 +1481,16 @@ extern "C" int flash_attention_launch_f32(const void* q, const void* k,
     case 160: return launch_f32_d<160>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 192: return launch_f32_d<192>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 256: return launch_f32_d<256>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (d > 256 && d % 4 == 0)
+        return launch_f32_wide(q, k, v, o, bh, group, sq, skv, d, scale, causal, stream);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 // the same layout in bf16 through the wgmma body, d in {16, 32, 64, 128,
-// 192, 256};
-// every pointer 16-byte aligned (TMA)
+// 192, 256}, or any multiple of 8 above 256 (the wide instance); every
+// pointer 16-byte aligned (TMA)
 extern "C" int flash_attention_wgmma_launch_bf16(const void* q, const void* k,
                                                  const void* v, void* o, int bh,
                                                  int group, int sq, int skv, int d,
@@ -1027,16 +1506,20 @@ extern "C" int flash_attention_wgmma_launch_bf16(const void* q, const void* k,
     case 128: return launch_wgmma_d<128>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 192: return launch_wgmma_d<192>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
     case 256: return launch_wgmma_d<256>(q, k, v, o, bh, group, sq, skv, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (d > 256 && d % 8 == 0)
+        return launch_wgmma_wide(q, k, v, o, bh, group, sq, skv, d, scale, causal, stream);
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 // one instance's resources as the runtime reports them: info[0] registers
 // a thread, info[1] local (spill and stack) bytes a thread, info[2] dynamic
 // shared bytes a block, info[3] resident blocks an SM.  body 0 is the
-// float32 body, 1 the wgmma body; an instance that does not exist returns
-// cudaErrorInvalidValue.
+// float32 body, 1 the wgmma body; any d above 256 names the body's wide
+// instance; an instance that does not exist returns cudaErrorInvalidValue.
 extern "C" int flash_attention_instance_info(int body, int d, int* info) {
+  if (d > 256 && (body == 0 || body == 1)) return body ? wgmma_wide_info(info) : f32_wide_info(info);
   switch (body * 1000 + d) {
     case 32: return f32_info<32>(info);
     case 64: return f32_info<64>(info);

@@ -26,6 +26,7 @@ import numpy as np
 
 from repro_torch.core import schedule as schedule_mod
 from repro_torch.core.components import component_lists
+from repro_torch.core.distributed import as_mesh, local_device_mesh
 from repro_torch.core.instrument import bump
 from repro_torch.core.screening import (
     ScreenStats,
@@ -180,14 +181,15 @@ class GlassoResult:
 
 def resolve_oversize(
     threshold: int | None, budget_mb: float | str | None, np_dtype, *,
-    route: bool = True, device="cpu",
+    route: bool = True, device="cpu", devices=None,
 ) -> int | None:
     """Resolve the single-device block-size cap for the oversize route.
 
     An explicit ``threshold`` wins; otherwise it is derived from a per-device
     memory budget in MB (``blocks.oversize_threshold``), where ``"auto"``
-    reads the memory of ``device`` (``distributed.device_memory_budget_mb``
-    — None on the CPU, disabling the route).  Returns None when oversize
+    reads the memory of ``device``, or the least over the mesh ``devices``
+    where one is given (``distributed.device_memory_budget_mb`` — None on
+    the CPU, disabling the route).  Returns None when oversize
     routing is off.  Oversize is a ROUTE, so it requires the routing
     ladder."""
     if threshold is None and budget_mb is None:
@@ -202,9 +204,10 @@ def resolve_oversize(
     if budget_mb == "auto":
         from repro_torch.core.distributed import device_memory_budget_mb
 
-        budget_mb = device_memory_budget_mb(device)
-        if budget_mb is None:
+        budgets = [device_memory_budget_mb(d) for d in (devices or [device])]
+        if None in budgets:
             return None
+        budget_mb = min(budgets)
     from repro_torch.core.blocks import oversize_threshold as _threshold_from_budget
 
     return _threshold_from_budget(float(budget_mb), np_dtype)
@@ -297,7 +300,21 @@ class Engine:
     """Reusable pipeline instance: fixed (solver, dtype, device, cc_backend,
     options)."""
 
-    def __init__(self, *, options: EngineOptions | None = None, **legacy_engine_kwargs):
+    def __init__(
+        self,
+        *,
+        options: EngineOptions | None = None,
+        devices=None,
+        **legacy_engine_kwargs,
+    ):
+        """``options=EngineOptions(...)`` is the configuration surface.
+        ``devices`` is the mesh (``core.distributed.DeviceMesh``, or a
+        list of devices) the executor places buckets on and the oversize
+        route and the ``"shard_map"`` screen span: d CUDA or CPU devices,
+        repeats allowed (d logical shards on one device); None is every
+        visible card when the engine's device is ``"cuda"``, the one
+        device otherwise (``local_device_mesh``).  The ``"auto"`` oversize
+        budget reads the least of the mesh's devices."""
         from repro_torch.core.solvers import WARM_START_SOLVERS, solver_spec
 
         opts = normalize_options(options, legacy_engine_kwargs, context="Engine")
@@ -309,9 +326,12 @@ class Engine:
         self.dtype = opts.resolved_dtype()
         self.np_dtype = opts.np_dtype()
         self.device = opts.resolved_device()
+        self.devices = (
+            local_device_mesh(self.device) if devices is None else as_mesh(devices)
+        )
         self.oversize = resolve_oversize(
             opts.oversize_threshold, opts.oversize_budget_mb, self.np_dtype,
-            route=opts.route, device=self.device,
+            route=opts.route, device=self.device, devices=self.devices,
         )
         self.cc_backend = opts.cc_backend
         self.stream = opts.stream   # default StreamConfig for from-data runs
@@ -337,6 +357,7 @@ class Engine:
             route=opts.route,
             route_check_tol=opts.route_check_tol,
             fused=fused,
+            devices=self.devices,
         )
 
     def _trace_ctx(self, name: str, **attrs):
@@ -349,8 +370,15 @@ class Engine:
     def screen(self, S: np.ndarray, lam: float) -> tuple[np.ndarray, ScreenStats]:
         with span("engine.screen", backend=self.cc_backend):
             return thresholded_components(
-                S, lam, backend=self.cc_backend, device=self.device
+                S, lam, backend=self.cc_backend, **self._screen_opts()
             )
+
+    def _screen_opts(self) -> dict:
+        """The screening backend's device options: the engine's device, and
+        for ``"shard_map"`` the engine's mesh."""
+        if self.cc_backend == "shard_map":
+            return {"device": self.device, "mesh": self.devices}
+        return {"device": self.device}
 
     def run(
         self,

@@ -10,6 +10,17 @@ assemble.
 * **Asynchronous dispatch.**  On the card every launch is queued on the
   current stream; the executor waits once, after the last bucket, before it
   reads the KKT verdicts and assembles.
+* **Placement.**  On a mesh of several devices (``devices``; the default
+  is ``local_device_mesh(device)``: every card for ``"cuda"``) the buckets
+  are LPT-placed by their route-aware device cost (``_bucket_cost``,
+  ``_place``: chordal, sharded and assembled buckets cost nothing there,
+  closed form n b^2, iterative n b^3); each bucket's stack, lambda vector,
+  warm start, fused megabatch and repair live on its shard's device, a
+  shard's megabatches are its own (also where the mesh repeats a device),
+  and a reused stack that LPT moved to another shard is copied there
+  (``send``).  The oversize route
+  spans the whole mesh.  One device: no placement, the bits of the
+  one-device path.
 * **Verified routing.**  Closed-form candidates whose KKT residual exceeds
   ``route_check_tol`` (scaled by max(1, max|S|)) are re-solved by the
   iterative solver warm-started from the rejected candidate
@@ -23,9 +34,9 @@ assemble.
   result's blocks and starts from W0 = inv(T0).  A reused oversize bucket
   hands its previous block to the sharded solve as Theta0.
 * **Oversize blocks.**  Buckets classed "oversize" take the "sharded"
-  route: one blocking ``glasso_sharded`` solve per block, issued after the
-  asynchronous small buckets are in flight, with its own in-place KKT
-  verdict and the same fallback (``solve_sharded_bucket``).
+  route: one blocking ``glasso_sharded`` solve per block over the mesh,
+  issued after the asynchronous small buckets are in flight, with its own
+  in-place KKT verdict and the same fallback (``solve_sharded_bucket``).
 * **Wave packer.**  With ``fused`` on (``EngineOptions(fused=True)``, the
   ``fused_bcd`` solver) or for buckets routed "fused", every iterative
   bucket small enough for a bin (``engine.waves``) is deferred; after the
@@ -45,7 +56,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks as blocks_mod
+from repro_torch.core.distributed import as_mesh, local_device_mesh, replica, send
 from repro_torch.core.instrument import bump, timed_dispatch
+from repro_torch.core.schedule import lpt_assign
 from repro_torch.core.solvers import bcd, solver_spec
 from repro_torch.core.solvers.closed_form import (
     glasso_chordal_host,
@@ -136,11 +149,13 @@ def solve_sharded_bucket(
     opts: dict,
     tol: float,
     warm_thetas: list | None = None,
+    mesh=None,
 ) -> tuple[np.ndarray, dict]:
-    """Solve of one oversize bucket (route "sharded").
+    """Mesh-spanning solve of one oversize bucket (route "sharded").
 
-    Per block: shard-direct gather onto the device
-    (``stream.materialize.shard_gather``: the (b, b) block arrives row
+    Per block: shard-direct gather into the row shards of ``mesh``
+    (``local_device_mesh(device)`` by default;
+    ``stream.materialize.shard_gather``: the (b, b) block arrives row
     chunk by row chunk, a full host copy never exists), the sharded ADMM
     (``core.solvers.glasso_sharded``) and its in-place KKT verdict.  Blocks
     whose residual exceeds ``tol * max(1, max|S|)`` fall back to the
@@ -153,6 +168,7 @@ def solve_sharded_bucket(
     from repro_torch.stream.materialize import shard_gather
 
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
+    mesh = local_device_mesh(device) if mesh is None else as_mesh(mesh)
     n = len(bucket.comps)
     out = np.zeros((n, bucket.size, bucket.size), dtype=np_dtype)
     info = {"dispatched": 0, "inner_iters": 0, "fallbacks": 0}
@@ -160,10 +176,10 @@ def solve_sharded_bucket(
     for i, comp in enumerate(bucket.comps):
         b = len(comp)
         lam = float(lams[i])
-        S_sh = shard_gather(S, comp, device=device, dtype=np_dtype)
+        S_sh = shard_gather(S, comp, mesh, dtype=np_dtype)
         theta0 = None if warm_thetas is None else warm_thetas[i]
         res, _ = timed_dispatch(
-            glasso_sharded, S_sh, lam, b=b, Theta0=theta0, kkt_target=tol,
+            glasso_sharded, S_sh, lam, mesh=mesh, b=b, Theta0=theta0, kkt_target=tol,
         )
         del S_sh
         info["dispatched"] += 1
@@ -231,6 +247,8 @@ class _Pending:
     key: Any = None                # planner.bucket_key of the bucket
     warm: bool = False             # iterative solve from a warm (W0, T0)
     host: Any = None               # host copy of ``out``, once read
+    device: Any = None             # where the bucket's stacks lie (placement)
+    shard: int | None = None       # its worker index on the mesh (None: one device)
 
 
 @dataclass
@@ -249,12 +267,17 @@ class _FusedLane:
 
 @dataclass
 class BucketExecutor:
-    """Solves plans on one device."""
+    """Solves plans on a mesh of devices (one device by default on a host
+    with one card)."""
 
     solver: str = "bcd"
     dtype: torch.dtype = torch.float64
     device: Any = "cuda"           # resolved as EngineOptions.device is
     solver_opts: dict = field(default_factory=dict)
+    # the mesh buckets are placed on and the oversize route spans: a
+    # sequence of CUDA or CPU devices (one may repeat); None is
+    # local_device_mesh(device)
+    devices: Any = None
     route: bool = True             # structure-routed ladder; False = all iterative
     route_check_tol: float = 1e-6  # KKT acceptance for closed-form candidates
     # wave packer: fuse every small iterative bucket of a plan into one
@@ -273,9 +296,13 @@ class BucketExecutor:
     # from its own solution and skips the host-to-device copy of its blocks
     _prev_solutions: dict = field(default_factory=dict)
     _prev_blocks: dict = field(default_factory=dict)
+    _prev_shards: dict = field(default_factory=dict)  # bucket_key -> worker index
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.devices = (
+            local_device_mesh(self.device) if self.devices is None else as_mesh(self.devices)
+        )
         self._spec = solver_spec(self.solver)  # unknown names raise ValueError
         _validate_solver_opts(self.solver, self.solver_opts)
         self._np_dtype = np.dtype(str(self.dtype).removeprefix("torch."))
@@ -286,16 +313,48 @@ class BucketExecutor:
             self.solver_opts
         ) <= {"max_sweeps", "n_cd", "tol", "node_screen"}
 
-    def _gather_stack(self, src, bucket: blocks_mod.Bucket) -> torch.Tensor:
+    # -- placement ---------------------------------------------------------
+
+    def _bucket_cost(self, bucket: blocks_mod.Bucket) -> float:
+        """Estimated DEVICE solve cost of one bucket by its route, not its
+        size alone: a chordal bucket solves on the host and an oversize
+        one spans the whole mesh (0 here), a closed-form bucket is one
+        elementwise pass (n b^2), and only the iterative tail pays b^3 a
+        block on its device (n b^3)."""
+        route = route_for(bucket.structure) if self.route else "iterative"
+        n = len(bucket.comps)
+        if route in ("chordal", "sharded", "assemble"):
+            return 0.0
+        if route == "closed_form":
+            return n * float(bucket.size) ** 2
+        return n * float(bucket.size) ** 3
+
+    def _place(self, buckets: list[blocks_mod.Bucket], priorities=None) -> list:
+        """LPT assignment of buckets to the mesh's devices by estimated
+        cost: each bucket's worker index into ``devices`` (the reference's
+        ``_place`` returns the device itself), None for every bucket on a
+        one-device mesh (the executor's own device).  ``priorities`` (per
+        bucket, higher = more urgent) seats urgent buckets first, at the
+        front of each device's queue."""
+        if len(self.devices) <= 1 or not buckets:
+            return [None] * len(buckets)
+        cost = [self._bucket_cost(b) for b in buckets]
+        assign = lpt_assign(cost, len(self.devices), cost=float, priorities=priorities)
+        return [int(w) for w in assign.worker_of]
+
+    # -- warm starts -------------------------------------------------------
+
+    def _gather_stack(self, src, bucket: blocks_mod.Bucket, device=None) -> torch.Tensor:
         """The padded restrictions of ``src`` (a dense (p, p) array or a
-        block-sparse result) to the bucket's components, on the device."""
+        block-sparse result) to the bucket's components, on ``device``
+        (the executor's by default)."""
         stacks = [
             blocks_mod.pad_block(
                 blocks_mod.gather_submatrix(src, c, dtype=self._np_dtype), bucket.size
             )
             for c in bucket.comps
         ]
-        return torch.as_tensor(np.stack(stacks), dtype=self.dtype, device=self.device)
+        return torch.as_tensor(np.stack(stacks), dtype=self.dtype, device=device or self.device)
 
     def _warm_stack(
         self,
@@ -304,42 +363,45 @@ class BucketExecutor:
         lam: float,
         warm_W,
         warm_Theta=None,
+        device=None,
     ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
         """(W0 stack, Theta0 stack or None) for one bucket, or (None, None).
 
         A reused bucket with a kept solution: W0 = inv(prev Theta), batched
         on the device (the padded block of Theta is diagonal, so the inverse
         is finite; its padded diagonal is reset to 1 + lam below), and the
-        previous Theta rides along as the Theta0 seed.  A merged or fresh
+        previous Theta rides along as the Theta0 seed (on ``device``, the
+        bucket's placement, copied there if LPT moved it).  A merged or fresh
         bucket prefers ``warm_Theta`` (the previous result, dense or
         block-sparse: its cross-component entries are exact zeros, so each
         gathered restriction is the Theorem-2 block-diagonal PD warm
         start): T0 is gathered once and W0 = inv(T0) computed batched on
         the device.  ``warm_W`` (a caller's W iterate, no Theta) is the
         last resort: no Theta seed then."""
+        device = device or self.device
         T0 = None
         prev = self._prev_solutions.get(key) if key is not None else None
         if prev is not None:
-            T0 = prev
+            T0 = replica(prev, device)
             W0 = torch.linalg.inv(T0)
         elif warm_Theta is not None:
             # pad_block puts the identity on the padded diagonal of T0, so
             # the batched inverse is finite
-            T0 = self._gather_stack(warm_Theta, bucket)
+            T0 = self._gather_stack(warm_Theta, bucket, device)
             W0 = torch.linalg.inv(T0)
         elif warm_W is not None:
-            W0 = self._gather_stack(warm_W, bucket)
+            W0 = self._gather_stack(warm_W, bucket, device)
         else:
             return None, None
         # the padded coordinates of a W iterate: diagonal 1 + lam (diagonal
         # KKT), cross terms 0
-        idx = torch.arange(bucket.size, device=self.device)
+        idx = torch.arange(bucket.size, device=device)
         pad_mask = torch.stack([idx >= len(c) for c in bucket.comps])
-        eye = torch.eye(bucket.size, dtype=torch.bool, device=self.device)
+        eye = torch.eye(bucket.size, dtype=torch.bool, device=device)
         fix = pad_mask[:, :, None] & eye[None, :, :]
-        W0 = torch.where(fix, torch.tensor(1.0 + lam, dtype=W0.dtype, device=self.device), W0)
+        W0 = torch.where(fix, torch.tensor(1.0 + lam, dtype=W0.dtype, device=device), W0)
         off = pad_mask[:, :, None] ^ pad_mask[:, None, :]
-        return torch.where(off, torch.zeros((), dtype=W0.dtype, device=self.device), W0), T0
+        return torch.where(off, torch.zeros((), dtype=W0.dtype, device=device), W0), T0
 
     def solve_plan(
         self,
@@ -352,8 +414,13 @@ class BucketExecutor:
         reused_keys: frozenset = frozenset(),
         keep_solutions: bool = False,
         output: str = "dense",
+        priorities=None,
     ):
         """Dispatch all buckets, wait once, verify, then assemble Theta.
+
+        ``priorities`` (optional, per bucket, higher = more urgent) makes
+        the placement on a mesh of several devices priority-aware (see
+        ``_place``).
 
         ``output="dense"`` scatters into a (p, p) array; ``"sparse"`` hands
         the per-bucket solution stacks, as they came back from the device,
@@ -375,8 +442,9 @@ class BucketExecutor:
         opts = dict(self.solver_opts)
         pending: list[_Pending] = []
         sharded_pending: list[_Pending] = []
-        fused_groups: dict[int, list[_FusedLane]] = {}
-        for bucket in plan.buckets:
+        fused_groups: dict[tuple, list[_FusedLane]] = {}
+        for bucket, w in zip(plan.buckets, self._place(plan.buckets, priorities=priorities)):
+            dev = self.device if w is None else self.devices[w]
             key = bucket_key(bucket)
             n = len(bucket.comps)
             route = route_for(bucket.structure) if self.route else "iterative"
@@ -385,7 +453,7 @@ class BucketExecutor:
             if route == "sharded":
                 # blocking solves: queued after the asynchronous small
                 # buckets below, so their launches are in flight first
-                p = _Pending(bucket=bucket, out=None, key=key)
+                p = _Pending(bucket=bucket, out=None, key=key, device=self.device)
                 pending.append(p)
                 sharded_pending.append(p)
                 continue
@@ -396,7 +464,7 @@ class BucketExecutor:
                     solve_chordal_bucket, bucket, np.full(n, lam),
                     tol=self.route_check_tol,
                 )
-                p = _Pending(bucket=bucket, out=out, key=key)
+                p = _Pending(bucket=bucket, out=out, key=key, device=self.device)
                 if not ok.all():
                     idx = np.flatnonzero(~ok)
                     bump(f"router.fallback.{bucket.structure}", int(idx.size))
@@ -405,8 +473,13 @@ class BucketExecutor:
                 continue
             stacked = self._prev_blocks.get(key) if key in reused_keys else None
             if stacked is None:
-                stacked = torch.as_tensor(bucket.blocks, dtype=self.dtype, device=self.device)
-            lams = torch.full((n,), lam, dtype=self.dtype, device=self.device)
+                stacked = torch.as_tensor(bucket.blocks, dtype=self.dtype, device=dev)
+            elif w != self._prev_shards.get(key):
+                # LPT may move a reused bucket to another shard between
+                # lambdas: a copy there (a peer copy between cards, a device
+                # copy on one) still beats re-uploading from the host
+                stacked = send(stacked, dev)
+            lams = torch.full((n,), lam, dtype=self.dtype, device=dev)
             if route == "closed_form":
                 (theta, ok), dt = timed_dispatch(
                     closed_form, stacked, lams, tol=self.route_check_tol,
@@ -414,12 +487,14 @@ class BucketExecutor:
                 )
                 self.last_dispatch_seconds += dt
                 bump("executor.dispatches")
-                pending.append(_Pending(bucket=bucket, out=theta, ok=ok, stacked=stacked, key=key))
+                pending.append(_Pending(bucket=bucket, out=theta, ok=ok, stacked=stacked, key=key,
+                                        device=dev, shard=w))
                 continue
             W0 = T0 = None
             if self._spec.warm_startable:
                 W0, T0 = self._warm_stack(
-                    bucket, key if key in reused_keys else None, lam, warm_W, warm_Theta
+                    bucket, key if key in reused_keys else None, lam, warm_W, warm_Theta,
+                    device=dev,
                 )
             if not self._spec.meta.get("theta_warm"):
                 T0 = None
@@ -428,12 +503,13 @@ class BucketExecutor:
             ) and self._fused_capable
             bin_ = fused_bin(bucket.size) if fuse else None  # None: too big
             if bin_ is not None:
-                # wave packer: defer into the bin's megabatch, launched once
-                # a bin after this loop
+                # wave packer: defer into the (shard, bin) megabatch,
+                # launched once a group after this loop (a shard's groups
+                # stay its own where the mesh repeats a device)
                 p = _Pending(bucket=bucket, out=None, stacked=stacked, key=key,
-                             warm=W0 is not None)
+                             warm=W0 is not None, device=dev, shard=w)
                 pending.append(p)
-                fused_groups.setdefault(bin_, []).append(
+                fused_groups.setdefault((w or 0, bin_), []).append(
                     _FusedLane(pending=p, size=bucket.size, n=n, lams=lams, W0=W0, T0=T0)
                 )
                 continue
@@ -441,13 +517,14 @@ class BucketExecutor:
             self.last_dispatch_seconds += dt
             bump("executor.dispatches")
             pending.append(
-                _Pending(bucket=bucket, out=out, stacked=stacked, key=key, warm=W0 is not None)
+                _Pending(bucket=bucket, out=out, stacked=stacked, key=key, warm=W0 is not None,
+                         device=dev, shard=w)
             )
 
         fused_sweeps = self._dispatch_fused(fused_groups, lam)
 
-        # oversize buckets: one blocking sharded solve per block, while the
-        # small launches above are in flight.  A bucket reused from the
+        # oversize buckets: one blocking sharded solve per block over the
+        # mesh, while the small launches above are in flight.  A bucket reused from the
         # previous lambda seeds Theta0 with its own previous block (kept on
         # the device), never a host inversion of the giant block.
         totals = {"dispatched": 0, "inner_iters": 0, "fallbacks": 0}
@@ -460,7 +537,7 @@ class BucketExecutor:
             p.out, info = solve_sharded_bucket(
                 p.bucket, np.full(n, lam), S, solver=self.solver, dtype=self.dtype,
                 device=self.device, opts=opts, tol=self.route_check_tol,
-                warm_thetas=warm_thetas,
+                warm_thetas=warm_thetas, mesh=self.devices,
             )
             for k in totals:
                 totals[k] += info[k]
@@ -469,8 +546,9 @@ class BucketExecutor:
 
         # single synchronization point: everything above was queued
         with span("engine.barrier"):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in {self.device, *(p.device for p in pending)}:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
         for sw in fused_sweeps:
             # what the megabatch's slowest lane would have cost every other
             # lane had they iterated in lockstep without per-lane exit
@@ -491,13 +569,16 @@ class BucketExecutor:
         # device; a call without keep_solutions frees the previous ones
         new_solutions: dict = {}
         new_blocks: dict = {}
+        new_shards: dict = {}
         if keep_solutions:
             for p in pending:
-                new_solutions[p.key] = torch.as_tensor(p.out, dtype=self.dtype, device=self.device)
+                new_solutions[p.key] = torch.as_tensor(p.out, dtype=self.dtype, device=p.device)
                 if p.stacked is not None:
                     new_blocks[p.key] = p.stacked
+                    new_shards[p.key] = p.shard
         self._prev_solutions = new_solutions
         self._prev_blocks = new_blocks
+        self._prev_shards = new_shards
 
         t0 = time.perf_counter()
         with span("engine.assemble", output=output):
@@ -514,9 +595,10 @@ class BucketExecutor:
         bump("engine.assemble_us", int(self.last_assemble_seconds * 1e6))
         return Theta
 
-    def _dispatch_fused(self, groups: dict[int, list[_FusedLane]], lam: float) -> list:
-        """Launch every bin's megabatch: ONE ``bucket_glasso`` launch a bin,
-        its result sliced back into each lane's ``pending.out``.
+    def _dispatch_fused(self, groups: dict[tuple, list[_FusedLane]], lam: float) -> list:
+        """Launch every (shard, bin) megabatch: ONE ``bucket_glasso``
+        launch a group, on the device its lanes were placed on, its result
+        sliced back into each lane's ``pending.out``.
 
         Packing is bitwise-transparent (``engine.waves``): blocks re-pad
         with an identity diagonal, W stacks with 1 + lam, cold lanes carry
@@ -527,11 +609,11 @@ class BucketExecutor:
         ``solver.fused.lockstep_sweeps_saved``.  A launch that fails
         raises: nothing falls back to unfused dispatch."""
         sweeps_out = []
-        for bin_, lanes in sorted(groups.items()):
+        for (_, bin_), lanes in sorted(groups.items()):
             blk_p, lam_p, sc_p, w_p, t_p = [], [], [], [], []
             for ln in lanes:
                 stacked = ln.pending.stacked
-                eye = torch.eye(ln.size, dtype=self.dtype, device=self.device)
+                eye = torch.eye(ln.size, dtype=self.dtype, device=stacked.device)
                 blk_p.append(repad_stack(stacked, bin_, 1.0))
                 lam_p.append(ln.lams)
                 sc_p.append(bcd.convergence_scale(stacked))
@@ -558,12 +640,14 @@ class BucketExecutor:
         return sweeps_out
 
     def _dispatch_repair(
-        self, bucket: blocks_mod.Bucket, idx: np.ndarray, candidates, lam: float
+        self, bucket: blocks_mod.Bucket, idx: np.ndarray, candidates, lam: float,
+        device=None,
     ):
-        """Bucket-shaped wrapper over the shared ``dispatch_repair``."""
+        """Bucket-shaped wrapper over the shared ``dispatch_repair``, on
+        ``device`` (the bucket's placement; the executor's by default)."""
         t0 = time.perf_counter()
         out = dispatch_repair(
-            self.solver, self.dtype, self.device, dict(self.solver_opts),
+            self.solver, self.dtype, device or self.device, dict(self.solver_opts),
             bucket.size, np.asarray(bucket.blocks)[idx],
             np.full(int(idx.size), lam), candidates,
         )
@@ -583,7 +667,7 @@ class BucketExecutor:
             idx = np.flatnonzero(~ok)
             bump(f"router.fallback.{p.bucket.structure}", int(idx.size))
             cand = p.out[torch.as_tensor(idx, device=p.out.device)]
-            repairs.append((p, self._dispatch_repair(p.bucket, idx, cand, lam)))
+            repairs.append((p, self._dispatch_repair(p.bucket, idx, cand, lam, p.device)))
         for p, (idx, fixed) in repairs:
             out = p.out.clone()
             out[torch.as_tensor(idx, device=out.device)] = fixed
@@ -610,7 +694,8 @@ class BucketExecutor:
             if bad.any():
                 idx = np.flatnonzero(bad)
                 bump("router.fallback.warm", int(idx.size))
-                repairs.append((p, self._dispatch_repair(p.bucket, idx, p.host[idx], lam)))
+                repairs.append((p, self._dispatch_repair(p.bucket, idx, p.host[idx], lam,
+                                                         p.device)))
         for p, (idx, fixed) in repairs:
             out = p.out.clone()
             out[torch.as_tensor(idx, device=out.device)] = fixed

@@ -6,22 +6,26 @@ One contract for every implementation of the paper's eq.-(4) partition step:
     (labels[i] == smallest vertex index in i's component)
     or (labels, n_edges) from a backend that counts the edges itself
 
-Three backends ship, under the reference's names so ``cc_backend`` values
+Four backends ship, under the reference's names so ``cc_backend`` values
 carried by ``EngineOptions.from_reference`` resolve:
 
-    "host"    numpy union-find (the paper's ``graphconncomp`` role)
-    "jax"     plain-torch min-label propagation + pointer jumping on the
-              engine's device (``core.components.connected_components_labelprop``)
-    "pallas"  the ``threshold_cc`` CUDA hook step driven to a fixed point
-              (``kernels.threshold_cc``); its plain version on the CPU
+    "host"       numpy union-find (the paper's ``graphconncomp`` role)
+    "jax"        plain-torch min-label propagation + pointer jumping on the
+                 engine's device (``core.components.connected_components_labelprop``)
+    "pallas"     the ``threshold_cc`` CUDA hook step driven to a fixed point
+                 (``kernels.threshold_cc``); its plain version on the CPU
+    "shard_map"  the row-sharded screen across a mesh of devices
+                 (``core.distributed.distributed_components``): S's rows
+                 split over the mesh, one ``threshold_cc`` row-slab launch
+                 a shard a round, the labels all-gathered between rounds
 
-The two device backends take ``device=`` (the engine passes its own;
+The device backends take ``device=`` (the engine passes its own;
 ``"cuda"`` by default, which raises without CUDA), copy S there once,
 threshold it in its own dtype and count its edges on that copy, so the
-screen's stats never read S on the host.  The reference's ``"shard_map"``
-backend (label propagation across several devices) comes with the
-multi-device slice; the port's sharded solver runs on one device.  Register
-more with ``@register_cc_backend("name")``.
+screen's stats never read S on the host; ``"shard_map"`` also takes
+``mesh=`` (the engine passes its own, ``Engine(devices=...)``; by default
+``local_device_mesh(device)``) and counts the edges on its row shards.
+Register more with ``@register_cc_backend("name")``.
 
 The second registry is the ROUTING LADDER: structure class (assigned per
 bucket by the planner via ``engine.structure``) -> executor route:
@@ -203,3 +207,21 @@ def _threshold_cc(S, lam, *, device="cuda", **_opts) -> tuple[np.ndarray, int]:
     S = to_device(S, device)
     labels = connected_components_kernel(S, float(lam))
     return canonicalize_labels(labels.cpu().numpy()), count_edges(S, lam)
+
+
+@register_cc_backend("shard_map")
+def _shard_map(S, lam, *, mesh=None, device="cuda", **_opts) -> tuple[np.ndarray, int]:
+    from repro_torch.core.components import canonicalize_labels
+    from repro_torch.core.distributed import (
+        as_mesh,
+        components_of_row_shards,
+        count_edges_rowsharded,
+        local_device_mesh,
+        padded_row_shards,
+    )
+
+    mesh = local_device_mesh(device) if mesh is None else as_mesh(mesh)
+    S_rows = padded_row_shards(S, mesh)
+    labels = components_of_row_shards(S_rows, float(lam))[: S.shape[0]]
+    # the padded isolated vertices have no edges
+    return canonicalize_labels(labels.cpu().numpy()), count_edges_rowsharded(S_rows, lam)

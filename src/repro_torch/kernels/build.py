@@ -60,8 +60,9 @@ _SIGNATURES = {
     },
     "bucket_glasso_smem_bytes": (ctypes.c_size_t, [_I, _I]),
     "bucket_glasso_scratch_values": (ctypes.c_longlong, [_I, _I]),
-    "threshold_cc_step_launch": (
-        _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_double, _I, _P],
+    "threshold_cc_rows_launch": (
+        _I, [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_double, _I, _P],
     ),
     **{
         name: (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, lam_t, _P])

@@ -9,10 +9,12 @@ no repeated K/V exists either.  The output has q's dtype.
 ``csrc/flash_attention.cu`` has one hand-written body per dtype: float32
 runs the register-tiled FP32 body, bf16 the tensor-core body (wgmma fed by
 TMA; it also bumps ``kernels.flash_attention.wgmma_launches``).  Each body
-has instances at a few head dims (``HEAD_DIMS``); any other d up to
-``MAX_HEAD_DIM`` is padded with zero columns to the next instance
-(``pad_head_dim``) and the output sliced back, with the scale of the
-unpadded d."""
+has instances at a few head dims (``HEAD_DIMS``); any other d up to 256 is
+padded with zero columns to the next instance (``pad_head_dim``) and the
+output sliced back, with the scale of the unpadded d.  Above 256 each body
+has one wide instance that takes any multiple of ``WIDE_MULTIPLE`` (O's
+columns split over blocks of 128, q . k streamed over d in chunks); a d
+off that multiple is padded up to it the same way."""
 
 from __future__ import annotations
 
@@ -36,18 +38,20 @@ HEAD_DIMS = {
     torch.float32: (32, 64, 96, 128, 160, 192, 256),
     torch.bfloat16: (16, 32, 64, 128, 192, 256),
 }
-#: the largest head dim the kernel takes
-MAX_HEAD_DIM = 256
+#: above the largest of ``HEAD_DIMS``, the wide instance takes d a multiple
+#: of this (16-byte rows: cp.async's float4 copies, the TMA's strides)
+WIDE_MULTIPLE = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def instance_head_dim(d: int, dtype: torch.dtype) -> int:
     """The head dim of the instance that runs a call of head dim ``d`` in
-    ``dtype``: the smallest of ``HEAD_DIMS[dtype]`` at or above d."""
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"flash_attention: head_dim {d} outside 1 .. {MAX_HEAD_DIM}, the head dims "
-            "the kernel takes"
-        )
+    ``dtype``: the smallest of ``HEAD_DIMS[dtype]`` at or above d, and above
+    them d rounded up to ``WIDE_MULTIPLE[dtype]`` (the wide instance)."""
+    if d < 1:
+        raise ValueError(f"flash_attention: head_dim {d}: the kernel takes d >= 1")
+    if d > HEAD_DIMS[dtype][-1]:
+        unit = WIDE_MULTIPLE[dtype]
+        return -(-d // unit) * unit
     return next(n for n in HEAD_DIMS[dtype] if n >= d)
 
 
@@ -75,9 +79,9 @@ def flash_attention(
     multiple of Hkv; causal masks kpos > qpos, aligned top-left.  ``scale``
     defaults to d**-0.5.  Returns (B, Hq, Sq, d) in q's dtype.
 
-    A CPU tensor runs the plain version at any d; any other tensor must
-    have d <= ``MAX_HEAD_DIM``, and a CUDA tensor launches
-    ``csrc/flash_attention.cu`` or raises.  Each launch bumps
+    A CPU tensor runs the plain version; a CUDA tensor launches
+    ``csrc/flash_attention.cu`` at any d (padded to its instance) or
+    raises.  Each launch bumps
     ``kernels.flash_attention.launches``, and a bf16 launch (the wgmma body)
     also ``kernels.flash_attention.wgmma_launches``."""
     B, Hq, Sq, d = q.shape

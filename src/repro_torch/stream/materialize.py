@@ -202,33 +202,43 @@ def materialize_components(
 GATHER_ROWS = 1024
 
 
-def shard_gather(S, comp: np.ndarray, *, device="cuda", dtype=None) -> torch.Tensor:
-    """Gather S[comp, comp] STRAIGHT onto ``device`` as the identity-padded
-    (bp, bp) block of the sharded solver (one row shard at d = 1).
+def shard_gather(S, comp: np.ndarray, mesh=None, *, dtype=None, device="cuda") -> list:
+    """Gather S[comp, comp] STRAIGHT into the row shards of the sharded
+    solver's identity-padded (bp, bp) block on ``mesh``
+    (``local_device_mesh(device)`` by default): a list of d (bp/d, bp)
+    tensors, shard k on ``mesh[k]``.
 
-    The sharded oversize route's loader: the padded block is allocated on
-    the device as the identity, and its leading (b, b) corner is filled
-    ``GATHER_ROWS`` rows at a time through the gather protocol — dense
-    slices, a materialized block's row view, or a deferred component's
-    Gram chunk computed on its own device.  Host peak is one row chunk:
-    the full (b, b) block never exists on the host."""
+    The sharded oversize route's loader: each shard is allocated on its
+    device as its rows of the identity, and its rows inside the block are
+    filled ``GATHER_ROWS`` rows at a time through the gather protocol —
+    dense slices, a materialized block's row view, or a deferred
+    component's Gram chunk computed on its own device — each chunk going
+    straight to the shard's device (``stream.shard_chunks`` counts the
+    chunks).  Host peak is one row chunk: the full (b, b) block never
+    exists on the host."""
     from repro_torch.core.blocks import gather_submatrix_rows
-    from repro_torch.core.solvers.sharded import N_SHARDS, sharded_pad_size
-    from repro_torch.engine.options import resolve_device
+    from repro_torch.core.distributed import as_mesh, eye_rows, local_device_mesh
+    from repro_torch.core.solvers.sharded import sharded_pad_size
 
     comp = np.asarray(comp)
     b = comp.size
-    bp = sharded_pad_size(b, N_SHARDS)
-    dev = resolve_device(device)
+    mesh = local_device_mesh(device) if mesh is None else as_mesh(mesh)
+    d = len(mesh)
+    bp = sharded_pad_size(b, d)
+    rl = bp // d
     np_dtype = np.dtype("float64" if dtype is None else np.dtype(dtype).name)
     t_dtype = getattr(torch, np_dtype.name)
-    out = torch.eye(bp, dtype=t_dtype, device=dev)
-    for lo in range(0, b, GATHER_ROWS):
-        rows = comp[lo : lo + GATHER_ROWS]
-        if hasattr(S, "gather_rows_tensor"):
-            chunk = S.gather_rows_tensor(rows, comp)
-        else:
-            chunk = torch.as_tensor(gather_submatrix_rows(S, rows, comp, dtype=np_dtype))
-        out[lo : lo + rows.size, :b] = chunk.to(device=dev, dtype=t_dtype)
-        bump("stream.shard_chunks")
-    return out
+    shards = []
+    for k, dev in enumerate(mesh):
+        lo, hi = k * rl, (k + 1) * rl
+        out = eye_rows(lo, rl, bp, dtype=t_dtype, device=dev)
+        for r0 in range(lo, min(hi, b), GATHER_ROWS):
+            rows = comp[r0 : min(r0 + GATHER_ROWS, hi, b)]
+            if hasattr(S, "gather_rows_tensor"):
+                chunk = S.gather_rows_tensor(rows, comp)
+            else:
+                chunk = torch.as_tensor(gather_submatrix_rows(S, rows, comp, dtype=np_dtype))
+            out[r0 - lo : r0 - lo + rows.size, :b] = chunk.to(device=dev, dtype=t_dtype)
+            bump("stream.shard_chunks")
+        shards.append(out)
+    return shards

@@ -1,9 +1,9 @@
 """The port's serving control plane (``repro_torch.launch.control_plane``)
 and the unified ``GlassoServer.submit(spec, meta=...)`` chokepoint on the
 CPU: the cases of tests/test_control_plane.py applied to the port's copy
-(all but ``lpt_assign``, which belongs to the multi-device slice), the
-``PathSpec`` cases of tests/test_select.py, and the cache keys of both
-packages held equal on the same numpy inputs.
+(``lpt_assign``'s priorities among them, on the port's
+``core.schedule``), the ``PathSpec`` cases of tests/test_select.py, and
+the cache keys of both packages held equal on the same numpy inputs.
 
 Every server here runs ``EngineOptions(device="cpu")`` (the kernels' plain
 versions); futures are awaited with a timeout, and no assertion reads a
@@ -190,6 +190,24 @@ def test_pathspec_validation_and_cache_key():
     ) is None
     assert GlassoServer._fold_output(None, None, spec=PathSpec(S=S)).slo == "batch"
     assert GlassoServer._fold_output(None, None, spec=DenseSpec(S, 0.5)).slo == "interactive"
+
+
+def test_lpt_priorities_place_urgent_first():
+    from repro.core.schedule import lpt_assign as ref_lpt_assign
+    from repro_torch.core.schedule import lpt_assign
+
+    sizes = [4, 4, 4, 4]
+    base = lpt_assign(sizes, 2)
+    uniform = lpt_assign(sizes, 2, priorities=[1, 1, 1, 1])
+    # uniform priorities preserve plain LPT exactly (stable tie-break)
+    np.testing.assert_array_equal(base.worker_of, uniform.worker_of)
+    # the single urgent equal-cost item is placed first -> worker 0
+    urgent = lpt_assign(sizes, 2, priorities=[0, 0, 1, 0])
+    assert urgent.worker_of[2] == 0
+    np.testing.assert_array_equal(
+        urgent.worker_of, ref_lpt_assign(sizes, 2, priorities=[0, 0, 1, 0]).worker_of)
+    with pytest.raises(ValueError, match="priorities"):
+        lpt_assign(sizes, 2, priorities=[1, 2])
 
 
 def test_server_without_cuda_raises_unless_cpu():

@@ -420,6 +420,36 @@ def test_threshold_cc_step_matches_plain(cuda_device, p, dtype):
     assert torch.equal(got, want)
 
 
+# the row-slab step (the sharded screen's, one launch a device a round):
+# slabs with row0 != 0, the diagonal masked by global row, exact ties at lam
+@pytest.mark.parametrize("pp,row0,rows", [(33, 8, 9), (33, 32, 1), (1000, 250, 250),
+                                          (1000, 750, 250), (4099, 1000, 1025)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_threshold_cc_row_slab_matches_plain(cuda_device, pp, row0, rows, dtype):
+    from repro_torch.kernels.threshold_cc import (
+        labelprop_rows,
+        labelprop_rows_ref,
+        labelprop_step_ref,
+    )
+
+    rng = np.random.default_rng(pp + row0)
+    A = rng.uniform(-1.0, 1.0, size=(pp, pp))
+    S = 0.5 * (A + A.T)
+    lam = 0.9
+    S[row0, (row0 + 1) % pp] = S[(row0 + 1) % pp, row0] = lam  # a tie: not an edge
+    S[row0, row0] = 5.0  # the diagonal, by global row, is never an edge
+    St = torch.as_tensor(S, dtype=dtype, device=cuda_device)
+    labels = torch.as_tensor(rng.permutation(pp), dtype=torch.int32, device=cuda_device)
+    slab = St[row0 : row0 + rows]
+    instrument.reset("kernels.")
+    got = labelprop_rows(slab, labels, lam, row0)
+    want = labelprop_rows_ref(slab, labels, lam, row0)
+    torch.cuda.synchronize()
+    assert instrument.count("kernels.threshold_cc.launches") == 1
+    assert got.shape == (rows,) and torch.equal(got, want)
+    assert torch.equal(got, labelprop_step_ref(St, labels, lam)[row0 : row0 + rows])
+
+
 def test_pallas_backend_on_the_card_equals_host(cuda_device):
     """The device screen through the registry, near tie included: the
     float64 kernel keeps an edge that exceeds lam by 1e-12."""
@@ -1209,10 +1239,12 @@ def test_flash_attention_matches_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d, caus
 
 # head dims above 128: float32's own instances at 160, 192 and 256 (d = 256
 # as two blocks of 128 output columns each), bf16's at 192 and 256; d = 129
-# runs padded (to 160 in float32, 192 in bf16).  The same tolerances.
+# runs padded (to 160 in float32, 192 in bf16).  Above 256 the wide
+# instances: 260 (a last block of 4 columns; bf16 pads it to 264), 320 and
+# 512, with q . k streamed over d in chunks of 128.  The same tolerances.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [129, 160, 192, 256])
+@pytest.mark.parametrize("d", [129, 160, 192, 256, 260, 320, 512])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Skv", [(1, 4, 4, 150, 170), (2, 4, 2, 100, 130)])
 def test_flash_attention_wide_head_dims_match_plain(cuda_device, B, Hq, Hkv, Sq, Skv, d,
                                                     causal, dtype):
@@ -1264,9 +1296,9 @@ def test_flash_attention_rejects_what_the_kernel_does_not_take(cuda_device):
         flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention(q, q.bfloat16(), q)
-    with pytest.raises(ValueError, match="head_dim 257"):
-        z = torch.zeros((1, 4, 8, 257), device=cuda_device)
-        flash_attention(z, z, z)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        z = torch.zeros((1, 4, 8, 0), device=cuda_device)
+        flash_attention(z, z, z, scale=1.0)
     with pytest.raises(AssertionError, match="multiple of Hkv"):
         flash_attention(q, q[:, :3], q[:, :3])
 

@@ -1,9 +1,9 @@
 """The ``flash_attention`` kernel's plain version against the reference
 package: its Pallas kernel (``repro.kernels.flash_attention``, run in
 interpret mode off the TPU, as ``tests/test_kernels.py`` runs it) and its
-oracle ``attention_ref``; the port's head-dim padding (the card runs any
-d <= 128 on the next instance, with zero columns); and the port's
-wrapper's dispatch.
+oracle ``attention_ref``; the port's head-dim padding (the card runs a
+d off its instances on the next one, with zero columns), head dims above
+256 (the wide instances); and the port's wrapper's dispatch.
 
 Inputs come from ``np.random.default_rng`` and reach both packages as the
 same float32 values (rounded once to bf16 for the bf16 cases).
@@ -22,7 +22,7 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention, pad_head_dim
-from repro_torch.kernels.flash_attention.ops import MAX_HEAD_DIM, instance_head_dim
+from repro_torch.kernels.flash_attention.ops import instance_head_dim
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 JAX_DTYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
@@ -183,27 +183,45 @@ def test_padded_head_dim_matches_reference_kernel(d, causal, dtype):
 
 
 def test_instance_head_dims():
-    """Each dtype's body runs d on its smallest instance at or above d;
-    none takes d outside 1 .. 256."""
+    """Each dtype's body runs d on its smallest instance at or above d, and
+    above 256 on its wide instance at d rounded up to a multiple of 4
+    (float32) or 8 (bf16); d < 1 raises."""
     want = {1: (32, 16), 4: (32, 16), 12: (32, 16), 16: (32, 16), 17: (32, 32),
             32: (32, 32), 33: (64, 64), 64: (64, 64), 80: (96, 128), 96: (96, 128),
             97: (128, 128), 128: (128, 128), 129: (160, 192), 160: (160, 192),
-            161: (192, 192), 192: (192, 192), 193: (256, 256), 256: (256, 256)}
+            161: (192, 192), 192: (192, 192), 193: (256, 256), 256: (256, 256),
+            257: (260, 264), 260: (260, 264), 320: (320, 320), 321: (324, 328),
+            512: (512, 512), 576: (576, 576)}
     for d, (f32, bf16) in want.items():
         assert instance_head_dim(d, torch.float32) == f32
         assert instance_head_dim(d, torch.bfloat16) == bf16
     assert pad_head_dim(*(torch.zeros((1, 1, 2, 32)),) * 3, 32)[0].shape[-1] == 32
-    for d in (0, MAX_HEAD_DIM + 1):
-        with pytest.raises(ValueError, match=f"head_dim {d} outside"):
+    for d in (0, -1):
+        with pytest.raises(ValueError, match=f"head_dim {d}"):
             instance_head_dim(d, torch.float32)
 
 
 def test_head_dim_above_128_raises_off_the_cpu():
-    """d = 257, above ``MAX_HEAD_DIM`` (256), has no instance: a tensor off
-    the CPU raises ValueError naming d before any device dispatch (the
-    plain version on the CPU takes any d)."""
+    """d = 257 runs on the card padded to its wide instance; a tensor on a
+    device without a kernel raises ValueError before any launch (the plain
+    version on the CPU takes any d)."""
     m = torch.zeros((1, 4, 8, 257), device="meta")
-    with pytest.raises(ValueError, match="head_dim 257"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attention(m, m, m)
     c = torch.zeros((1, 4, 8, 257))
     assert flash_attention(c, c, c).shape == c.shape
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wide_head_dim_matches_reference_kernel(causal, dtype):
+    """d = 320, above 256: the port's path (the card's wide instance takes
+    320 as it is in both dtypes, so no padding) through the plain version
+    against the reference's kernel in interpret mode, GQA at ragged cross
+    lengths."""
+    (q, k, v), (jq, jk, jv) = _both(_inputs(11, 1, 4, 2, 24, 40, 320), dtype)
+    assert instance_head_dim(320, dtype) == 320
+    got = flash_attention(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    kernel = jax_flash(jq, jk, jv, causal=causal, block_q=16, block_k=16)
+    np.testing.assert_allclose(_f32(got), _f32(kernel), atol=TOL[dtype], rtol=TOL[dtype])

@@ -36,6 +36,9 @@ import repro_torch.select.grid, repro_torch.select.homotopy, repro_torch.select.
 import repro_torch.select.report, repro_torch.select.cv, repro_torch.select.stability
 import repro_torch.stream.session, repro_torch.launch.control_plane
 import repro_torch.launch.serve_glasso, repro_torch.launch
+import repro_torch.core.schedule, repro_torch.core.components, repro_torch.engine.registry
+import repro_torch.engine.api, repro_torch.stream.materialize, repro_torch.kernels.threshold_cc.ops
+import repro_torch.kernels.threshold_cc.ref, repro_torch.kernels.flash_attention.ops
 repro_torch.launch.GlassoServer, repro_torch.launch.DenseSpec
 for arch in repro_torch.configs.list_archs():
     repro_torch.configs.get_arch(arch)

@@ -152,7 +152,7 @@ def test_shard_gather_dense_matches_pad(monkeypatch):
     comp = np.arange(3, 25)  # b = 22 pads to 24 on one device
     for chunk in (1024, 5):
         monkeypatch.setattr(materialize_mod, "GATHER_ROWS", chunk)
-        arr = shard_gather(S, comp, device=CPU).numpy()
+        arr = torch.cat(shard_gather(S, comp, device=CPU)).numpy()
         bp = sharded_pad_size(comp.size, 1)
         assert arr.shape == (bp, bp)
         np.testing.assert_array_equal(arr[: comp.size, : comp.size], S[np.ix_(comp, comp)])
@@ -193,7 +193,7 @@ def test_materialize_deferred_oversize(monkeypatch):
             full.S.gather_block(comp)[:3, :], rtol=0, atol=1e-12,
         )
         monkeypatch.setattr(materialize_mod, "GATHER_ROWS", 7)
-        sg = shard_gather(deferred.S, comp, device=CPU).numpy()
+        sg = torch.cat(shard_gather(deferred.S, comp, device=CPU)).numpy()
         np.testing.assert_allclose(
             sg[: comp.size, : comp.size], full.S.gather_block(comp), rtol=0, atol=1e-12
         )
@@ -323,3 +323,39 @@ def test_from_data_oversize_matches_reference():
                          solver_opts={"tol": 1e-9})
     assert got.route_mix.get("oversize", 0) >= 1 and got.oversize["fallbacks"] == 0
     _assert_same(got, ref, jc, ("router.", "solver.oversize.", "stream.deferred"))
+
+
+# ------------------------------------------- several shards (CPU devices)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_sharded_at_d_shards_matches_one_shard(d):
+    """d row shards of (bp/d, bp), never the whole block on one shard: the
+    same solve as d = 1 within the solver's tolerance (the ring matmuls and
+    reductions add in shard order), at d's own pad size."""
+    S, lam = _case(22, 2, 0.6)
+    one = glasso_sharded(S, lam, device=CPU)
+    got = glasso_sharded(S, lam, mesh=[CPU] * d)
+    assert (got.b, got.padded, got.n_shards) == (22, sharded_pad_size(22, d), d)
+    assert got.device_bytes == 12 * (got.padded // d) * got.padded * 8
+    assert got.kkt_residual <= 1e-6 * max(1.0, got.s_max)
+    np.testing.assert_allclose(got.Theta, one.Theta, rtol=0, atol=1e-7)
+    warm = glasso_sharded(S, lam, mesh=[CPU] * d, Theta0=got.Theta)
+    assert warm.iters < got.iters / 4
+    np.testing.assert_allclose(warm.Theta, got.Theta, atol=1e-7)
+
+
+def test_shard_gather_at_d_shards_is_the_padded_block_by_rows(monkeypatch):
+    S = random_covariance(np.random.default_rng(3), 40)
+    comp = np.arange(2, 37)  # b = 35 pads to 48 on 3 shards (16 rows each)
+    monkeypatch.setattr(materialize_mod, "GATHER_ROWS", 7)
+    shards = shard_gather(S, comp, [CPU] * 3)
+    bp = sharded_pad_size(comp.size, 3)
+    assert [tuple(s.shape) for s in shards] == [(bp // 3, bp)] * 3
+    want = np.eye(bp)
+    want[: comp.size, : comp.size] = S[np.ix_(comp, comp)]
+    np.testing.assert_array_equal(torch.cat(shards).numpy(), want)
+    with pytest.raises(ValueError, match="shards"):
+        glasso_sharded(shards, 0.1, b=comp.size, mesh=[CPU] * 2)
+    with pytest.raises(ValueError, match="padded size"):
+        glasso_sharded(shards, 0.1, b=3)

@@ -6,7 +6,8 @@ against the reference's float64 oracle ``labelprop_step_ref`` exactly (an
 int32 min over the same strict float64 predicate), and against the
 reference's interpret-mode Pallas step on data exactly representable in
 float32 (that path casts S and lam to float32).  Through the port's
-registry the ``"jax"`` and ``"pallas"`` backends must give the host
+registry the ``"jax"``, ``"pallas"`` and ``"shard_map"`` (one CPU shard;
+several in tests/test_torch_distributed.py) backends must give the host
 union-find's canonical labels exactly, exact ties |S_ij| == lam and near
 ties included.  The CUDA kernel is held against the plain step on the card
 in tests/test_torch_cuda_kernels.py."""
@@ -18,6 +19,7 @@ import torch
 
 from conftest import lambda_between_edges, random_covariance
 from repro.core.components import connected_components_labelprop as jax_labelprop
+from repro.engine.registry import available_cc_backends as jax_available_cc_backends
 from repro.engine.registry import label_components as jax_label_components
 from repro.kernels.threshold_cc.ops import labelprop_step as jax_pallas_step
 from repro.kernels.threshold_cc.ref import labelprop_step_ref as jax_step_ref
@@ -31,7 +33,7 @@ from repro_torch.kernels.threshold_cc import (
     labelprop_step_ref,
 )
 
-BACKENDS = ("jax", "pallas")
+BACKENDS = ("jax", "pallas", "shard_map")
 
 
 def _sym(rng, p, scale=1.0):
@@ -85,8 +87,7 @@ def test_labelprop_matches_reference_label_propagation(seed, p, q):
 
 
 def test_backends_registered_under_reference_names():
-    assert {"host", "jax", "pallas"} <= set(available_cc_backends())
-    assert "shard_map" not in available_cc_backends()
+    assert set(available_cc_backends()) == set(jax_available_cc_backends())
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
