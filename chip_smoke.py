@@ -137,11 +137,12 @@ Phases, each printing a line:
              "shard_map" (labels equal to "pallas"', 4 row-slab
              threshold_cc launches a round, one slab past row 0 held to
              its plain version and timed beside its bound, ms against the
-             one-device screen); [oversize]'s giant block at d = 4 warm
-             from the d = 1 solution (padded to sharded_pad_size(b, 4),
-             the in-place KKT, Theta within 1e-6 max|Theta| of d = 1, 4
-             shard_prox launches an outer iteration); [main]'s p = 6000
-             solve through Engine(devices=[cuda:0] * 4), Theta bit-equal
+             one-device screen); [oversize]'s giant block at d = 4 and at
+             d = 1, 50 outer iterations each from the same cold start
+             (padded to sharded_pad_size(b, 4), the d = 4 iterate within
+             1e-6 max|Theta| of the d = 1 one, 4 shard_prox launches an
+             outer iteration; a depth cut of the solve to convergence);
+             [main]'s p = 6000 solve through Engine(devices=[cuda:0] * 4), Theta bit-equal
              to the one-device solve, its buckets placed on all 4 indices;
 17. shard_prox  the first, a middle and the last shard_prox launch of the
              [admm] and [oversize] solves, held against the plain version
@@ -189,6 +190,20 @@ Phases, each printing a line:
              after), the prefill's time, the kernel's device share of it,
              the dense path's prefill time and peak bytes, and the logits
              against the dense path's on the card (argmax agreement too);
+24b. train   LM training, ``repro_torch.launch.train.run_training`` on
+             qwen2.5-3b at full width and depth (float32, AdamW, remat
+             "none", as its CLI runs it), 6 steps of 2 x 512 tokens: the
+             parameter count, the loss and seconds of each step, tokens/s,
+             peak memory and the model-FLOPs share against the FP32 peak;
+             no ported kernel launched (counters zeroed just before, read
+             just after); every loss finite, the last below the first.
+             [train_oracle] a 2-layer cut of the same widths (full vocab)
+             takes one train step in float32 and in float64 on the card,
+             the float32 gradients within 1e-4 of the float64 global norm;
+             [train_card_cpu] the reduced config's 12 steps on the card
+             against the CPU; [train_restart] its bit-exact restart on the
+             card (12 steps against 6, a checkpoint, a resume and 6) under
+             torch.use_deterministic_algorithms;
 25. path     ``glasso_path`` on ``benchmarks/bench_select.py``'s workload
              at its own size (p = 2400, 20 lambdas from 0.75 to 0.32,
              output "sparse", tol 1e-7): the warm path, the cold-restart
@@ -266,7 +281,12 @@ from contextlib import ExitStack, contextmanager
 from pathlib import Path
 
 import numpy as np
-import torch
+
+# [train]'s restart check runs under torch.use_deterministic_algorithms, which
+# wants cuBLAS's workspace fixed before the first handle is made; 4096 KiB x 8
+# is the default size on sm_90, so no other phase's products change
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -477,6 +497,27 @@ SERVE_LOGITS_RTOL = 1e-3
 # bf16 before p v and sums in another order: ~1 bf16 ulp of the output,
 # 2^-8 relative), which the residual stream carries through 36 layers
 PREFILL_BF16_RTOL = 5e-2
+# [train]: repro_torch.launch.train.run_training at the full width and depth
+# of qwen2.5-3b (the [serve] config, 36 layers), float32 and AdamW with
+# remat "none" as its CLI runs it, TRAIN_STEPS steps of batch TRAIN_BATCH x
+# TRAIN_SEQ tokens (no cut of batch or sequence: the peak stays well under
+# the card's memory).  The model-FLOPs share counts 6 * N * tokens against
+# FP32_PEAK_FLOPS (TF32 off, as main() sets it)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 2, 512
+FP32_PEAK_FLOPS = 67e12
+# the full-width oracle: a TRAIN_ORACLE_LAYERS-layer cut of the same widths and
+# the full vocab takes one train step in float32 and in float64 on the card,
+# the float32 gradients within this share of the float64 global norm
+TRAIN_ORACLE_LAYERS = 2
+TRAIN_ORACLE_RTOL = 1e-4
+# the reduced config's 12 steps on the card against the same on the CPU: the
+# losses within the CPU tests' 1e-5 relative against the reference
+# (tests/test_torch_train.py).  The card's products sum in other orders than
+# the CPU's, and a parameter whose gradient nearly cancels can take Adam's
+# step (up to lr_t <= 3e-4) the other way: the final state within 1e-4
+# absolute, a third of one such step (measured 1.28e-5 on an H100)
+TRAIN_CARD_CPU_RTOL = 1e-5
+TRAIN_CARD_CPU_ATOL = 1e-4
 # [flash_attention]: the kernel against its plain version within the
 # reference's own tolerances for its kernel (tests/test_kernels.py): float32
 # 2e-5, bf16 3e-2.  Cases (label, B, Hq, Hkv, Sq, Skv, d, causal, dtype): the
@@ -561,9 +602,14 @@ FUSED_LAM = 0.25
 #: [multidevice]: d row shards on the one card (cuda:0 repeated), every
 #: shard's work and every copy between shards on that card
 MULTI_D = 4
-#: the giant block at d = MULTI_D starts from the d = 1 solution at this
-#: multiple of its lambda, never from the answer it is held to
-GIANT_NEIGHBOUR = 1.05
+#: the giant block at d = MULTI_D and at d = 1 each take this many outer
+#: ADMM iterations from the same cold start, and the two iterates are
+#: compared.  A depth cut: the d = 4 solve to convergence (1363 iterations
+#: from the d = 1 solution at 1.05 lam) took 74-184 s on four shards of one
+#: card, launch- and host-bound, and held chip_smoke.py above 600 s; the
+#: d = 1 solve's convergence stays checked in [oversize] (its in-place KKT
+#: and the dense admm oracle)
+GIANT_MD_ITERS = 50
 
 T_START = time.perf_counter()
 
@@ -1164,11 +1210,42 @@ def hook_steps_on_path(steps: list) -> dict:
     return out
 
 
-def phase_threshold_cc() -> None:
-    """The hook step at the two fixed shapes, from the first round's labels."""
-    for K, p1 in THRESHOLD_CC_CASES:
-        S = structured_synthetic(K, p1, seed=0)
+def in_background(fn, *args):
+    """Start ``fn(*args)`` on a daemon thread; returns a function that joins
+    it and returns its value (or raises its exception)."""
+    import threading
+
+    box: dict = {}
+
+    def run():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the join
+            box["error"] = e
+
+    thread = threading.Thread(target=run, name=fn.__name__, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in box:
+            raise box["error"]
+        return box.pop("value")
+
+    return join
+
+
+def phase_threshold_cc(matrices) -> None:
+    """The hook step at the two fixed shapes, from the first round's labels.
+    ``matrices`` holds a function a case of THRESHOLD_CC_CASES, in order,
+    returning its ``structured_synthetic(K, p1, seed=0)``: [main]'s matrix,
+    and the join of a background thread making the p = 20016 one (20-30 s
+    of numpy on the host, made while [card_tests]' subprocesses run)."""
+    for (K, p1), matrix in zip(THRESHOLD_CC_CASES, matrices, strict=True):
+        S = matrix()
         p = S.shape[0]
+        if p != K * p1:
+            raise AssertionError(f"threshold_cc: a p = {p} matrix for the case {(K, p1)}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         S_dev = torch.as_tensor(S).to(DEV)
@@ -2294,9 +2371,7 @@ def phase_oversize() -> tuple[dict, dict]:
     del solves, dense_calls, S_pad, S_shards, mid_args
     torch.cuda.empty_cache()
     comp = max(component_lists(components_from_covariance_host(S, lam)), key=len)
-    giant = dict(block=S[np.ix_(comp, comp)], lam=lam, theta=sol.Theta, sol=sol,
-                 solve_s=res.stages()["solve"], dense=dense.Theta[np.ix_(comp, comp)],
-                 dense_bound=theta_bound)
+    giant = dict(block=S[np.ix_(comp, comp)], lam=lam, theta=sol.Theta)
     return launches, kept, giant
 
 
@@ -2329,13 +2404,12 @@ def phase_multidevice(large: dict, giant: dict, S_main: np.ndarray, lam_main: fl
        ``"pallas"`` backend's, MULTI_D row-slab launches a round, ms
        against the one-device screen; one row-slab launch past row 0 held
        to its plain version and timed beside its bound;
-    2. oversize: [oversize]'s giant block at d = MULTI_D, warm-started from
-       the d = 1 solution at GIANT_NEIGHBOUR * lambda (a start far from the
-       answer): padded to ``sharded_pad_size(b, d)``, in-place KKT within
-       route_check_tol * max(1, s_max), Theta within 1e-6 max|Theta| of
-       d = 1 and within [oversize]'s bound of its dense admm solve, MULTI_D
-       shard_prox launches an outer iteration, the first, a middle and the
-       last of them on their (bp/d, bp) shards held to the plain version;
+    2. oversize: [oversize]'s giant block at d = MULTI_D and at d = 1,
+       GIANT_MD_ITERS outer iterations each from the same cold start:
+       padded to ``sharded_pad_size(b, d)``, the d = MULTI_D iterate within
+       1e-6 max|Theta| of the d = 1 iterate, MULTI_D shard_prox launches an
+       outer iteration, the first, a middle and the last of them on their
+       (bp/d, bp) shards held to the plain version;
     3. buckets: [main]'s p = 6000 solve through ``Engine(devices=mesh)``:
        Theta bit-equal to the one-device solve, its buckets LPT-placed over
        all MULTI_D indices.
@@ -2374,40 +2448,32 @@ def phase_multidevice(large: dict, giant: dict, S_main: np.ndarray, lam_main: fl
         slab_plain_ms=f"{slab['plain_ms']:.4f}", slab_bound_ms=f"{slab['bound_ms']:.4f}")
     out["screen"] = dict(launches=n_slab, rounds=rounds, **slab)
 
-    # 2. the giant block at d shards, from the neighbouring lambda's d = 1
-    # solution
-    B, theta1, sol1 = giant["block"], giant["theta"], giant["sol"]
+    # 2. the giant block at d shards against d = 1, GIANT_MD_ITERS outer
+    # iterations each from the same cold start
+    B, theta1 = giant["block"], giant["theta"]
     b, lam_g = B.shape[0], giant["lam"]
-    theta_bound = 1e-6 * float(np.abs(theta1).max())
     t0 = time.perf_counter()
-    start = glasso_sharded(B, GIANT_NEIGHBOUR * lam_g, mesh=[DEV], Theta0=theta1,
-                           kkt_target=ROUTE_CHECK_TOL)
-    start_s = time.perf_counter() - t0
-    start_gap = float(np.abs(start.Theta - theta1).max())
-    if not start_gap > 1000 * theta_bound:
-        raise AssertionError(f"[multidevice] the start is {start_gap} from the answer")
+    ref = glasso_sharded(B, lam_g, mesh=[DEV], max_iter=GIANT_MD_ITERS)
+    d1_s = time.perf_counter() - t0
+    theta_bound = 1e-6 * float(np.abs(ref.Theta).max())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     instrument.reset("kernels.")
     with record_prox_launches("repro_torch.core.solvers.sharded", "fused_prox_residual") as kept:
         t0 = time.perf_counter()
-        sol = glasso_sharded(B, lam_g, mesh=mesh, Theta0=start.Theta, kkt_target=ROUTE_CHECK_TOL)
+        sol = glasso_sharded(B, lam_g, mesh=mesh, max_iter=GIANT_MD_ITERS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = instrument.tail_counts("kernels.")
     peak = torch.cuda.max_memory_allocated()
     if (sol.padded, sol.n_shards) != (sharded_pad_size(b, MULTI_D), MULTI_D):
         raise AssertionError(f"[multidevice] padded {sol.padded} on {sol.n_shards} shards")
-    kkt_bound = ROUTE_CHECK_TOL * max(1.0, sol.s_max)
-    if not sol.kkt_residual <= kkt_bound:
-        raise AssertionError(f"[multidevice] in-place KKT {sol.kkt_residual} > {kkt_bound}")
-    diff = float(np.abs(sol.Theta - theta1).max())
+    if not sol.iters == ref.iters == GIANT_MD_ITERS:
+        raise AssertionError(f"[multidevice] {sol.iters} / {ref.iters} outer iterations, "
+                             f"expected {GIANT_MD_ITERS}")
+    diff = float(np.abs(sol.Theta - ref.Theta).max())
     if not diff <= theta_bound:
         raise AssertionError(f"[multidevice] max|Theta_d - Theta_1| = {diff} > {theta_bound}")
-    diff_dense = float(np.abs(sol.Theta - giant["dense"]).max())
-    if not diff_dense <= giant["dense_bound"]:
-        raise AssertionError(
-            f"[multidevice] max|Theta_d - Theta_dense| = {diff_dense} > {giant['dense_bound']}")
     n_prox = launches.get("shard_prox.launches", 0)
     if n_prox != MULTI_D * sol.iters or kept["n"] != n_prox:
         raise AssertionError(f"[multidevice] {launches} for {sol.iters} outer iterations")
@@ -2417,15 +2483,14 @@ def phase_multidevice(large: dict, giant: dict, S_main: np.ndarray, lam_main: fl
     del kept
     torch.cuda.empty_cache()
     log("multidevice", case="oversize", d=MULTI_D, b=b, padded=sol.padded,
-        padded_d1=sol1.padded, start=f"d = 1 at {GIANT_NEIGHBOUR} lam", start_iters=start.iters,
-        start_s=f"{start_s:.3f}", start_gap=start_gap, iters=sol.iters,
-        iters_d1_cold=sol1.iters, inner_iters=sol.inner_iters, retries=sol.retries,
-        shard_prox_launches=n_prox, kkt_inplace=sol.kkt_residual, kkt_bound=kkt_bound,
-        theta_vs_d1=diff, theta_bound=theta_bound, theta_vs_dense=diff_dense,
-        theta_dense_bound=giant["dense_bound"], device_bytes=sol.device_bytes,
-        max_memory_allocated=peak, wall_s=f"{wall:.3f}",
+        padded_d1=ref.padded, start="cold", iters=sol.iters, iters_d1=ref.iters,
+        inner_iters=sol.inner_iters, inner_iters_d1=ref.inner_iters, retries=sol.retries,
+        shard_prox_launches=n_prox, theta_vs_d1=diff, theta_bound=theta_bound,
+        gap_to_solution=float(np.abs(sol.Theta - theta1).max()),
+        kkt_inplace=sol.kkt_residual, device_bytes=sol.device_bytes,
+        max_memory_allocated=peak, wall_s=f"{wall:.3f}", d1_s=f"{d1_s:.3f}",
         s_per_iter=f"{wall / max(sol.iters, 1):.5f}",
-        s_per_iter_d1=f"{giant['solve_s'] / max(sol1.iters, 1):.5f}")
+        s_per_iter_d1=f"{d1_s / max(ref.iters, 1):.5f}")
     log_shard_prox("multidevice", sp, launches)
     out["oversize"] = dict(
         launches=n_prox, iters=sol.iters, launches_checked=sp["n"], shapes=sp["shapes"],
@@ -3061,6 +3126,235 @@ def phase_prefill_bf16() -> dict:
     del model, batch, logits, dense
     torch.cuda.empty_cache()
     return launches
+
+
+@contextmanager
+def timed_train_steps():
+    """Wall seconds of every train step made inside the block, the device
+    synchronised at the end of each (``make_train_step`` wrapped where
+    ``run_training`` looks it up)."""
+    import repro_torch.train.step as step_mod
+
+    inner = step_mod.make_train_step
+    seconds: list[float] = []
+
+    def timed(*args, **kwargs):
+        fn = inner(*args, **kwargs)
+
+        def step(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            return out
+
+        return step
+
+    step_mod.make_train_step = timed
+    try:
+        yield seconds
+    finally:
+        step_mod.make_train_step = inner
+
+
+def recording_optimizer(opt, box: dict):
+    """``opt`` with its update's gradients copied into ``box`` first (the
+    update consumes them in place)."""
+    from repro_torch.optim.adamw import Optimizer
+    from repro_torch.train.tree import tree_map
+
+    def update(grads, state, params, step):
+        box["grads"] = tree_map(torch.clone, grads)
+        return opt.update(grads, state, params, step)
+
+    return Optimizer(init=opt.init, update=update)
+
+
+def train_oracle() -> dict:
+    """A TRAIN_ORACLE_LAYERS-layer cut of qwen2.5-3b's widths (full vocab)
+    takes one make_train_step step in float32 and in float64 from the same
+    float32 master parameters and batch; the float32 gradients against the
+    float64 ones, relative to the float64 global norm."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    from repro_torch.models.zoo import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves
+
+    cut = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=TRAIN_ORACLE_LAYERS,
+                              dtype="float32")
+    batch = SyntheticLM(cut, ShapeConfig("oracle", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                        seed=1, device="cuda").batch_at(0)
+    grads, losses = {}, {}
+    for dtype in ("float32", "float64"):
+        box: dict = {}
+        opt = recording_optimizer(adamw(3e-4), box)
+        # the same float32 master parameters for both (drawn at the cut's
+        # float32); the float64 model casts them up and computes in float64
+        state, _ = init_state(build_model(cut, device="meta"), opt, 0, device="cuda")
+        model = build_model(dataclasses.replace(cut, dtype=dtype), device="meta")
+        state, metrics = make_train_step(model, opt, remat="none")(state, batch)
+        losses[dtype] = float(metrics["loss"])
+        grads[dtype] = leaves(box["grads"])
+        del state, box
+    diff_sq = sum(float((a.double() - b.double()).square().sum())
+                  for a, b in zip(grads["float32"], grads["float64"]))
+    norm64 = math.sqrt(sum(float(b.double().square().sum()) for b in grads["float64"]))
+    worst = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(grads["float32"], grads["float64"]))
+    rel = math.sqrt(diff_sq) / norm64
+    if not (math.isfinite(rel) and rel <= TRAIN_ORACLE_RTOL):
+        raise AssertionError(f"[train_oracle] float32 gradients vs float64: {rel} of the "
+                             f"global norm > {TRAIN_ORACLE_RTOL}")
+    out = dict(layers=TRAIN_ORACLE_LAYERS, loss_f32=losses["float32"],
+               loss_f64=losses["float64"], grad_norm_f64=norm64, grad_rel_err=rel,
+               grad_max_abs_err=worst, tol_rel=TRAIN_ORACLE_RTOL)
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_card_vs_cpu() -> dict:
+    """The reduced config's 12 steps of make_train_step (AdamW on the
+    cosine schedule, SyntheticLM batches of 4 x 32, remat "none") on the
+    card and on the CPU from the same initial state."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    from repro_torch.models.zoo import build_model
+    from repro_torch.optim import adamw, cosine_with_warmup
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH).reduced(), dtype="float32")
+    model = build_model(cfg, device="meta")
+    opt = adamw(cosine_with_warmup(3e-4, warmup=10, total=12))
+    start, _ = init_state(model, opt, 0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        state = tree_map(lambda t: t.to(dev, copy=True), start)
+        data = SyntheticLM(cfg, ShapeConfig("card_cpu", 32, 4, "train"), seed=0, device=dev)
+        step = make_train_step(model, opt, remat="none")
+        losses = []
+        for i in range(12):
+            state, metrics = step(state, data.batch_at(i))
+            losses.append(float(metrics["loss"]))
+        runs[dev] = (losses, [t.cpu() for t in leaves(state)],
+                     [t.cpu() for t in leaves(state.params)])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][0], runs["cpu"][0]))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(runs["cuda"][1], runs["cpu"][1]))
+    # the parameters' difference against how far the 12 steps moved them
+    moved = math.sqrt(sum(float((b - a).double().square().sum())
+                          for a, b in zip(leaves(start.params), runs["cpu"][2])))
+    diff = math.sqrt(sum(float((a - b).double().square().sum())
+                         for a, b in zip(runs["cuda"][2], runs["cpu"][2])))
+    if not (loss_err <= TRAIN_CARD_CPU_RTOL and param_err <= TRAIN_CARD_CPU_ATOL):
+        raise AssertionError(f"[train_card_cpu] 12 steps: losses {loss_err} (rel), state "
+                             f"{param_err} (abs) against {TRAIN_CARD_CPU_RTOL} / "
+                             f"{TRAIN_CARD_CPU_ATOL}")
+    return dict(steps=12, loss_rel_err=loss_err, state_max_abs_err=param_err,
+                params_diff_over_moved=diff / moved, tol_rel=TRAIN_CARD_CPU_RTOL,
+                tol_abs=TRAIN_CARD_CPU_ATOL)
+
+
+def train_restart() -> dict:
+    """The reduced config's bit-exact restart on the card: 12 steps straight
+    against 6, a checkpoint, a resume and 6 more, under
+    torch.use_deterministic_algorithms (which raises at an operation whose
+    result depends on the order of atomic adds), in a temporary
+    directory."""
+    import tempfile
+
+    from repro_torch.launch.train import run_training
+    from repro_torch.train.tree import leaves
+
+    common = dict(arch=SERVE_ARCH, batch=4, seq=32, reduced=True, ckpt_every=6,
+                  log=lambda *a, **k: None, device="cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            state_a, losses_a, _ = run_training(steps=12, ckpt_dir=None, **common)
+            _, losses_b1, _ = run_training(steps=6, ckpt_dir=tmp, **common)
+            state_b, losses_b2, _ = run_training(steps=12, ckpt_dir=tmp, resume=True, **common)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = int(state_a.step) == int(state_b.step) == 12 and all(
+        torch.equal(a, b) for a, b in zip(leaves(state_a), leaves(state_b)))
+    if not (equal and losses_a == losses_b1 + losses_b2):
+        raise AssertionError("[train_restart] 6 + resume + 6 steps differ from 12 straight")
+    return dict(steps=12, resumed_at=6, leaves=len(leaves(state_a)), bit_equal=True)
+
+
+def phase_train() -> dict:
+    """LM training at full width: run_training on qwen2.5-3b's full config
+    (36 layers, float32, AdamW, remat "none"), TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens on the card.  The kernel counters are
+    zeroed just before and read just after: training launches no ported
+    kernel (attention trains through the plain _sdpa under autograd).
+    Every loss must be finite and the last below the first.  Then the
+    float64 oracle of a 2-layer cut, the reduced config on the card
+    against the CPU, and the bit-exact restart on the card."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import run_training
+    from repro_torch.train.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    lines: list[str] = []
+    instrument.reset("kernels.")
+    t0 = time.perf_counter()
+    with timed_train_steps() as step_s:
+        state, losses, status = run_training(
+            arch=SERVE_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            reduced=False, device="cuda", log=lines.append)
+    wall = time.perf_counter() - t0
+    launches = instrument.tail_counts("kernels.")
+    peak = torch.cuda.max_memory_allocated() - base
+    n_params = sum(t.numel() for t in leaves(state.params))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if status != "done" or len(losses) != TRAIN_STEPS or n_params != SERVE_PARAMS:
+        raise AssertionError(f"[train] status {status}, {len(losses)} losses, "
+                             f"{n_params:,} parameters")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses {losses}: not finite or not falling")
+    if any(launches.values()):
+        raise AssertionError(f"[train] training launched ported kernels: {launches}")
+    steady = step_s[1:]
+    step_mean = sum(steady) / len(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_params * tokens
+    log("train", arch=SERVE_ARCH, layers=get_arch(SERVE_ARCH).n_layers, dtype="float32", optimizer="adamw", remat="none",
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        losses=json.dumps(losses), step_s=json.dumps([round(x, 4) for x in step_s]),
+        first_step_s=f"{step_s[0]:.4f}", step_s_after_first=f"{step_mean:.4f}",
+        tokens_per_s=f"{tokens / step_mean:.1f}", peak_bytes=peak, base_bytes=base,
+        model_flops_per_step=flops,
+        mfu_fp32=f"{flops / step_mean / FP32_PEAK_FLOPS:.4f}",
+        run_training_s=f"{wall:.2f}", kernel_launches=json.dumps(launches),
+        first_log_line=json.dumps(lines[0] if lines else ""))
+    t0 = time.perf_counter()
+    oracle = train_oracle()
+    log("train_oracle", seconds=f"{time.perf_counter() - t0:.2f}", **oracle)
+    t0 = time.perf_counter()
+    card_cpu = train_card_vs_cpu()
+    log("train_card_cpu", seconds=f"{time.perf_counter() - t0:.2f}", **card_cpu)
+    t0 = time.perf_counter()
+    restart = train_restart()
+    log("train_restart", seconds=f"{time.perf_counter() - t0:.2f}", **restart)
+    return dict(losses=losses, step_s=step_mean, peak=peak)
 
 
 # ---------------------------------------------------------- phases 26-30
@@ -3914,6 +4208,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     fa = phase_flash_attention()
+    big_cc = in_background(structured_synthetic, *THRESHOLD_CC_CASES[1])
     phase_card_tests()
     phase_tree()
     phase_bucket()
@@ -3937,7 +4232,7 @@ def main() -> int:
 
     log_main_kernels(tree, bucket)
 
-    phase_threshold_cc()
+    phase_threshold_cc([lambda: S, big_cc])
     screen_launches, thr = phase_screen(S, lam, host_res)
     pg_launches, pg_kept = phase_solver("pg", S, lam, host_res)
     admm_launches, admm_kept = phase_solver("admm", S, lam, host_res)
@@ -3994,6 +4289,7 @@ def main() -> int:
     phase_joint_prox_k20()
     serve_launches = phase_serve()
     bf16_launches = phase_prefill_bf16()
+    phase_train()
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",

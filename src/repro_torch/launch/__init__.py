@@ -1,6 +1,7 @@
 """Command-line entry points and serving surfaces of the port.
 
     serve            the LM substrate's serving CLI
+    train            the LM substrate's training CLI (``run_training``)
     serve_glasso     ``GlassoServer``: coalesced graphical-lasso serving
                      (``python -m repro_torch.launch.serve_glasso``)
     control_plane    its typed specs, admission control and result cache

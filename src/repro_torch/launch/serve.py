@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ShapeConfig, get_arch
 from repro_torch.data.specs import make_batch
+from repro_torch.models.transformer import resolve_device
 from repro_torch.models.zoo import Model, build_model, count_params
 from repro_torch.train.serving import greedy_generate
 
@@ -47,12 +48,7 @@ class Serving:
 
 def run_serving(*, arch: str, batch: int, prompt_len: int, new_tokens: int,
                 reduced: bool = True, seed: int = 0, device="cuda", log=print) -> Serving:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but CUDA is not available; pass "
-            "device='cpu' (--device cpu) to run the plain-PyTorch path"
-        )
+    dev = resolve_device(device)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()

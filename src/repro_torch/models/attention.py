@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import Dense, rope_apply
+from repro_torch.models.layers import Dense, acc_dtype, rope_apply
 
 NEG_INF = -1e30
 
@@ -37,7 +37,8 @@ ATTN_Q_CHUNK = 1024
 def _sdpa(q, k, v, *, scale, mask) -> torch.Tensor:
     """q: (B, H, Sq, d), k/v: (B, Hkv, Skv, d) with GQA broadcast; mask:
     (Sq, Skv) or (B, 1, Sq, Skv) boolean (True = attend), or None.  Scores,
-    softmax and the weighted sum in float32, the output in q's dtype.
+    softmax and the weighted sum in float32 (float64 for float64 inputs),
+    the output in q's dtype.
 
     The group's query heads are folded into the rows of one product per KV
     head, so K and V are read as they are: broadcasting them over the group
@@ -46,14 +47,15 @@ def _sdpa(q, k, v, *, scale, mask) -> torch.Tensor:
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = H // Hkv
-    qg = q.reshape(B, Hkv, group * Sq, d).to(torch.float32)
-    s = torch.matmul(qg, k.to(torch.float32).transpose(-1, -2)) * scale
+    acc = acc_dtype(q.dtype)
+    qg = q.reshape(B, Hkv, group * Sq, d).to(acc)
+    s = torch.matmul(qg, k.to(acc).transpose(-1, -2)) * scale
     s = s.view(B, Hkv, group, Sq, Skv)
     if mask is not None:
         m = mask if mask.ndim == 4 else mask[None, None]
         s = torch.where(m[:, :, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1).view(B, Hkv, group * Sq, Skv)
-    o = torch.matmul(p, v.to(torch.float32))
+    o = torch.matmul(p, v.to(acc))
     return o.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
@@ -80,14 +82,15 @@ def _sdpa_chunked(q, k, v, *, scale, causal, q_chunk=ATTN_Q_CHUNK) -> torch.Tens
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = H // Hkv
-    kt = k.to(torch.float32).transpose(-1, -2)
-    vf = v.to(torch.float32)
+    acc = acc_dtype(q.dtype)
+    kt = k.to(acc).transpose(-1, -2)
+    vf = v.to(acc)
     kpos = torch.arange(Skv, device=q.device)
     outs = []
     for c0 in range(0, Sq, q_chunk):
         qc = q[:, :, c0:c0 + q_chunk]
         n = qc.shape[2]
-        qg = qc.reshape(B, Hkv, group * n, d).to(torch.float32)
+        qg = qc.reshape(B, Hkv, group * n, d).to(acc)
         s = (torch.matmul(qg, kt) * scale).view(B, Hkv, group, n, Skv)
         if causal:
             qpos = c0 + torch.arange(n, device=q.device)

@@ -7,6 +7,9 @@ mappings of numpy arrays, the layers stacked on a leading ``(L, ...)`` axis)
 and returns a state dict for ``DecoderLM.load_state_dict``: layer ``i`` of
 the stack becomes ``layers.<i>.*``, every other leaf keeps its dotted path.
 Both packages keep projections as (in, out), so nothing is transposed.
+Training keeps the reference's stacked tree itself, so
+``tree_from_reference`` converts a parameter tree or an optimizer state
+leaf for leaf, numpy to torch.
 """
 
 from __future__ import annotations
@@ -16,14 +19,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-
-def _leaves(tree, prefix=()):
-    for key, value in tree.items():
-        path = prefix + (str(key),)
-        if isinstance(value, Mapping):
-            yield from _leaves(value, path)
-        else:
-            yield path, value
+from repro_torch.models.transformer import module_state
 
 
 def _tensor(a) -> torch.Tensor:
@@ -32,12 +28,14 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_reference(tree: Mapping) -> dict[str, torch.Tensor]:
     """The reference's decoder parameter tree as the port's state dict."""
-    out: dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(tree):
-        if path[0] == "layers":
-            stacked = np.asarray(leaf)
-            for i in range(stacked.shape[0]):
-                out[".".join(("layers", str(i)) + path[1:])] = _tensor(stacked[i])
-        else:
-            out[".".join(path)] = _tensor(leaf)
-    return out
+    return module_state(tree_from_reference(tree))
+
+
+def tree_from_reference(tree, *, device="cpu"):
+    """A reference tree (nested mappings of arrays: a parameter tree, an
+    optimizer state) as the same nested dicts of tensors on ``device``,
+    leaf for leaf: the layout training keeps, so nothing is renamed or
+    unstacked."""
+    if isinstance(tree, Mapping):
+        return {str(k): tree_from_reference(v, device=device) for k, v in tree.items()}
+    return _tensor(tree).to(device)

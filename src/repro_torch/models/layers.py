@@ -2,8 +2,9 @@
 
 Weights keep the reference's layout, (in, out) for a projection, so
 ``dense`` is ``x @ w (+ b)`` and a reference parameter tree converts
-without transposes (``models/convert.py``).  Norms and RoPE compute in
-float32 and cast back to the input's dtype, as the reference does.
+without transposes (``models/convert.py``).  Norms compute in float32 and
+cast back to the input's dtype, as the reference does; a float64 input
+(the training oracle's) keeps float64 (``acc_dtype``).
 
 Initialisation draws in place on the parameter's own device from an
 explicit ``torch.Generator``: truncated normals on [-2, 2] times a scale
@@ -26,6 +27,13 @@ def truncnorm_(t: torch.Tensor, scale: float, generator: torch.Generator | None)
     with torch.no_grad():
         nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0, generator=generator)
         return t.mul_(scale)
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a norm, a softmax or the loss computes in: float32, or the
+    input's own where it is wider.  For bfloat16 and float32 this is the
+    reference's float32; a float64 model stays float64 throughout."""
+    return torch.promote_types(dtype, torch.float32)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -101,10 +109,11 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> to
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    acc = acc_dtype(x.dtype)
+    xf = x.to(acc)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * scale.to(torch.float32)).to(x.dtype)
+    return (y * scale.to(acc)).to(x.dtype)
 
 
 def layernorm(
@@ -121,8 +130,11 @@ def embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``ids``.  The reference switches to a one-hot
     matmul at a vocab of 8192 or more, which only serves its SPMD
     partitioner; the gather gives the same rows exactly, without a
-    (B, S, vocab) one-hot."""
-    return table[ids.long()]
+    (B, S, vocab) one-hot (623 MB at qwen2.5-3b's vocab and 1024 tokens).
+    Its backward sums the rows of each id in a fixed order on the card
+    too (``embedding_dense_backward``), so a training step is
+    reproducible bit for bit."""
+    return F.embedding(ids.long(), table)
 
 
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:

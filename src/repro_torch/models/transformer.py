@@ -1,7 +1,18 @@
 """The decoder family: dense-MLP GQA decoder stacks, as ``nn.Module``s.
 
+    init_params(cfg, seed=, device=)         -> (params, specs)
+    forward_train(net, batch)                -> (loss, {"loss", "aux"})
     prefill(net, batch)                      -> (last_logits, caches)
     decode_step(net, token, caches, pos)     -> (logits, caches)
+
+Training keeps the reference's parameter tree: nested dicts whose layer
+leaves are stacked on a leading ``(L, ...)`` axis (``init_params``, built
+by ``stacked_init``), beside a specs tree of logical axis names equal to
+the reference's.  ``module_state`` names that tree's tensors as
+``DecoderLM``'s parameters, layer ``i`` of a stacked leaf being its
+``unbind(0)[i]`` (whose backward is one ``stack``), so
+``torch.func.functional_call`` runs a ``DecoderLM`` on the meta device,
+which allocates nothing, over the tree (``zoo.Model.train_loss``).
 
 A ``DecoderLM`` holds the embedding, an ``nn.ModuleList`` of
 ``DecoderLayer``s, the final norm and the LM head; a Python loop over the
@@ -34,11 +45,32 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import GQAttention, gqa_apply
-from repro_torch.models.layers import Dense, Embedding, RMSNorm, SwiGLU, rope_angles
+from repro_torch.models.layers import (
+    Dense,
+    Embedding,
+    RMSNorm,
+    SwiGLU,
+    acc_dtype,
+    rope_angles,
+    truncnorm_,
+)
 
 VOCAB_PAD = 256
 
-TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float64": torch.float64}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without CUDA raises
+    instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; pass "
+            "device='cpu' (--device cpu) to run the plain-PyTorch path"
+        )
+    return dev
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -124,6 +156,136 @@ class DecoderLM(nn.Module):
         for layer in self.layers:
             layer.reset(gen)
 
+    def forward(self, batch: dict, *, remat_policy=None, aux_weight: float = 0.01):
+        """The training loss, ``forward_train``: what ``functional_call``
+        runs over a parameter tree."""
+        return forward_train(self, batch, remat_policy=remat_policy, aux_weight=aux_weight)
+
+
+# ============================================================ parameter trees
+
+
+def _is_spec_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(t, (str, type(None))) for t in x)
+
+
+def map_specs(fn, specs):
+    """``fn`` applied to every logical-axis tuple of a specs tree."""
+    if _is_spec_leaf(specs):
+        return fn(specs)
+    return {k: map_specs(fn, v) for k, v in specs.items()}
+
+
+def stacked_init(init_fn, n: int):
+    """Draw n layers in one call and prepend the 'layers' logical axis.
+
+    ``init_fn(lead)`` returns (params, specs) with every leaf shaped
+    ``lead + shape``; the reference vmaps an init over n layer keys, and one
+    draw of the stacked shape has the same distribution."""
+    params, specs = init_fn((n,))
+    return params, map_specs(lambda ax: ("layers",) + ax, specs)
+
+
+class _Init:
+    """Leaf makers on one device and dtype, drawing from one generator (none
+    on the meta device, where nothing is drawn)."""
+
+    def __init__(self, dtype, device, seed):
+        self.kw = dict(dtype=dtype, device=device)
+        self.gen = (None if device.type == "meta"
+                    else torch.Generator(device=device).manual_seed(seed))
+
+    def normal(self, shape, scale):
+        """Truncated normal drawn in float32 (or wider) and cast, as the
+        reference draws in float32 and casts to the config's dtype."""
+        dtype = self.kw["dtype"]
+        t = torch.empty(shape, dtype=acc_dtype(dtype), device=self.kw["device"])
+        if self.gen is not None:
+            truncnorm_(t, scale, self.gen)
+        return t.to(dtype)
+
+    def dense(self, lead, in_dim, out_dim, in_ax, out_ax, *, bias=False):
+        p = {"w": self.normal(lead + (in_dim, out_dim), in_dim**-0.5)}
+        s = {"w": (in_ax, out_ax)}
+        if bias:
+            p["b"] = torch.zeros(lead + (out_dim,), **self.kw)
+            s["b"] = (out_ax,)
+        return p, s
+
+    def rmsnorm(self, lead, dim):
+        return {"scale": torch.ones(lead + (dim,), **self.kw)}, {"scale": ("embed",)}
+
+
+def _unzip(pairs: dict):
+    """{name: (params, specs)} -> ({name: params}, {name: specs})."""
+    return {k: v[0] for k, v in pairs.items()}, {k: v[1] for k, v in pairs.items()}
+
+
+def _decoder_layer_init(ini: _Init, cfg: ArchConfig, lead: tuple):
+    hd, D, bias = cfg.resolved_head_dim, cfg.d_model, cfg.qkv_bias
+
+    def dense(*args, **kwargs):
+        return ini.dense(lead, *args, **kwargs)
+
+    return _unzip({
+        "ln1": ini.rmsnorm(lead, D),
+        "ln2": ini.rmsnorm(lead, D),
+        "attn": _unzip({
+            "wq": dense(D, cfg.n_heads * hd, "embed", "heads", bias=bias),
+            "wk": dense(D, cfg.n_kv_heads * hd, "embed", "kv", bias=bias),
+            "wv": dense(D, cfg.n_kv_heads * hd, "embed", "kv", bias=bias),
+            "wo": dense(cfg.n_heads * hd, D, "heads", "embed"),
+        }),
+        "mlp": _unzip({
+            "wi": dense(D, cfg.d_ff, "embed", "mlp"),
+            "wg": dense(D, cfg.d_ff, "embed", "mlp"),
+            "wo": dense(cfg.d_ff, D, "mlp", "embed"),
+        }),
+    })
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda"):
+    """(params, specs) in the reference's tree, in ``cfg.dtype`` on
+    ``device``: the embedding table truncated normal at scale 1.0, each
+    projection at d_in**-0.5, norm scales ones, biases zeros (the
+    reference's ``layers.py`` scales), drawn from a generator seeded with
+    ``seed``; the layers stacked on a leading (L, ...) axis.  On the meta
+    device nothing is drawn or allocated.  The two packages' generators
+    differ, so parity tests convert the reference's tree
+    (``convert.tree_from_reference``)."""
+    check_supported(cfg)
+    ini = _Init(TORCH_DTYPES[cfg.dtype], resolve_device(device), seed)
+    vocab, D = padded_vocab(cfg), cfg.d_model
+    return _unzip({
+        "embed": ({"table": ini.normal((vocab, D), 1.0)}, {"table": ("vocab", "embed")}),
+        "final_norm": ini.rmsnorm((), D),
+        "lm_head": ini.dense((), D, vocab, "embed", "vocab"),
+        "layers": stacked_init(lambda lead: _decoder_layer_init(ini, cfg, lead), cfg.n_layers),
+    })
+
+
+def _dotted(tree, prefix=()):
+    for key, value in tree.items():
+        path = prefix + (key,)
+        if isinstance(value, dict):
+            yield from _dotted(value, path)
+        else:
+            yield path, value
+
+
+def module_state(params: dict) -> dict[str, torch.Tensor]:
+    """The stacked tree under ``DecoderLM``'s parameter names: layer ``i``
+    of each stacked leaf (``unbind(0)``, no copy) as ``layers.<i>.*``,
+    every other leaf under its dotted path."""
+    out: dict[str, torch.Tensor] = {}
+    for path, leaf in _dotted(params):
+        if path[0] == "layers":
+            for i, t in enumerate(leaf.unbind(0)):
+                out[".".join(("layers", str(i)) + path[1:])] = t
+        else:
+            out[".".join(path)] = leaf
+    return out
+
 
 def _rope_cache(cfg: ArchConfig, positions: torch.Tensor):
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -159,6 +321,56 @@ def _run_decoder_stack(net: DecoderLM, x, *, mode, caches=None, pos=None,
         for name in ("k", "v"):
             caches[name][i, :, :, :S].copy_(cache[name])
     return x, caches
+
+
+def _remat_layer(layer, names, x, cos, sin, *tensors):
+    """One layer over explicit tensors: checkpoint's recomputation runs in
+    the backward pass, after any outer ``functional_call`` has put the
+    module's own parameters back."""
+    params = dict(zip(names, tensors))
+    y, _ = torch.func.functional_call(layer, params, (x,),
+                                      dict(cos=cos, sin=sin, mode="causal"), strict=True)
+    return y
+
+
+def _run_train_stack(net: DecoderLM, x, *, remat_policy=None):
+    """The causal stack for training: no KV caches.  ``remat_policy`` (a
+    selective-checkpoint policy of ``train.step.REMAT_POLICIES``, or None)
+    checkpoints each layer, the reference's ``jax.checkpoint`` on its scan
+    body."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    S = x.shape[1]
+    cos, sin = _rope_cache(net.cfg, torch.arange(S, device=x.device))
+    for layer in net.layers:
+        if remat_policy is None:
+            x, _ = layer(x, cos=cos, sin=sin, mode="causal")
+            continue
+        names, tensors = zip(*layer.named_parameters())
+        x = checkpoint(
+            _remat_layer, layer, names, x, cos, sin, *tensors, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(remat_policy),
+        )
+    return x
+
+
+def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, logsumexp(logits) - logit[target], in
+    float32 (float64 for float64 logits), over the padded vocab."""
+    logits = logits.to(acc_dtype(logits.dtype))
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(logz - ll)
+
+
+def forward_train(net: DecoderLM, batch: dict, *, remat_policy=None, aux_weight: float = 0.01):
+    """(loss + aux_weight * aux, {"loss", "aux"}) of a batch of tokens and
+    targets; ``aux`` (the MoE balance loss) is 0 for the dense family."""
+    x = _run_train_stack(net, _embed_sequence(net, batch), remat_policy=remat_policy)
+    x = net.final_norm(x)
+    loss = token_loss(net.lm_head(x), batch["targets"])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 
 def backbone_apply(net: DecoderLM, batch: dict, *, mode, caches=None, pos=None,

@@ -9,11 +9,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
+from repro_torch.train.tree import leaves
 
 
 @dataclass(frozen=True)
 class Model:
-    """A config and its ``DecoderLM``; the parameters live in ``net``."""
+    """A config and its ``DecoderLM``.  Serving uses the parameters that
+    live in ``net``; training passes its own stacked tree to
+    ``train_loss``, and a model built on the meta device holds none."""
 
     cfg: ArchConfig
     net: tfm.DecoderLM
@@ -25,6 +28,15 @@ class Model:
     def init(self, seed: int = 0) -> None:
         self.net.init_params(seed)
 
+    def train_loss(self, params: dict, batch: dict, remat_policy=None):
+        """(loss, {"loss", "aux"}) of ``batch`` under the stacked parameter
+        tree ``params`` (``tfm.init_params``' layout): ``net`` runs through
+        ``torch.func.functional_call``, its own parameters unused."""
+        return torch.func.functional_call(
+            self.net, tfm.module_state(params), (batch,), {"remat_policy": remat_policy},
+            strict=True,
+        )
+
     def prefill(self, batch: dict, *, capacity=None, use_flash=None):
         return tfm.prefill(self.net, batch, capacity=capacity, use_flash=use_flash)
 
@@ -35,12 +47,29 @@ class Model:
 def build_model(cfg: ArchConfig, *, device="cuda") -> Model:
     """The config's model with its parameters allocated, uninitialised, on
     ``device`` (``Model.init`` draws them there); ``"meta"`` allocates
-    nothing."""
+    nothing, which is what training wants."""
     return Model(cfg=cfg, net=tfm.DecoderLM(cfg, device=device))
 
 
-def count_params(model: Model | nn.Module) -> int:
-    """Parameter count of a ``Model`` or an ``nn.Module`` (shapes only: a
-    model on the meta device counts without allocating)."""
-    net = model.net if isinstance(model, Model) else model
-    return int(sum(p.numel() for p in net.parameters()))
+def count_params(model: Model | nn.Module | dict) -> int:
+    """Parameter count of a ``Model``, an ``nn.Module`` or a parameter tree
+    (shapes only: a model on the meta device counts without
+    allocating)."""
+    if isinstance(model, dict):
+        tensors = leaves(model)
+    else:
+        tensors = (model.net if isinstance(model, Model) else model).parameters()
+    return int(sum(p.numel() for p in tensors))
+
+
+def count_params_abstract(cfg: ArchConfig) -> int:
+    """Parameters of ``init_params``' tree, counted on the meta device."""
+    return count_params(tfm.init_params(cfg, device="meta")[0])
+
+
+def active_params(cfg: ArchConfig) -> int:
+    """Parameters touched per token, the N in MODEL_FLOPS = 6 * N * D: all of
+    them for the dense family.  The MoE family (shared plus top_k routed
+    experts in the reference) raises in ``count_params_abstract`` until
+    its slice is ported."""
+    return count_params_abstract(cfg)

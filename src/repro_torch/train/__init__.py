@@ -1,2 +1,3 @@
-"""The LM substrate's serving loop (prefill, cache hand-off, greedy
-decode)."""
+"""The LM substrate's training and serving loops: the train state and
+step, the pytree helpers they share with the optimizers and checkpoints,
+and serving (prefill, cache hand-off, greedy decode)."""

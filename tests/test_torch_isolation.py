@@ -40,6 +40,11 @@ import repro_torch.core.schedule, repro_torch.core.components, repro_torch.engin
 import repro_torch.engine.api, repro_torch.stream.materialize, repro_torch.kernels.threshold_cc.ops
 import repro_torch.kernels.threshold_cc.ref, repro_torch.kernels.flash_attention.ops
 repro_torch.launch.GlassoServer, repro_torch.launch.DenseSpec
+import repro_torch.models, repro_torch.optim, repro_torch.optim.adamw, repro_torch.optim.adafactor
+import repro_torch.optim.schedule, repro_torch.optim.grad_compress, repro_torch.data.synthetic_lm
+import repro_torch.train.tree, repro_torch.train.state, repro_torch.train.step
+import repro_torch.checkpoint, repro_torch.checkpoint.io, repro_torch.launch.train
+repro_torch.kernels.tree_glasso.glasso_forest
 for arch in repro_torch.configs.list_archs():
     repro_torch.configs.get_arch(arch)
 import chip_smoke
