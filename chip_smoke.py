@@ -268,6 +268,7 @@ CUDA.  Data is made from fixed seeds with numpy.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import importlib
 import json
@@ -518,6 +519,27 @@ TRAIN_ORACLE_RTOL = 1e-4
 # absolute, a third of one such step (measured 1.28e-5 on an H100)
 TRAIN_CARD_CPU_RTOL = 1e-5
 TRAIN_CARD_CPU_ATOL = 1e-4
+# [serve_moe]: the MoE family with MLA, deepseek-v2-lite-16b
+# (src/repro_torch/configs/deepseek_v2_lite_16b.py: 27 layers, d_model 2048,
+# 16 MLA heads with a 512-wide latent, q/k 128 + 64 rope, v 128; 2 shared and
+# 64 routed experts of 1408, top 6; vocab 102400) at full width and depth
+# through run_serving, float32, random parameters from seed 0, [serve]'s
+# batch, prompt and new tokens, its checks at SERVE_LOGITS_RTOL.  MLA never
+# runs flash_attention: the reference's mla_apply has no use_flash
+SERVE_MOE_ARCH, SERVE_MOE_PARAMS = "deepseek_v2_lite_16b", 16_210_311_168
+# [serve_moe_gqa]: qwen3-moe-30b-a3b (src/repro_torch/configs/
+# qwen3_moe_30b_a3b.py: d_model 2048, 32 query heads over 4 KV heads of 128,
+# 128 routed experts of 768, top 8, vocab 151936) at full width with its
+# depth cut from 48 to 24 layers: all 48 are 30.5 B parameters, 122 GB in
+# float32, beyond the card's 80 GB; 24 are 15.6 B, 62.3 GB
+SERVE_MOE_GQA_ARCH, SERVE_MOE_GQA_LAYERS = "qwen3_moe_30b_a3b", 24
+SERVE_MOE_GQA_PARAMS = 15_577_745_408
+# [train_moe]: a TRAIN_MOE_LAYERS-layer cut of deepseek-v2-lite's widths (full
+# vocab) in float32, AdamW, remat "none", TRAIN_MOE_STEPS make_train_step
+# steps of TRAIN_MOE_BATCH x TRAIN_MOE_SEQ tokens: training routes at
+# capacity (1.25 x the mean load), so pairs drop
+TRAIN_MOE_LAYERS, TRAIN_MOE_STEPS, TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 2, 3, 2, 512
+TRAIN_MOE_PARAMS = 1_589_127_168
 # [flash_attention]: the kernel against its plain version within the
 # reference's own tolerances for its kernel (tests/test_kernels.py): float32
 # 2e-5, bf16 3e-2.  Cases (label, B, Hq, Hkv, Sq, Skv, d, causal, dtype): the
@@ -538,6 +560,9 @@ FLASH_CASES = (
     ("mqa", 4, 16, 1, 2048, 2048, 128, True, torch.float32),
     ("long", 1, 16, 2, 8192, 8192, 128, True, torch.float32),
     ("phi3_mini", 4, 32, 32, 2048, 2048, 96, True, torch.float32),
+    # qwen3-moe-30b-a3b's attention (32 query heads over 4 KV heads of 128),
+    # [serve_moe_gqa]'s prefill shape
+    ("moe_gqa", 4, 32, 4, 2048, 2048, 128, True, torch.float32),
     # head dims above 128: DeepSeek-V2-Lite's query-key width (192, its 16
     # heads, no GQA) and d = 256 (float32 as two blocks of 128 columns of O),
     # at batch 2 (the time budget)
@@ -2957,6 +2982,8 @@ def phase_flash_attention() -> dict:
                 out.update(row)
             else:
                 out["bf16"] = row
+        elif label == "moe_gqa":
+            out["moe_gqa"] = row
         elif d > 128:
             out.setdefault("wide", {})[f"{str(dtype).removeprefix('torch.')}_d{d}"] = row
         del q, k, v
@@ -3176,8 +3203,6 @@ def train_oracle() -> dict:
     takes one make_train_step step in float32 and in float64 from the same
     float32 master parameters and batch; the float32 gradients against the
     float64 ones, relative to the float64 global norm."""
-    import dataclasses
-
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.data.synthetic_lm import SyntheticLM
     from repro_torch.models.zoo import build_model
@@ -3219,12 +3244,11 @@ def train_oracle() -> dict:
     return out
 
 
-def train_card_vs_cpu() -> dict:
-    """The reduced config's 12 steps of make_train_step (AdamW on the
-    cosine schedule, SyntheticLM batches of 4 x 32, remat "none") on the
-    card and on the CPU from the same initial state."""
-    import dataclasses
-
+def train_card_vs_cpu(arch: str = SERVE_ARCH, steps: int = 12) -> dict:
+    """``arch``'s reduced config takes ``steps`` steps of make_train_step
+    (AdamW on the 12-step cosine schedule, SyntheticLM batches of 4 x 32,
+    remat "none") on the card and on the CPU from the same initial
+    state."""
     from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.data.synthetic_lm import SyntheticLM
     from repro_torch.models.zoo import build_model
@@ -3233,7 +3257,7 @@ def train_card_vs_cpu() -> dict:
     from repro_torch.train.step import make_train_step
     from repro_torch.train.tree import leaves, tree_map
 
-    cfg = dataclasses.replace(get_arch(SERVE_ARCH).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = build_model(cfg, device="meta")
     opt = adamw(cosine_with_warmup(3e-4, warmup=10, total=12))
     start, _ = init_state(model, opt, 0, device="cpu")
@@ -3243,7 +3267,7 @@ def train_card_vs_cpu() -> dict:
         data = SyntheticLM(cfg, ShapeConfig("card_cpu", 32, 4, "train"), seed=0, device=dev)
         step = make_train_step(model, opt, remat="none")
         losses = []
-        for i in range(12):
+        for i in range(steps):
             state, metrics = step(state, data.batch_at(i))
             losses.append(float(metrics["loss"]))
         runs[dev] = (losses, [t.cpu() for t in leaves(state)],
@@ -3256,10 +3280,10 @@ def train_card_vs_cpu() -> dict:
     diff = math.sqrt(sum(float((a - b).double().square().sum())
                          for a, b in zip(runs["cuda"][2], runs["cpu"][2])))
     if not (loss_err <= TRAIN_CARD_CPU_RTOL and param_err <= TRAIN_CARD_CPU_ATOL):
-        raise AssertionError(f"[train_card_cpu] 12 steps: losses {loss_err} (rel), state "
-                             f"{param_err} (abs) against {TRAIN_CARD_CPU_RTOL} / "
+        raise AssertionError(f"[train_card_cpu] {cfg.name}, {steps} steps: losses {loss_err} "
+                             f"(rel), state {param_err} (abs) against {TRAIN_CARD_CPU_RTOL} / "
                              f"{TRAIN_CARD_CPU_ATOL}")
-    return dict(steps=12, loss_rel_err=loss_err, state_max_abs_err=param_err,
+    return dict(arch=cfg.name, steps=steps, loss_rel_err=loss_err, state_max_abs_err=param_err,
                 params_diff_over_moved=diff / moved, tol_rel=TRAIN_CARD_CPU_RTOL,
                 tol_abs=TRAIN_CARD_CPU_ATOL)
 
@@ -3355,6 +3379,265 @@ def phase_train() -> dict:
     restart = train_restart()
     log("train_restart", seconds=f"{time.perf_counter() - t0:.2f}", **restart)
     return dict(losses=losses, step_s=step_mean, peak=peak)
+
+
+@contextmanager
+def recorded_routing():
+    """The expert choices of every MoE layer call made inside the block, in
+    call order: each a (rows, top_k) tensor sorted within its rows, so a
+    row is its token's top-k set (``models.moe.route`` wrapped where
+    ``moe_apply`` looks it up)."""
+    import repro_torch.models.moe as moe_mod
+
+    inner = moe_mod.route
+    calls: list[torch.Tensor] = []
+
+    def route(p, xt, *, top_k):
+        out = inner(p, xt, top_k=top_k)
+        calls.append(torch.sort(out[2], dim=-1).values)
+        return out
+
+    moe_mod.route = route
+    try:
+        yield calls
+    finally:
+        moe_mod.route = inner
+
+
+def routing_flips(a: list, b: list, rows_b=None) -> int:
+    """The (layer, token) top-k sets that differ between two runs' recorded
+    choices; ``rows_b`` picks, in each of b's layer calls, the rows of a's
+    tokens (all rows by default)."""
+    if len(a) != len(b):
+        raise AssertionError(f"routing recorded {len(a)} against {len(b)} layer calls")
+    flips = 0
+    for x, y in zip(a, b):
+        y = y if rows_b is None else y[rows_b]
+        flips += int((x != y).any(dim=-1).sum())
+    return flips
+
+
+def phase_serve_moe(phase: str, cfg, n_params: int) -> dict:
+    """The MoE family at full width through run_serving (dropless routing):
+    the parameter count, flash launches a prefill (one a layer with GQA,
+    none with MLA), init / prefill / decode times and peak memory; then,
+    with GQA, the kernel's prefill logits against the dense path's; two
+    decode steps against fresh prefills of the extended prompt; each check
+    beside the count of (layer, token) top-k sets that differ between the
+    two runs it compares, so a failure through a routing flip reads as
+    one."""
+    import gc
+
+    from repro_torch.launch.serve import run_serving
+    from repro_torch.models.transformer import padded_vocab
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flash_want = 0 if cfg.mla else cfg.n_layers
+    instrument.reset("kernels.")
+    run = run_serving(arch=cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      new_tokens=SERVE_NEW, reduced=False, seed=0, device="cuda",
+                      log=lambda msg: None)
+    launches = instrument.tail_counts("kernels.")
+    peak = torch.cuda.max_memory_allocated() - base
+    model, batch, cfg = run.model, run.batch, run.model.cfg
+    n_flash = launches.get("flash_attention.launches", 0)
+    if run.n_params != n_params:
+        raise AssertionError(f"[{phase}] {run.n_params:,} parameters, expected {n_params:,}")
+    if n_flash != flash_want:
+        raise AssertionError(f"[{phase}] {n_flash} flash launches, expected {flash_want}")
+    toks = run.tokens
+    if toks.shape != (SERVE_BATCH, SERVE_NEW) or int(toks.min()) < 0 \
+            or int(toks.max()) >= padded_vocab(cfg):
+        raise AssertionError(f"[{phase}] tokens {tuple(toks.shape)} out of range")
+    fields: dict = {}
+    failures: list[str] = []
+    with torch.inference_mode():
+        instrument.reset("kernels.")
+        with recorded_routing() as routed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = model.prefill(batch, capacity=SERVE_PROMPT + 2)
+            torch.cuda.synchronize()
+            fields["check_prefill_s"] = f"{time.perf_counter() - t0:.3f}"
+        if instrument.count("kernels.flash_attention.launches") != flash_want:
+            raise AssertionError(f"[{phase}] the check's prefill: flash launches "
+                                 f"{instrument.count('kernels.flash_attention.launches')}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"[{phase}] non-finite prefill logits")
+        if flash_want:
+            flash_ms = kernel_device_ms(
+                lambda: model.prefill(batch, capacity=SERVE_PROMPT + 2), "flash_attention", 2,
+                per_call=cfg.n_layers)
+            with recorded_routing() as routed_dense:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dense, _ = model.prefill(batch, use_flash=False)
+                torch.cuda.synchronize()
+            scale, err = max_abs(dense), max_abs(logits - dense)
+            flips = routing_flips(routed, routed_dense)
+            fields.update(check_prefill_dense_s=f"{time.perf_counter() - t0:.3f}",
+                          flash_device_ms=f"{flash_ms:.3f}",
+                          flash_share_of_prefill=f"{flash_ms / (run.prefill_s * 1e3):.4f}",
+                          logits_vs_dense=err, max_abs_logits=scale,
+                          routing_flips_flash_vs_dense=flips,
+                          argmax_equal=bool(torch.equal(logits.argmax(-1), dense.argmax(-1))))
+            if not err <= SERVE_LOGITS_RTOL * scale:
+                failures.append(f"flash prefill vs dense: {err} > {SERVE_LOGITS_RTOL} * "
+                                f"{scale} ({flips} (layer, token) top-k sets differ)")
+            del dense
+        tokens = batch["tokens"]
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        step_errs, step_flips = [], []
+        for step in range(2):
+            with recorded_routing() as routed_dec:
+                dec, caches = model.decode_step(tok, caches, SERVE_PROMPT + step)
+            tokens = torch.cat([tokens, tok], dim=1)
+            with recorded_routing() as routed_fresh:
+                fresh, _ = model.prefill({"tokens": tokens})
+            S1 = tokens.shape[1]
+            last = torch.arange(SERVE_BATCH, device=tokens.device) * S1 + S1 - 1
+            flips = routing_flips(routed_dec, routed_fresh, rows_b=last)
+            e, bound = max_abs(dec - fresh), SERVE_LOGITS_RTOL * max_abs(fresh)
+            step_errs.append(e)
+            step_flips.append(flips)
+            if not e <= bound:
+                failures.append(f"decode step {step} vs fresh prefill: {e} > {bound} "
+                                f"({flips} (layer, token) top-k sets differ)")
+            tok = torch.argmax(dec, dim=-1)[:, None].to(torch.int32)
+            del fresh
+    log(phase, arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype, params=run.n_params,
+        batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, new_tokens=SERVE_NEW,
+        flash_launches_per_prefill=n_flash, launches=json.dumps(launches, sort_keys=True),
+        init_s=f"{run.init_s:.3f}", prefill_s=f"{run.prefill_s:.3f}",
+        decode_s=f"{run.decode_s:.3f}",
+        decode_ms_per_step=f"{run.decode_s / run.decode_steps * 1e3:.3f}",
+        decode_tokens_per_s=f"{SERVE_BATCH * run.decode_steps / run.decode_s:.1f}",
+        tokens_per_s=f"{run.tokens_per_s:.1f}", peak_bytes=peak, **fields,
+        logits_tol_rel=SERVE_LOGITS_RTOL, decode_vs_fresh_prefill=json.dumps(step_errs),
+        routing_flips_decode_vs_fresh=json.dumps(step_flips),
+        tokens_row0=json.dumps(toks[0].tolist()))
+    if failures:
+        raise AssertionError(f"[{phase}] " + "; ".join(failures))
+    out = dict(launches=launches, flash_device_ms=fields.get("flash_device_ms"))
+    del run, model, batch, caches, logits, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phases_moe() -> dict:
+    """The MoE family's phases: [serve_moe] (deepseek-v2-lite-16b at full
+    width and depth), [serve_moe_gqa] (qwen3-moe-30b-a3b at full width, its
+    depth cut to SERVE_MOE_GQA_LAYERS) and [train_moe].  Returns
+    [serve_moe_gqa]'s results (its flash launches and device ms)."""
+    from repro_torch.configs import get_arch
+
+    phase_serve_moe("serve_moe", get_arch(SERVE_MOE_ARCH), SERVE_MOE_PARAMS)
+    moe_gqa = phase_serve_moe(
+        "serve_moe_gqa",
+        dataclasses.replace(get_arch(SERVE_MOE_GQA_ARCH), n_layers=SERVE_MOE_GQA_LAYERS),
+        SERVE_MOE_GQA_PARAMS)
+    phase_train_moe()
+    return moe_gqa
+
+
+def phase_train_moe() -> dict:
+    """MoE training at full width: a TRAIN_MOE_LAYERS-layer cut of
+    deepseek-v2-lite (MLA, shared and routed experts, full vocab) takes
+    TRAIN_MOE_STEPS make_train_step steps in float32 from seed 0, routing at
+    capacity.  Every loss and aux must be finite and some pairs must drop;
+    no ported kernel runs.  Then the reduced config's one step on the card
+    against the CPU."""
+    import gc
+    import types
+
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.data.synthetic_lm import SyntheticLM
+    from repro_torch.models.zoo import active_params, build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.state import init_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cut = dataclasses.replace(get_arch(SERVE_MOE_ARCH), n_layers=TRAIN_MOE_LAYERS,
+                              dtype="float32")
+    model = build_model(cut, device="meta")
+    opt = adamw(3e-4)
+    state, _ = init_state(model, opt, 0, device="cuda")
+    n_params = sum(t.numel() for t in leaves(state.params))
+    if n_params != TRAIN_MOE_PARAMS:
+        raise AssertionError(f"[train_moe] {n_params:,} parameters, expected "
+                             f"{TRAIN_MOE_PARAMS:,}")
+    auxs: list[float] = []
+
+    def train_loss(params, batch, remat_policy=None):
+        loss, metrics = model.train_loss(params, batch, remat_policy=remat_policy)
+        auxs.append(float(metrics["aux"].detach()))
+        return loss, metrics
+
+    step = make_train_step(types.SimpleNamespace(cfg=cut, train_loss=train_loss), opt,
+                           remat="none")
+    data = SyntheticLM(cut, ShapeConfig("train_moe", TRAIN_MOE_SEQ, TRAIN_MOE_BATCH, "train"),
+                       seed=0, device="cuda")
+    kept = [0, 0]
+    inner = moe_mod.kept_pairs
+
+    def counting(idx, **kw):
+        out = inner(idx, **kw)
+        kept[0] += out[0].numel()
+        kept[1] += idx.numel()
+        return out
+
+    losses, step_s = [], []
+    instrument.reset("kernels.")
+    moe_mod.kept_pairs = counting
+    try:
+        for i in range(TRAIN_MOE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, data.batch_at(i))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    finally:
+        moe_mod.kept_pairs = inner
+    launches = instrument.tail_counts("kernels.")
+    peak = torch.cuda.max_memory_allocated() - base
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in losses + auxs) or not all(a > 0 for a in auxs):
+        raise AssertionError(f"[train_moe] losses {losses}, aux {auxs}")
+    if not 0 < kept[0] < kept[1]:
+        raise AssertionError(f"[train_moe] {kept[0]} of {kept[1]} pairs kept: not at capacity")
+    if any(launches.values()):
+        raise AssertionError(f"[train_moe] training launched ported kernels: {launches}")
+    tokens = TRAIN_MOE_BATCH * TRAIN_MOE_SEQ
+    steady = step_s[1:]
+    step_mean = sum(steady) / len(steady)
+    active = active_params(cut)
+    flops = 6 * active * tokens
+    log("train_moe", arch=cut.name, layers=cut.n_layers, dtype=cut.dtype, optimizer="adamw",
+        remat="none", params=n_params, active_params=active, batch=TRAIN_MOE_BATCH,
+        seq=TRAIN_MOE_SEQ, steps=TRAIN_MOE_STEPS, losses=json.dumps(losses),
+        aux=json.dumps(auxs), pairs_kept=kept[0], pairs=kept[1],
+        step_s=json.dumps([round(x, 4) for x in step_s]),
+        step_s_after_first=f"{step_mean:.4f}", tokens_per_s=f"{tokens / step_mean:.1f}",
+        peak_bytes=peak, model_flops_per_step=flops,
+        mfu_fp32=f"{flops / step_mean / FP32_PEAK_FLOPS:.4f}",
+        kernel_launches=json.dumps(launches))
+    t0 = time.perf_counter()
+    card_cpu = train_card_vs_cpu(SERVE_MOE_ARCH, steps=1)
+    log("train_moe_card_cpu", seconds=f"{time.perf_counter() - t0:.2f}", **card_cpu)
+    return dict(losses=losses, aux=auxs, step_s=step_mean, peak=peak)
 
 
 # ---------------------------------------------------------- phases 26-30
@@ -4290,6 +4573,7 @@ def main() -> int:
     serve_launches = phase_serve()
     bf16_launches = phase_prefill_bf16()
     phase_train()
+    moe_gqa = phases_moe()
     kernels = [
         {
             "name": "tree_glasso", "route": "cuda",
@@ -4408,6 +4692,13 @@ def main() -> int:
                           "cp.async K/V ring; bf16: wgmma fed by TMA",
             # head dims 192 and 256 (float32 and bf16) at the prefill's length
             "wide": fa.get("wide", {}),
+            # [serve_moe_gqa]: qwen3-moe's prefill at 24 of its 48 layers
+            "moe_gqa": {"launches": moe_gqa["launches"]["flash_attention.launches"],
+                        "device_ms_per_prefill": moe_gqa["flash_device_ms"],
+                        **{key: fa["moe_gqa"][key] for key in (
+                            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")},
+                        "max_abs_err": fa["moe_gqa"]["err"]},
             # the bf16 instance (the wgmma body) on [prefill_bf16]'s path
             "bf16": {
                 "launches": bf16_launches["flash_attention.wgmma_launches"],

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.configs.base import ShapeConfig, get_arch
+from repro_torch.configs.base import ArchConfig, ShapeConfig, get_arch
 from repro_torch.data.specs import make_batch
 from repro_torch.models.transformer import resolve_device
 from repro_torch.models.zoo import Model, build_model, count_params
@@ -46,10 +46,13 @@ class Serving:
         return self.tokens.numel() / (self.prefill_s + self.decode_s)
 
 
-def run_serving(*, arch: str, batch: int, prompt_len: int, new_tokens: int,
+def run_serving(*, arch: str | ArchConfig, batch: int, prompt_len: int, new_tokens: int,
                 reduced: bool = True, seed: int = 0, device="cuda", log=print) -> Serving:
+    """Serve ``arch`` (a name, or a config such as a depth cut of one) in
+    float32: build and initialise the model, then greedy-generate from a
+    random prompt batch."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = get_arch(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, dtype="float32")

@@ -14,7 +14,13 @@ dense or chunked score paths.  ``DecoderLM`` sets it on the card.  Decode
 never uses it: its one query row sits at ``pos``, not at row 0, and the
 kernel's causal mask is aligned top-left.
 
-MLA (DeepSeek-V2's latent attention) is not ported yet.
+MLA (DeepSeek-V2's multi-head latent attention, ``mla_apply``) caches one
+latent vector and one shared rope key a token, ``{"c": (B, S, kv_lora),
+"kr": (B, S, rope)}``.  Prefill expands the latent into per-head keys and
+values and runs the dense or chunked score paths (q/k dim nope + rope, v
+dim its own); decode scores the query against the latent cache directly
+(the absorbed form).  The reference's ``mla_apply`` has no ``use_flash``,
+so MLA never runs the kernel.
 """
 
 from __future__ import annotations
@@ -178,4 +184,91 @@ def gqa_apply(
             o = _sdpa(q, k, v, scale=scale, mask=mask)
         if mode != "cross":
             new_cache = {"k": k, "v": v}  # prefill cache
+    return p.wo(_merge_heads(o)), new_cache
+
+
+# =========================================================== MLA attention
+class MLAttention(nn.Module):
+    """The projections of one MLA block, each (in, out): wq (D, H * (nope +
+    rope)), the latent's down projection wdkv (D, kv_lora), the shared rope
+    key wkrope (D, rope), the latent's up projections wuk (kv_lora, H *
+    nope) and wuv (kv_lora, H * v_dim), and wo (H * v_dim, D)."""
+
+    def __init__(self, d_model, n_heads, *, kv_lora, qk_nope_dim=128, qk_rope_dim=64,
+                 v_dim=128, dtype, device):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.wq = Dense(d_model, n_heads * (qk_nope_dim + qk_rope_dim), **kw)
+        self.wdkv = Dense(d_model, kv_lora, **kw)
+        self.wkrope = Dense(d_model, qk_rope_dim, **kw)
+        self.wuk = Dense(kv_lora, n_heads * qk_nope_dim, **kw)
+        self.wuv = Dense(kv_lora, n_heads * v_dim, **kw)
+        self.wo = Dense(n_heads * v_dim, d_model, **kw)
+
+    def reset(self, generator: torch.Generator | None) -> None:
+        for m in (self.wq, self.wdkv, self.wkrope, self.wuk, self.wuv, self.wo):
+            m.reset(generator)
+
+
+def mla_init(d_model, n_heads, *, kv_lora, qk_nope_dim=128, qk_rope_dim=64, v_dim=128,
+             dtype, device, generator: torch.Generator | None = None) -> MLAttention:
+    p = MLAttention(d_model, n_heads, kv_lora=kv_lora, qk_nope_dim=qk_nope_dim,
+                    qk_rope_dim=qk_rope_dim, v_dim=v_dim, dtype=dtype, device=device)
+    p.reset(generator)
+    return p
+
+
+def mla_apply(
+    p: MLAttention, x, *, n_heads, kv_lora, qk_nope_dim=128, qk_rope_dim=64, v_dim=128,
+    cos=None, sin=None, mode="causal", cache=None, pos=None,
+):
+    """mode: 'causal' | 'full' | 'decode'.  The rope turns only the last
+    ``qk_rope_dim`` columns of each query head and the one shared key
+    head ``kr``; the scale is (nope + rope)**-0.5.
+
+    decode: x is (B, 1, D); cache = {'c': (B, S, kv_lora), 'kr': (B, S,
+    rope)} preallocated, written in place at ``pos``.  Returns (out,
+    new_cache), the prefill's cache being this layer's c and kr."""
+    B, Sq, _ = x.shape
+    qk_dim = qk_nope_dim + qk_rope_dim
+    scale = qk_dim**-0.5
+
+    q = _split_heads(p.wq(x), n_heads, qk_dim)
+    q_nope, q_rope = q[..., :qk_nope_dim], q[..., qk_nope_dim:]
+    q_rope = rope_apply(q_rope, cos, sin)
+
+    c_new = p.wdkv(x)                                        # (B, Sq, lora)
+    kr_new = rope_apply(p.wkrope(x)[:, None], cos, sin)[:, 0]  # one shared rope head
+
+    wuk = p.wuk.w.view(kv_lora, n_heads, qk_nope_dim)
+    wuv = p.wuv.w.view(kv_lora, n_heads, v_dim)
+
+    if mode == "decode":
+        c = _dus_seq(cache["c"], c_new, pos, 1)
+        kr = _dus_seq(cache["kr"], kr_new, pos, 1)
+        new_cache = {"c": c, "kr": kr}
+        # the absorbed form: q_nope into the latent space, scored against c
+        # directly.  Each product runs in the operands' dtype (bf16 GEMMs
+        # accumulate in float32) and only its small output is upcast: a
+        # cast of c, kr or the up projections would copy them every step
+        acc = acc_dtype(x.dtype)
+        q_lat = torch.einsum("bhqd,lhd->bhql", q_nope, wuk)
+        s_lat = torch.einsum("bhql,bkl->bhqk", q_lat.to(c.dtype), c).to(acc)
+        s_rope = torch.einsum("bhqd,bkd->bhqk", q_rope.to(kr.dtype), kr).to(acc)
+        s_all = (s_lat + s_rope) * scale
+        mask = torch.arange(c.shape[1], device=x.device) <= int(pos)
+        prob = torch.softmax(torch.where(mask, s_all, NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhqk,bkl->bhql", prob.to(c.dtype), c)
+        o = torch.einsum("bhql,lhd->bhqd", o_lat.to(wuv.dtype), wuv).to(x.dtype)
+    else:
+        new_cache = {"c": c_new, "kr": kr_new}
+        k_nope = torch.einsum("bkl,lhd->bhkd", c_new, wuk)   # expanded per head
+        vfull = torch.einsum("bkl,lhd->bhkd", c_new, wuv)
+        k = torch.cat([k_nope, kr_new[:, None].expand(B, n_heads, Sq, qk_rope_dim)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        if Sq > ATTN_CHUNK_THRESHOLD:
+            o = _sdpa_chunked(qfull, k, vfull, scale=scale, causal=(mode == "causal"))
+        else:
+            mask = causal_mask(Sq, Sq, device=x.device) if mode == "causal" else None
+            o = _sdpa(qfull, k, vfull, scale=scale, mask=mask)
     return p.wo(_merge_heads(o)), new_cache

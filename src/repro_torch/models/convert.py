@@ -6,7 +6,9 @@ here.  ``params_from_reference`` takes the reference's parameter tree (nested
 mappings of numpy arrays, the layers stacked on a leading ``(L, ...)`` axis)
 and returns a state dict for ``DecoderLM.load_state_dict``: layer ``i`` of
 the stack becomes ``layers.<i>.*``, every other leaf keeps its dotted path.
-Both packages keep projections as (in, out), so nothing is transposed.
+Both packages keep projections as (in, out), so nothing is transposed, and
+each leaf keeps its dtype: a bfloat16 config's tree converts bit for bit,
+its MoE router staying float32.
 Training keeps the reference's stacked tree itself, so
 ``tree_from_reference`` converts a parameter tree or an optimizer state
 leaf for leaf, numpy to torch.
@@ -23,7 +25,13 @@ from repro_torch.models.transformer import module_state
 
 
 def _tensor(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))
+    """An array as a tensor, bit for bit; numpy has no bfloat16 of its own,
+    so a bfloat16 leaf (``ml_dtypes``' type, a bf16 config's parameters)
+    crosses as its 16-bit pattern."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def params_from_reference(tree: Mapping) -> dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""The decoder family: dense-MLP GQA decoder stacks, as ``nn.Module``s.
+"""The decoder family: dense and MoE decoder stacks with GQA or MLA
+attention, as ``nn.Module``s.
 
     init_params(cfg, seed=, device=)         -> (params, specs)
     forward_train(net, batch)                -> (loss, {"loss", "aux"})
@@ -18,7 +19,8 @@ A ``DecoderLM`` holds the embedding, an ``nn.ModuleList`` of
 ``DecoderLayer``s, the final norm and the LM head; a Python loop over the
 layers replaces the reference's ``lax.scan``.  KV caches keep the
 reference's layout, stacked on a leading layer axis:
-``{"k": (L, B, Hkv, S, hd), "v": ...}``.  Prefill allocates them once at a
+``{"k": (L, B, Hkv, S, hd), "v": ...}`` for GQA, ``{"c": (L, B, S,
+kv_lora), "kr": (L, B, S, rope)}`` for MLA.  Prefill allocates them once at a
 ``capacity`` (the prompt length by default; ``greedy_generate`` asks for
 prompt + new tokens) with zeros past the prompt, and each decode step
 writes its position in place.
@@ -33,9 +35,17 @@ it takes the reference's own dense or chunked paths.  The reference's
 ``distributed.context.constrain`` is the identity without a mesh and is
 dropped.
 
-Dense GQA configs run (qwen2.5-3b, qwen2-72b, granite-3-8b,
-internlm2-20b); the MoE, MLA, rwkv, hybrid, encoder-decoder and frontend
-families raise ``NotImplementedError``: they are later slices of the port.
+MoE configs (``cfg.moe``) put ``models/moe.py``'s routed experts in every
+layer's FFN, as the reference does (``moe_every`` is ignored there too):
+prefill and decode route dropless, training at capacity, and
+``forward_train`` adds the layers' summed load-balance loss.  MLA
+(``cfg.mla``) takes ``attention.mla_apply``, which never runs the flash
+kernel.
+
+Dense GQA configs (qwen2.5-3b, qwen2-72b, granite-3-8b, internlm2-20b) and
+the MoE family (qwen3-moe-30b-a3b, deepseek-v2-lite-16b with MLA) run; the
+rwkv, hybrid, encoder-decoder and frontend families raise
+``NotImplementedError``: they are later slices of the port.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.attention import GQAttention, gqa_apply
+from repro_torch.models.attention import GQAttention, MLAttention, gqa_apply, mla_apply
 from repro_torch.models.layers import (
     Dense,
     Embedding,
@@ -54,6 +64,7 @@ from repro_torch.models.layers import (
     rope_angles,
     truncnorm_,
 )
+from repro_torch.models.moe import MoE, moe_apply
 
 VOCAB_PAD = 256
 
@@ -82,8 +93,6 @@ def check_supported(cfg: ArchConfig) -> None:
     yet, naming the slice that brings it (ROADMAP queue 1, the LM
     pillar)."""
     for unported, slice_name in (
-        (cfg.moe, "the MoE slice (models/moe.py)"),
-        (cfg.mla, "the MLA slice (mla_init / mla_apply)"),
         (cfg.ssm, "the rwkv slice (models/ssm.py)"),
         (cfg.hybrid, "the hybrid (zamba2) slice"),
         (cfg.encoder_decoder, "the encoder-decoder slice"),
@@ -97,7 +106,8 @@ def check_supported(cfg: ArchConfig) -> None:
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm block: x + attn(ln1(x)), then + swiglu(ln2(x))."""
+    """Pre-norm block: x + attn(ln1(x)), then + ffn(ln2(x)); attn is GQA
+    or MLA, ffn a SwiGLU or the MoE."""
 
     def __init__(self, cfg: ArchConfig, *, dtype, device):
         super().__init__()
@@ -105,9 +115,18 @@ class DecoderLayer(nn.Module):
         self.cfg = cfg
         self.ln1 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
         self.ln2 = RMSNorm(cfg.d_model, eps=cfg.norm_eps, **kw)
-        self.attn = GQAttention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                                cfg.resolved_head_dim, bias=cfg.qkv_bias, **kw)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
+        if cfg.mla:
+            self.attn = MLAttention(cfg.d_model, cfg.n_heads, kv_lora=cfg.kv_lora_rank,
+                                    qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                                    v_dim=cfg.v_head_dim, **kw)
+        else:
+            self.attn = GQAttention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                    cfg.resolved_head_dim, bias=cfg.qkv_bias, **kw)
+        if cfg.moe:
+            self.mlp = MoE(cfg.d_model, n_experts=cfg.n_experts, d_ff_expert=cfg.d_ff_expert,
+                           n_shared=cfg.n_shared_experts, d_ff_shared=cfg.d_ff_expert, **kw)
+        else:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, **kw)
 
     def reset(self, generator: torch.Generator | None) -> None:
         self.ln1.reset()
@@ -115,26 +134,43 @@ class DecoderLayer(nn.Module):
         self.attn.reset(generator)
         self.mlp.reset(generator)
 
-    def forward(self, x, *, cos, sin, mode, cache=None, pos=None, use_flash=False):
+    def forward(self, x, *, cos, sin, mode, cache=None, pos=None, use_flash=False,
+                dropless=True):
+        """(x, cache, aux): ``aux`` is the MoE's load-balance loss, None for
+        a SwiGLU FFN."""
         cfg = self.cfg
-        h, new_cache = gqa_apply(
-            self.attn, self.ln1(x), n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, cos=cos, sin=sin, mode=mode,
-            cache=cache, pos=pos, use_flash=use_flash,
-        )
+        if cfg.mla:
+            h, new_cache = mla_apply(
+                self.attn, self.ln1(x), n_heads=cfg.n_heads, kv_lora=cfg.kv_lora_rank,
+                qk_nope_dim=cfg.qk_nope_dim, qk_rope_dim=cfg.qk_rope_dim,
+                v_dim=cfg.v_head_dim, cos=cos, sin=sin, mode=mode, cache=cache, pos=pos,
+            )
+        else:
+            h, new_cache = gqa_apply(
+                self.attn, self.ln1(x), n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, cos=cos, sin=sin, mode=mode,
+                cache=cache, pos=pos, use_flash=use_flash,
+            )
         x = x + h
-        return x + self.mlp(self.ln2(x)), new_cache
+        h2 = self.ln2(x)
+        if cfg.moe:
+            ff, aux = moe_apply(self.mlp, h2, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                                dropless=dropless)
+        else:
+            ff, aux = self.mlp(h2), None
+        return x + ff, new_cache, aux
 
 
 class DecoderLM(nn.Module):
     """Embedding, decoder layers, final norm and LM head of one config, its
-    parameters in ``cfg.dtype`` on ``device`` (left uninitialised until
-    ``init_params``; ``device="meta"`` allocates nothing)."""
+    parameters in ``cfg.dtype`` (an MoE router's in float32) on ``device``,
+    the card by default (left uninitialised until ``init_params``;
+    ``device="meta"`` allocates nothing)."""
 
-    def __init__(self, cfg: ArchConfig, *, device="cpu"):
+    def __init__(self, cfg: ArchConfig, *, device="cuda"):
         super().__init__()
         check_supported(cfg)
-        kw = dict(dtype=TORCH_DTYPES[cfg.dtype], device=torch.device(device))
+        kw = dict(dtype=TORCH_DTYPES[cfg.dtype], device=resolve_device(device))
         self.cfg = cfg
         vocab = padded_vocab(cfg)
         self.embed = Embedding(vocab, cfg.d_model, **kw)
@@ -195,10 +231,11 @@ class _Init:
         self.gen = (None if device.type == "meta"
                     else torch.Generator(device=device).manual_seed(seed))
 
-    def normal(self, shape, scale):
+    def normal(self, shape, scale, dtype=None):
         """Truncated normal drawn in float32 (or wider) and cast, as the
-        reference draws in float32 and casts to the config's dtype."""
-        dtype = self.kw["dtype"]
+        reference draws in float32 and casts to the config's dtype (or to
+        ``dtype``)."""
+        dtype = self.kw["dtype"] if dtype is None else dtype
         t = torch.empty(shape, dtype=acc_dtype(dtype), device=self.kw["device"])
         if self.gen is not None:
             truncnorm_(t, scale, self.gen)
@@ -221,26 +258,67 @@ def _unzip(pairs: dict):
     return {k: v[0] for k, v in pairs.items()}, {k: v[1] for k, v in pairs.items()}
 
 
-def _decoder_layer_init(ini: _Init, cfg: ArchConfig, lead: tuple):
-    hd, D, bias = cfg.resolved_head_dim, cfg.d_model, cfg.qkv_bias
+def _swiglu_init(ini: _Init, lead: tuple, d_model: int, d_ff: int):
+    return _unzip({
+        "wi": ini.dense(lead, d_model, d_ff, "embed", "mlp"),
+        "wg": ini.dense(lead, d_model, d_ff, "embed", "mlp"),
+        "wo": ini.dense(lead, d_ff, d_model, "mlp", "embed"),
+    })
+
+
+def _attn_init(ini: _Init, cfg: ArchConfig, lead: tuple):
+    D, H = cfg.d_model, cfg.n_heads
 
     def dense(*args, **kwargs):
         return ini.dense(lead, *args, **kwargs)
 
+    if cfg.mla:
+        lora, nope, rope = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim
+        return _unzip({
+            "wq": dense(D, H * (nope + rope), "embed", "heads"),
+            "wdkv": dense(D, lora, "embed", "lora"),
+            "wkrope": dense(D, rope, "embed", "lora"),
+            "wuk": dense(lora, H * nope, "lora", "heads"),
+            "wuv": dense(lora, H * cfg.v_head_dim, "lora", "heads"),
+            "wo": dense(H * cfg.v_head_dim, D, "heads", "embed"),
+        })
+    hd, bias = cfg.resolved_head_dim, cfg.qkv_bias
+    return _unzip({
+        "wq": dense(D, H * hd, "embed", "heads", bias=bias),
+        "wk": dense(D, cfg.n_kv_heads * hd, "embed", "kv", bias=bias),
+        "wv": dense(D, cfg.n_kv_heads * hd, "embed", "kv", bias=bias),
+        "wo": dense(H * hd, D, "heads", "embed"),
+    })
+
+
+def _moe_init(ini: _Init, cfg: ArchConfig, lead: tuple):
+    """The reference's ``moe_init`` tree: a float32 router, bare stacked
+    expert weights, the shared SwiGLU when the config has one."""
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+    p = {
+        "router": {"w": ini.normal(lead + (D, E), D**-0.5, dtype=torch.float32)},
+        "wi": ini.normal(lead + (E, D, F), D**-0.5),
+        "wg": ini.normal(lead + (E, D, F), D**-0.5),
+        "wo": ini.normal(lead + (E, F, D), F**-0.5),
+    }
+    s = {
+        "router": {"w": ("embed", "expert")},
+        "wi": ("expert", "embed", "mlp"),
+        "wg": ("expert", "embed", "mlp"),
+        "wo": ("expert", "mlp", "embed"),
+    }
+    if cfg.n_shared_experts:
+        p["shared"], s["shared"] = _swiglu_init(ini, lead, D, cfg.n_shared_experts * F)
+    return p, s
+
+
+def _decoder_layer_init(ini: _Init, cfg: ArchConfig, lead: tuple):
+    D = cfg.d_model
     return _unzip({
         "ln1": ini.rmsnorm(lead, D),
         "ln2": ini.rmsnorm(lead, D),
-        "attn": _unzip({
-            "wq": dense(D, cfg.n_heads * hd, "embed", "heads", bias=bias),
-            "wk": dense(D, cfg.n_kv_heads * hd, "embed", "kv", bias=bias),
-            "wv": dense(D, cfg.n_kv_heads * hd, "embed", "kv", bias=bias),
-            "wo": dense(cfg.n_heads * hd, D, "heads", "embed"),
-        }),
-        "mlp": _unzip({
-            "wi": dense(D, cfg.d_ff, "embed", "mlp"),
-            "wg": dense(D, cfg.d_ff, "embed", "mlp"),
-            "wo": dense(cfg.d_ff, D, "mlp", "embed"),
-        }),
+        "attn": _attn_init(ini, cfg, lead),
+        "mlp": _moe_init(ini, cfg, lead) if cfg.moe else _swiglu_init(ini, lead, D, cfg.d_ff),
     })
 
 
@@ -288,7 +366,25 @@ def module_state(params: dict) -> dict[str, torch.Tensor]:
 
 
 def _rope_cache(cfg: ArchConfig, positions: torch.Tensor):
+    if cfg.mla:
+        return rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta)
     return rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
+def cache_seq_axis(cfg: ArchConfig) -> int:
+    """The seq axis of the stacked caches: 2 for MLA's latent c (L, B, S,
+    kv_lora) and rope key kr (L, B, S, rope), 3 for GQA's k/v (L, B, Hkv,
+    S, hd)."""
+    return 2 if cfg.mla else 3
+
+
+def _cache_shapes(cfg: ArchConfig, B: int, cap: int) -> dict:
+    """{name: stacked shape} of the prefill caches at ``cap`` positions."""
+    L = cfg.n_layers
+    if cfg.mla:
+        return {"c": (L, B, cap, cfg.kv_lora_rank), "kr": (L, B, cap, cfg.qk_rope_dim)}
+    shape = (L, B, cfg.n_kv_heads, cap, cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
 
 
 def _embed_sequence(net: DecoderLM, batch: dict) -> torch.Tensor:
@@ -309,49 +405,57 @@ def _run_decoder_stack(net: DecoderLM, x, *, mode, caches=None, pos=None,
 
     if mode == "decode":
         for i, layer in enumerate(net.layers):
-            x, _ = layer(x, cos=cos, sin=sin, mode="decode",
-                         cache={"k": caches["k"][i], "v": caches["v"][i]}, pos=pos)
+            x, _, _ = layer(x, cos=cos, sin=sin, mode="decode",
+                            cache={name: c[i] for name, c in caches.items()}, pos=pos)
         return x, caches
 
     cap = S if capacity is None else max(int(capacity), S)
-    shape = (cfg.n_layers, B, cfg.n_kv_heads, cap, cfg.resolved_head_dim)
-    caches = {name: torch.zeros(shape, dtype=x.dtype, device=x.device) for name in ("k", "v")}
+    caches = {name: torch.zeros(shape, dtype=x.dtype, device=x.device)
+              for name, shape in _cache_shapes(cfg, B, cap).items()}
+    seq_axis = cache_seq_axis(cfg) - 1  # of one layer's cache
     for i, layer in enumerate(net.layers):
-        x, cache = layer(x, cos=cos, sin=sin, mode=mode, use_flash=use_flash)
-        for name in ("k", "v"):
-            caches[name][i, :, :, :S].copy_(cache[name])
+        x, cache, _ = layer(x, cos=cos, sin=sin, mode=mode, use_flash=use_flash)
+        for name, c in caches.items():
+            c[i].narrow(seq_axis, 0, S).copy_(cache[name])
     return x, caches
 
 
 def _remat_layer(layer, names, x, cos, sin, *tensors):
-    """One layer over explicit tensors: checkpoint's recomputation runs in
-    the backward pass, after any outer ``functional_call`` has put the
-    module's own parameters back."""
+    """One training layer over explicit tensors, returning (y, aux or None):
+    checkpoint's recomputation runs in the backward pass, after any outer
+    ``functional_call`` has put the module's own parameters back."""
     params = dict(zip(names, tensors))
-    y, _ = torch.func.functional_call(layer, params, (x,),
-                                      dict(cos=cos, sin=sin, mode="causal"), strict=True)
-    return y
+    y, _, aux = torch.func.functional_call(
+        layer, params, (x,), dict(cos=cos, sin=sin, mode="causal", dropless=False),
+        strict=True)
+    return y, aux
 
 
 def _run_train_stack(net: DecoderLM, x, *, remat_policy=None):
-    """The causal stack for training: no KV caches.  ``remat_policy`` (a
-    selective-checkpoint policy of ``train.step.REMAT_POLICIES``, or None)
-    checkpoints each layer, the reference's ``jax.checkpoint`` on its scan
-    body."""
+    """The causal stack for training: no KV caches, the MoE at capacity
+    (``dropless=False``).  Returns (x, the sum over layers of the aux
+    loss, a float32 zero without MoE layers).  ``remat_policy`` (a selective-checkpoint policy of
+    ``train.step.REMAT_POLICIES``, or None) checkpoints each layer, the
+    reference's ``jax.checkpoint`` on its scan body."""
     from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
     S = x.shape[1]
     cos, sin = _rope_cache(net.cfg, torch.arange(S, device=x.device))
+    auxs = []
     for layer in net.layers:
         if remat_policy is None:
-            x, _ = layer(x, cos=cos, sin=sin, mode="causal")
-            continue
-        names, tensors = zip(*layer.named_parameters())
-        x = checkpoint(
-            _remat_layer, layer, names, x, cos, sin, *tensors, use_reentrant=False,
-            context_fn=lambda: create_selective_checkpoint_contexts(remat_policy),
-        )
-    return x
+            x, _, aux = layer(x, cos=cos, sin=sin, mode="causal", dropless=False)
+        else:
+            names, tensors = zip(*layer.named_parameters())
+            x, aux = checkpoint(
+                _remat_layer, layer, names, x, cos, sin, *tensors, use_reentrant=False,
+                context_fn=lambda: create_selective_checkpoint_contexts(remat_policy),
+            )
+        if aux is not None:
+            auxs.append(aux)
+    if not auxs:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.sum(torch.stack(auxs))
 
 
 def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -365,11 +469,11 @@ def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def forward_train(net: DecoderLM, batch: dict, *, remat_policy=None, aux_weight: float = 0.01):
     """(loss + aux_weight * aux, {"loss", "aux"}) of a batch of tokens and
-    targets; ``aux`` (the MoE balance loss) is 0 for the dense family."""
-    x = _run_train_stack(net, _embed_sequence(net, batch), remat_policy=remat_policy)
+    targets; ``aux`` is the sum over layers of the MoE balance loss (0 for
+    the dense family)."""
+    x, aux = _run_train_stack(net, _embed_sequence(net, batch), remat_policy=remat_policy)
     x = net.final_norm(x)
     loss = token_loss(net.lm_head(x), batch["targets"])
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
     return loss + aux_weight * aux, {"loss": loss, "aux": aux}
 
 

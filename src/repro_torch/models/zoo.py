@@ -69,7 +69,11 @@ def count_params_abstract(cfg: ArchConfig) -> int:
 
 def active_params(cfg: ArchConfig) -> int:
     """Parameters touched per token, the N in MODEL_FLOPS = 6 * N * D: all of
-    them for the dense family.  The MoE family (shared plus top_k routed
-    experts in the reference) raises in ``count_params_abstract`` until
-    its slice is ported."""
-    return count_params_abstract(cfg)
+    them for the dense family; for the MoE family every parameter but the
+    routed experts', plus top_k experts' worth a layer (the reference's
+    formula, which counts the router and the shared experts as active)."""
+    total = count_params_abstract(cfg)
+    if not cfg.moe:
+        return total
+    per_expert = 3 * cfg.d_model * cfg.d_ff_expert
+    return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * per_expert

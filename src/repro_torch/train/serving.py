@@ -8,6 +8,7 @@ import time
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.transformer import cache_seq_axis
 
 
 def _pad_axis(a: torch.Tensor, axis: int, to_len: int) -> torch.Tensor:
@@ -23,10 +24,12 @@ def _pad_axis(a: torch.Tensor, axis: int, to_len: int) -> torch.Tensor:
 
 def pad_caches(cfg: ArchConfig, caches: dict, cur_len: int, *, to_len: int) -> dict:
     """Grow prefill caches to a decode capacity along their seq axis, zeros
-    past the prefix.  The GQA layout, stacked on the layer axis:
-    k/v (L, B, Hkv, S, hd), seq axis 3.  Caches already that long (a
-    prefill given ``capacity``) are returned as they are."""
-    return {name: _pad_axis(a, 3, to_len) for name, a in caches.items()}
+    past the prefix.  The layouts, stacked on the layer axis: GQA's k/v
+    (L, B, Hkv, S, hd), seq axis 3; MLA's c (L, B, S, kv_lora) and kr
+    (L, B, S, rope), seq axis 2.  Caches already that long (a prefill
+    given ``capacity``) are returned as they are."""
+    axis = cache_seq_axis(cfg)
+    return {name: _pad_axis(a, axis, to_len) for name, a in caches.items()}
 
 
 def _sync(device: torch.device) -> None:

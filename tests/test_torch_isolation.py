@@ -28,6 +28,7 @@ import repro_torch.kernels.covgram, repro_torch.core.sparse, repro_torch.core.so
 import repro_torch.covariance.estimators, repro_torch.covariance.synthetic, repro_torch.joint.blocks
 import repro_torch.kernels.flash_attention, repro_torch.configs, repro_torch.configs.base
 import repro_torch.models.layers, repro_torch.models.attention, repro_torch.models.transformer
+import repro_torch.models.moe
 import repro_torch.models.zoo, repro_torch.models.convert, repro_torch.data.specs
 import repro_torch.train.serving, repro_torch.launch.serve
 import repro_torch.engine.planner, repro_torch.engine.executor, repro_torch.stream.path

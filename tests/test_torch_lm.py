@@ -1,5 +1,6 @@
 """The port's LM serving path against the reference package, on the CPU at
-the reduced configs of the four dense GQA architectures.
+the reduced configs of the four dense GQA architectures and the two MoE
+ones (qwen3-moe with GQA, deepseek-v2-lite with MLA).
 
 The reference initialises its parameters; ``params_from_reference`` loads
 them into the port's modules (the two packages' generators differ).  Both
@@ -36,6 +37,10 @@ from repro_torch.models.zoo import build_model, count_params
 from repro_torch.train.serving import greedy_generate, pad_caches
 
 DENSE_GQA = ["qwen2_5_3b", "qwen2_72b", "granite_3_8b", "internlm2_20b"]
+MOE = ["qwen3_moe_30b_a3b", "deepseek_v2_lite_16b"]
+# the reference's count_params_abstract / active_params at full width
+MOE_COUNTS = {"deepseek_v2_lite_16b": (16_210_311_168, 2_663_233_536),
+              "qwen3_moe_30b_a3b": (30_532_634_624, 3_353_544_704)}
 LAYER_TOL = 1e-6
 TOL = 2e-5
 
@@ -62,7 +67,7 @@ def _cfgs(arch):
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module", params=DENSE_GQA)
+@pytest.fixture(scope="module", params=DENSE_GQA + MOE)
 def pair(request):
     """(reference model, its params, port model) at the arch's reduced
     config, the port's parameters loaded from the reference's."""
@@ -94,7 +99,7 @@ def test_get_arch_answers_as_the_reference(arch):
         assert base.cell_supported(got, base.SHAPES[name]) == jax_base.cell_supported(ref, shape)
 
 
-@pytest.mark.parametrize("arch", DENSE_GQA)
+@pytest.mark.parametrize("arch", DENSE_GQA + MOE)
 def test_count_params_matches_the_reference_at_full_width(arch):
     """Full width on the meta device: shapes only, nothing allocated."""
     model = build_model(base.get_arch(arch), device="meta")
@@ -102,11 +107,11 @@ def test_count_params_matches_the_reference_at_full_width(arch):
     if arch == "qwen2_5_3b":
         assert count_params(model) == 3_397_627_904
         assert padded_vocab(model.cfg) == 152064
+    if arch in MOE_COUNTS:
+        assert count_params(model) == MOE_COUNTS[arch][0]
 
 
 @pytest.mark.parametrize("arch,match", [
-    ("qwen3_moe_30b_a3b", "MoE"),
-    ("deepseek_v2_lite_16b", "MoE"),
     ("rwkv6_7b", "rwkv"),
     ("zamba2_1_2b", "hybrid"),
     ("seamless_m4t_medium", "encoder-decoder"),
@@ -117,10 +122,49 @@ def test_unported_families_raise(arch, match):
         build_model(base.get_arch(arch).reduced(), device="meta")
 
 
-def test_mla_raises():
-    cfg = dataclasses.replace(base.get_arch("deepseek_v2_lite_16b").reduced(), moe=False)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        build_model(cfg, device="meta")
+def test_moe_router_is_float32_under_a_bf16_config():
+    """The reference's router weight is float32 whatever cfg.dtype is; a
+    bf16 tree loads bit for bit, and prefill routes and serves in bf16."""
+    arch = "deepseek_v2_lite_16b"
+    jcfg = jax_base.get_arch(arch).reduced()
+    tcfg = base.get_arch(arch).reduced()
+    assert tcfg.dtype == "bfloat16"
+    params, _ = jax_build_model(jcfg).init(jax.random.key(0))
+    model = build_model(tcfg, device="cpu")
+    state = params_from_reference(jax.tree.map(np.asarray, params))
+    assert state["layers.0.mlp.router.w"].dtype == torch.float32
+    assert state["layers.0.mlp.wi"].dtype == torch.bfloat16
+    model.net.load_state_dict(state)
+    for name, t in model.net.named_parameters():
+        assert t.dtype == (torch.float32 if name.endswith("router.w") else torch.bfloat16)
+        assert torch.equal(t, state[name]), name
+    jb, tb = _batches(jcfg, tcfg, S=9)
+    want, _ = jax_build_model(jcfg).prefill(params, jb)
+    got, _ = model.prefill(tb)
+    assert got.dtype == torch.bfloat16
+    w = np.asarray(want, np.float32)
+    np.testing.assert_allclose(_np(got.float()), w, atol=5e-2 * float(np.abs(w).max()), rtol=0)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_use_flash_routes_gqa_through_the_kernel_and_never_mla(arch, monkeypatch):
+    """prefill(use_flash=True) calls flash_attention once a layer under GQA
+    (qwen3-moe) and never under MLA (deepseek): the reference's mla_apply
+    has no use_flash."""
+    cfg = dataclasses.replace(base.get_arch(arch).reduced(), dtype="float32")
+    model = build_model(cfg, device="cpu")
+    model.init(0)
+    calls = []
+    inner = attention.flash_attention
+
+    def counting(*args, **kwargs):
+        calls.append(args[0].shape)
+        return inner(*args, **kwargs)
+
+    monkeypatch.setattr(attention, "flash_attention", counting)
+    _, tb = _batches(cfg, cfg, S=9)
+    model.prefill(tb, use_flash=True)
+    assert len(calls) == (0 if cfg.mla else cfg.n_layers)
 
 
 @pytest.mark.parametrize("arch", jax_base.list_archs())
@@ -289,7 +333,8 @@ def test_prefill_logits_and_caches_match_the_reference(pair):
     for use_flash in (None, True):
         got, gcaches = model.prefill(tb, use_flash=use_flash)
         _close(got, want)
-        for name in ("k", "v"):
+        assert set(gcaches) == set(wcaches) == ({"c", "kr"} if model.cfg.mla else {"k", "v"})
+        for name in wcaches:
             _close(gcaches[name], wcaches[name])
 
 
@@ -304,7 +349,7 @@ def test_decode_step_matches_the_reference(pair):
     _, gcaches = model.prefill({"tokens": tb["tokens"][:, :-1]}, capacity=S)
     got, gnew = model.decode_step(tb["tokens"][:, -1:], gcaches, S - 1)
     _close(got, want)
-    for name in ("k", "v"):
+    for name in wnew:
         _close(gnew[name], wnew[name])
 
 
@@ -331,18 +376,27 @@ def test_greedy_tokens_equal_the_reference(pair):
 
 
 def test_pad_caches_keeps_the_prefix_and_zero_fills(pair):
-    _, _, model = pair
-    _, tb = _batches(model.cfg, model.cfg, S=8)
+    """Along seq axis 3 of GQA's k/v, axis 2 of MLA's c/kr; the reference's
+    pad_caches gives the same arrays."""
+    jmodel, params, model = pair
+    jb, tb = _batches(model.cfg, model.cfg, S=8)
     _, caches = model.prefill(tb)
     padded = pad_caches(model.cfg, caches, 8, to_len=16)
-    for name in ("k", "v"):
-        assert padded[name].shape[3] == 16
-        assert torch.equal(padded[name][:, :, :, :8], caches[name])
-        assert not padded[name][:, :, :, 8:].any()
+    axis = 2 if model.cfg.mla else 3
+    for name, c in caches.items():
+        assert padded[name].shape[axis] == 16
+        assert torch.equal(padded[name].narrow(axis, 0, 8), c)
+        assert not padded[name].narrow(axis, 8, 8).any()
     _, big = model.prefill(tb, capacity=16)
-    assert pad_caches(model.cfg, big, 8, to_len=16)["k"] is big["k"]
-    for name in ("k", "v"):
+    name = next(iter(big))
+    assert pad_caches(model.cfg, big, 8, to_len=16)[name] is big[name]
+    for name in caches:
         assert torch.equal(big[name], padded[name])
+    _, wcaches = jmodel.prefill(params, jb)
+    wpadded = jax_pad_caches(jmodel.cfg, wcaches, 8, to_len=16)
+    for name in wpadded:
+        assert wpadded[name].shape == padded[name].shape
+        _close(padded[name], wpadded[name])
 
 
 # -------------------------------------------------------- the entry point
@@ -360,4 +414,15 @@ def test_run_serving_on_the_cpu():
     assert torch.equal(run.tokens, again.tokens)
     assert any("params=" in line for line in lines)
     # the same weights through the module-level path
+    assert torch.equal(greedy_generate(run.model, run.batch, max_new_tokens=3), run.tokens)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_run_serving_moe_on_the_cpu(arch):
+    run = run_serving(arch=arch, batch=2, prompt_len=7, new_tokens=3, seed=2, device="cpu",
+                      log=lambda *a: None)
+    cfg = run.model.cfg
+    assert cfg.moe and cfg.dtype == "float32" and run.tokens.shape == (2, 3)
+    assert run.n_params == count_params(run.model) == count_params_abstract(
+        jax_base.get_arch(arch).reduced())
     assert torch.equal(greedy_generate(run.model, run.batch, max_new_tokens=3), run.tokens)

@@ -1,6 +1,7 @@
 """The port's LM training path against the reference package, on the CPU
 at the reduced qwen2.5-3b config in float32 (bfloat16 where a test says
-so).
+so), and at the reduced configs of the two MoE architectures, whose
+training routes at capacity and adds the load-balance loss (aux).
 
 The reference initialises its parameters (or its whole TrainState);
 ``convert.tree_from_reference`` hands the same tree to the port, whose
@@ -45,6 +46,8 @@ from repro_torch.train.tree import leaves, leaves_with_paths
 
 ARCH = "qwen2_5_3b"
 DENSE_GQA = ["qwen2_5_3b", "qwen2_72b", "granite_3_8b", "internlm2_20b"]
+MOE = ["qwen3_moe_30b_a3b", "deepseek_v2_lite_16b"]
+AUX_RTOL = 1e-6
 LOSS_RTOL = 1e-6
 GRAD_TOL = 1e-5          # of each leaf's max |g|
 TRAJ_LOSS_RTOL = 1e-5
@@ -93,10 +96,8 @@ def _batch_pair(jcfg, tcfg, step, *, B=4, S=32, seed=0):
     return jb, tb
 
 
-@pytest.fixture(scope="module")
-def grads_ref():
-    """The reference's params, one batch, its loss and its gradients."""
-    jcfg, tcfg = _cfgs()
+def _grads_ref(arch):
+    jcfg, tcfg = _cfgs(arch)
     jmodel = jax_build_model(jcfg)
     jparams, _ = jmodel.init(jax.random.key(0))
     jb, tb = _batch_pair(jcfg, tcfg, 3)
@@ -104,6 +105,19 @@ def grads_ref():
         lambda p: jmodel.train_loss(p, jb), has_aux=True)(jparams)
     return dict(tcfg=tcfg, params=jparams, batch=tb, loss=float(loss),
                 aux=float(metrics["aux"]), grads=jax.tree.map(np.asarray, grads))
+
+
+@pytest.fixture(scope="module")
+def grads_ref():
+    """The reference's params, one batch, its loss and its gradients."""
+    return _grads_ref(ARCH)
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe_grads_ref(request):
+    """The same for an MoE config: the reference's training forward routes
+    at capacity (dropless=False) and its loss carries 0.01 * aux."""
+    return _grads_ref(request.param)
 
 
 def _port_grads(ref, remat):
@@ -131,15 +145,18 @@ def test_token_loss_matches_reference():
     assert got16.dtype == torch.float32
 
 
-@pytest.mark.parametrize("remat", list(REMAT_POLICIES))
-def test_forward_train_loss_and_grads(grads_ref, remat):
-    """The loss and every leaf's gradient against jax.grad of the
-    reference's forward_train, under each remat policy; each policy's
-    gradients bit-equal to no remat."""
-    loss, metrics, grads = _port_grads(grads_ref, remat)
-    assert loss == pytest.approx(grads_ref["loss"], rel=LOSS_RTOL)
-    assert float(metrics["aux"]) == grads_ref["aux"] == 0.0
-    want = dict(jax.tree_util.tree_flatten_with_path(grads_ref["grads"])[0])
+def _check_grads(ref, remat):
+    """The loss, aux and every leaf's gradient against jax.grad of the
+    reference's forward_train under ``remat``; each policy's gradients
+    bit-equal to no remat."""
+    loss, metrics, grads = _port_grads(ref, remat)
+    assert loss == pytest.approx(ref["loss"], rel=LOSS_RTOL)
+    aux = float(metrics["aux"].detach())
+    if ref["aux"] == 0.0:
+        assert aux == 0.0
+    else:
+        assert aux == pytest.approx(ref["aux"], rel=AUX_RTOL)
+    want = dict(jax.tree_util.tree_flatten_with_path(ref["grads"])[0])
     want = {jax.tree_util.keystr(k): v for k, v in want.items()}
     assert set(want) == set(grads)
     for name, g in grads.items():
@@ -147,9 +164,26 @@ def test_forward_train_loss_and_grads(grads_ref, remat):
         scale = float(np.abs(w).max())
         np.testing.assert_allclose(_np(g), w, atol=GRAD_TOL * scale, rtol=0, err_msg=name)
     if remat != "none":
-        _, _, plain = _port_grads(grads_ref, "none")
+        _, _, plain = _port_grads(ref, "none")
         for name, g in grads.items():
             assert torch.equal(g, plain[name]), name
+
+
+@pytest.mark.parametrize("remat", list(REMAT_POLICIES))
+def test_forward_train_loss_and_grads(grads_ref, remat):
+    """The dense config: aux is 0 in both packages."""
+    assert grads_ref["aux"] == 0.0
+    _check_grads(grads_ref, remat)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_moe_forward_train_loss_aux_and_grads(moe_grads_ref, remat):
+    """The MoE configs at capacity: the loss, the layers' summed aux and
+    every gradient (router, experts, shared experts, MLA) as the
+    reference's, with and without remat; the remat'd layers carry their
+    aux through checkpoint."""
+    assert moe_grads_ref["aux"] > 0.0
+    _check_grads(moe_grads_ref, remat)
 
 
 def test_forward_train_makes_no_caches(monkeypatch):
@@ -168,7 +202,7 @@ def test_forward_train_makes_no_caches(monkeypatch):
     assert torch.isfinite(loss)
 
 
-@pytest.mark.parametrize("arch", DENSE_GQA)
+@pytest.mark.parametrize("arch", DENSE_GQA + MOE)
 def test_specs_and_param_counts(arch):
     """The specs tree equals the reference's init specs leaf for leaf; the
     parameter counts at full width equal the reference's."""
@@ -186,12 +220,33 @@ def test_specs_and_param_counts(arch):
     assert active_params(full_t) == jax_active_params(full_j)
 
 
-def test_moe_counts_raise_until_its_slice():
-    cfg = base.get_arch("qwen3_moe_30b_a3b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        count_params_abstract(cfg)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        active_params(cfg)
+@pytest.mark.parametrize("arch,total,active", [
+    ("deepseek_v2_lite_16b", 16_210_311_168, 2_663_233_536),
+    ("qwen3_moe_30b_a3b", 30_532_634_624, 3_353_544_704),
+])
+def test_moe_counts_at_full_width(arch, total, active):
+    """The reference's counts: every parameter, and the active ones (all
+    but the routed experts, plus top_k experts a layer); the router is
+    float32 in the tree whatever the config's dtype."""
+    cfg = base.get_arch(arch)
+    assert count_params_abstract(cfg) == total == jax_count_abstract(jax_base.get_arch(arch))
+    assert active_params(cfg) == active == jax_active_params(jax_base.get_arch(arch))
+    params, specs = tfm.init_params(cfg, device="meta")
+    assert cfg.dtype == "bfloat16"
+    assert params["layers"]["mlp"]["router"]["w"].dtype == torch.float32
+    assert params["layers"]["mlp"]["wi"].dtype == torch.bfloat16
+    assert specs["layers"]["mlp"]["wi"] == ("layers", "expert", "embed", "mlp")
+    assert specs["layers"]["mlp"]["router"]["w"] == ("layers", "embed", "expert")
+
+
+def test_decoder_lm_defaults_to_the_card(monkeypatch):
+    """DecoderLM(cfg) builds on cuda unless told otherwise, and without CUDA
+    raises instead of falling back to the CPU."""
+    _, tcfg = _cfgs()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tfm.DecoderLM(tcfg)
+    assert tfm.DecoderLM(tcfg, device="meta").device.type == "meta"
 
 
 def test_init_params_distribution():
@@ -243,20 +298,31 @@ def _port_trajectory(tcfg, start, steps, microbatches, B=4, S=32):
     return losses, state
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_trajectory_matches_reference(microbatches):
-    """12 steps of make_train_step from the reference's initial TrainState,
-    on SyntheticLM batches of 4 x 32, AdamW on the cosine schedule."""
-    jcfg, tcfg = _cfgs()
-    start, want_losses, jstate = _ref_trajectory(jcfg, 12, microbatches)
-    losses, state = _port_trajectory(tcfg, start, 12, microbatches)
+def _check_trajectory(arch, steps, microbatches):
+    jcfg, tcfg = _cfgs(arch)
+    start, want_losses, jstate = _ref_trajectory(jcfg, steps, microbatches)
+    losses, state = _port_trajectory(tcfg, start, steps, microbatches)
     np.testing.assert_allclose(losses, want_losses, rtol=TRAJ_LOSS_RTOL)
-    assert int(state.step) == int(jstate.step) == 12
+    assert int(state.step) == int(jstate.step) == steps
     want = {jax.tree_util.keystr(k): np.asarray(v)
             for k, v in jax.tree_util.tree_flatten_with_path(jstate.params)[0]}
     for name, p in leaves_with_paths(state.params):
         np.testing.assert_allclose(_np(p), want[name], atol=TRAJ_PARAM_ATOL, rtol=0,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_trajectory_matches_reference(microbatches):
+    """12 steps of make_train_step from the reference's initial TrainState,
+    on SyntheticLM batches of 4 x 32, AdamW on the cosine schedule."""
+    _check_trajectory(ARCH, 12, microbatches)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_train_step_trajectory_matches_reference(arch):
+    """6 steps of the MoE configs at capacity, 2 microbatches: the losses
+    (aux included) and the final parameters as the reference's."""
+    _check_trajectory(arch, 6, 2)
 
 
 def test_train_step_bf16_compute_f32_accumulation():
